@@ -1,0 +1,179 @@
+"""The KNP (concentration) block system, ion-batched, on the Hopper kernels.
+
+Counterpart of ``knpemi_tpu/systems/knp.py`` on its blocked-assembly
+path (``use_pallas``): for every subdomain and solved ion (the last ion
+is eliminated) one implicit-Euler advection-diffusion equation
+
+    (1/dt) int u v + int D_k grad(u).grad(v) + z_k psi int D_k u grad(phi).grad(v)
+  = (1/dt) int c_prev v + membrane Robin terms.
+
+The left-hand side has no interface terms, so the solved ions of one
+subdomain form a batch: K3 (:func:`ops.assembly.knp_apply_batch`)
+applies all of them in one pass, with grad(phi) per cell from K4.  The
+membrane Robin right-hand side runs in membrane-dof space: K9 gathers
+the stacked fields to the facet vertex slots, the quadrature algebra of
+``_robin_facet_values`` (``knp.py:359``) runs in PyTorch, and K10
+scatters the result back.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from ..ops import assembly as A
+from ..ops import kernels as K
+from ..ops import quadrature as quad
+from ..ops.geometry import DiscreteGeometry
+from .types import Ion, PhysicalParams, resolve_device
+
+
+class KNPSystem:
+    def __init__(self, geom: DiscreteGeometry, ions: List[Ion],
+                 params: PhysicalParams, splitting_scheme: bool = True,
+                 dtype=torch.float64, device=None):
+        if any(ion.f_source_q for ion in ions):
+            raise NotImplementedError("ECS source terms are not ported yet")
+        device = resolve_device(device)
+        self.geom = geom
+        self.ions = ions
+        self.params = params
+        self.splitting_scheme = splitting_scheme
+        self.dtype = dtype
+        self.device = device
+        self.tags = geom.sub_tags
+        self.n_solved = len(ions) - 1
+        self.dim = geom.dim
+        idt = A.index_dtype(device)
+        as_f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
+        as_i = lambda a, dt=idt: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+
+        Ns, dt, psi = self.n_solved, params.dt, params.psi
+        self.z_solved = as_f([ion.z for ion in ions[:-1]])
+        self.z_all = as_f([ion.z for ion in ions])
+        self.D = {t: as_f([ion.D[t] for ion in ions[:-1]]) for t in self.tags}
+        self.D_all = {t: as_f([ion.D[t] for ion in ions]) for t in self.tags}
+        self.sub = {}
+        for t, s in geom.subdomains.items():
+            gc, gv = A.cell_gradient_ell(s.cells, s.grads, s.n_dofs)
+            D_t = [ion.D[t] for ion in ions[:-1]]
+            self.sub[t] = dict(
+                n_dofs=s.n_dofs, n_cells=s.n_cells, cells=as_i(s.cells),
+                grads=as_f(s.grads), vols=as_f(s.vols),
+                grad_cols=as_i(gc), grad_vals=as_f(gv),
+                # K3 rows [1/dt, D, z psi D]: the solve's operator, and the
+                # right-hand side's mass term (D = z = 0)
+                coef=as_f([[1.0 / dt, D, ion.z * psi * D]
+                           for ion, D in zip(ions[:-1], D_t)]),
+                coef_mass=as_f([[1.0 / dt, 0.0, 0.0]] * Ns),
+                zero_w=torch.zeros(s.n_cells, self.dim, dtype=dtype, device=device),
+            )
+        self.mem = {}
+        for m, sp in geom.membranes.items():
+            self.mem[m] = dict(
+                n_mem=sp.n_dofs, cell_tag=sp.cell_tag,
+                facet_dofs=as_i(sp.facet_dofs), areas=as_f(sp.areas),
+                mem_to_ecs=as_i(sp.mem_to_ecs, torch.int64),
+                mem_to_ics=as_i(sp.mem_to_ics, torch.int64),
+            )
+        fb, fw = quad.facet_rule(self.dim)
+        self.fb, self.fw = as_f(fb), as_f(fw)
+
+    # ------------------------------------------------------------------
+    def gradphi_cells(self, phi: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
+        """Per-tag drift context: grad(phi) per cell, (n_cells, dim), by K4."""
+        return {
+            t: A.ell_matvec(s["grad_cols"], s["grad_vals"], phi[t].contiguous())
+            .reshape(s["n_cells"], self.dim)
+            for t, s in self.sub.items()
+        }
+
+    def matvec_batch(self, tag: int, X: torch.Tensor, gradphi: torch.Tensor):
+        """All solved ion systems of one subdomain in one K3 pass:
+        X (N_solved, n) -> (N_solved, n)."""
+        s = self.sub[tag]
+        return A.knp_apply_batch(X.contiguous(), s["cells"], s["grads"], s["vols"],
+                                 gradphi, s["coef"])
+
+    def diag(self, tag: int, gradphi: torch.Tensor) -> torch.Tensor:
+        """Batched Jacobi diagonal (N_solved, n) (plain; the coupled step
+        takes the hierarchy's lagged diagonal instead)."""
+        s = self.sub[tag]
+        c = s["cells"].long()
+        n, dt, psi = s["n_dofs"], self.params.dt, self.params.psi
+        md = K.mass_diag(n, c, s["vols"], 1.0 / dt)
+        sd = K.stiffness_diag(n, c, s["grads"], s["vols"])
+        dd = K.drift_diag(n, c, s["grads"], s["vols"], gradphi)
+        D = self.D[tag][:, None]
+        z = self.z_solved[:, None]
+        return md[None, :] + D * sd[None, :] + z * psi * D * dd[None, :]
+
+    # ------------------------------------------------------------------
+    def _robin_facet_values(self, ct: int, Xloc: torch.Tensor, areas: torch.Tensor):
+        """Per-slot assembled values of the membrane Robin terms from
+        facet-local P1 values.  Xloc: (F, nf, k) stacked fields
+        [c_e (N) | c_i (N) | dphi | phi_M | I_ch (N)]; returns (2 Ns, nf, k),
+        the e-side then the i-side values, area- and quadrature-weighted."""
+        p = self.params
+        dt, Fc, C_M = p.dt, p.F, p.C_M
+        N, Ns = len(self.ions), self.n_solved
+        fb, fw = self.fb, self.fw
+        Tq = torch.einsum("fmk,qk->fmq", Xloc, fb)
+        c_e_q, c_i_q = Tq[:N], Tq[N:2 * N]
+        dphi_q, phiM_q = Tq[2 * N], Tq[2 * N + 1]
+        Ich_q = Tq[2 * N + 2:]
+
+        def alpha(tag, cq):
+            Dz2 = self.D_all[tag] * self.z_all ** 2
+            w = Dz2[:, None, None] * cq
+            den = w.sum(dim=0)
+            den = torch.where(den == 0, torch.ones_like(den), den)
+            return w[:Ns] / den[None]
+
+        alpha_e = alpha(0, c_e_q)
+        alpha_i = alpha(ct, c_i_q)
+        z = self.z_solved[:, None, None]
+        C_e = alpha_e * C_M / (Fc * z * dt)
+        C_i = alpha_i * C_M / (Fc * z * dt)
+        Ich_tot_q = Ich_q.sum(dim=0)
+        Ich_k_q = Ich_q[:Ns]
+        g_e = phiM_q[None] - dt / (C_M * alpha_e) * Ich_k_q
+        g_i = phiM_q[None] - dt / (C_M * alpha_i) * Ich_k_q
+        if self.splitting_scheme:
+            g_e = g_e + (dt / C_M) * Ich_tot_q[None]
+            g_i = g_i + (dt / C_M) * Ich_tot_q[None]
+        integ = torch.cat(
+            [C_e * (dphi_q[None] - g_e), C_i * (g_i - dphi_q[None])], dim=0
+        )
+        return torch.einsum("smq,q,qk->smk", integ, fw, fb) * areas[None, :, None]
+
+    def _membrane_rhs(self, mb, c, phi, phi_M_m, I_ch_m):
+        """Membrane Robin right-hand side in membrane-dof space: K9, the
+        quadrature algebra, K10.  Returns (y_e, y_i), each (Ns, n_mem)."""
+        ct = mb["cell_tag"]
+        m2e, m2i = mb["mem_to_ecs"], mb["mem_to_ics"]
+        X = torch.cat([
+            c[0][:, m2e], c[ct][:, m2i],
+            (phi[ct][m2i] - phi[0][m2e])[None], phi_M_m[None], I_ch_m,
+        ], dim=0)  # (F, n_mem)
+        G = A.facet_gather(X, mb["facet_dofs"])
+        vals = self._robin_facet_values(ct, G, mb["areas"])
+        Y = A.facet_scatter(vals.contiguous(), mb["facet_dofs"], mb["n_mem"])
+        return Y[: self.n_solved], Y[self.n_solved:]
+
+    def rhs(self, c, phi, phi_M, I_ch=None) -> Dict[int, torch.Tensor]:
+        """RHS per subdomain: {tag: (N_solved, n)} — the mass term
+        (1/dt) M c_prev by K3 with D = z = 0, plus the membrane terms."""
+        Ns = self.n_solved
+        r = {}
+        for t, s in self.sub.items():
+            r[t] = A.knp_apply_batch(c[t][:Ns].contiguous(), s["cells"], s["grads"],
+                                     s["vols"], s["zero_w"], s["coef_mass"])
+        for m, mb in self.mem.items():
+            y_e, y_i = self._membrane_rhs(mb, c, phi, phi_M[m], I_ch[m])
+            ct = mb["cell_tag"]
+            r[0] = r[0].index_add(1, mb["mem_to_ecs"], y_e)
+            r[ct] = r[ct].index_add(1, mb["mem_to_ics"], y_i)
+        return r
