@@ -21,7 +21,7 @@ import time
 from pathlib import Path
 from typing import Dict
 
-SOURCES = ("cells", "facets")
+SOURCES = ("cells", "facets", "mg")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -51,10 +51,24 @@ _SIGS = {
                      [_c_int] + [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr]),
     "facet_scatter": ("facets", "knp_facet_scatter",
                       [_c_int] + [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr]),
+    # ops/ell.py and ops/banded.py
+    "ell_rmatvec": ("mg", "knp_ell_rmatvec",
+                    [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
+    "ell_matvec_batch": ("mg", "knp_ell_matvec_batch",
+                         [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]),
+    "ell_rmatvec_batch": ("mg", "knp_ell_rmatvec_batch",
+                          [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]),
+    "banded_matvec": ("mg", "knp_banded_matvec",
+                      [_c_int] * 2 + [_c_ptr] * 4 + [_c_int] * 5 + [_c_ptr]),
+    "banded_matvec_batch": ("mg", "knp_banded_matvec_batch",
+                            [_c_int] * 2 + [_c_ptr] * 4 + [_c_int] * 6 + [_c_ptr]),
 }
 _FNS = {}
 
 _FLOAT = (torch.float32, torch.float64)
+# vectors per launch of the batched multigrid kernels (csrc/mg.cu keeps
+# their accumulators in registers); a larger batch goes through in groups
+BATCH_MAX = 8
 
 
 def index_dtype(device) -> torch.dtype:
@@ -382,7 +396,8 @@ def facet_scatter(V, facet_dofs, n_mem: int):
 facet_scatter.launches = 0
 
 
-# (wrapper, plain version) of every kernel, in K-number order
+# (wrapper, plain version) of this module's kernels; ops.kernel_table() merges
+# every module's table
 KERNELS = {
     "K1 emi_stiffness": (emi_stiffness, emi_stiffness_plain),
     "K2 facet_mass": (facet_mass, facet_mass_plain),
@@ -391,12 +406,3 @@ KERNELS = {
     "K9 facet_gather": (facet_gather, facet_gather_plain),
     "K10 facet_scatter": (facet_scatter, facet_scatter_plain),
 }
-
-
-def reset_launch_counts():
-    for wrapper, _ in KERNELS.values():
-        wrapper.launches = 0
-
-
-def launch_counts():
-    return {name: wrapper.launches for name, (wrapper, _) in KERNELS.items()}

@@ -4,11 +4,14 @@ Counterpart of ``knpemi_tpu/sim/stepper.py``: ``SolverOptions`` (:41),
 ``Simulation.__init__`` with the lagged multigrid setups
 (``_setup_emi_mg`` :309, ``_setup_knp_mg`` :447), ``init_state`` (:514)
 and ``step`` (:553), in the JAX package's blocked-assembly configuration
-with ELL multigrid (``use_pallas=True, mg_banded=False``).  One step:
+(``use_pallas=True``) with ELL multigrid (``mg_banded=False``, the
+default here) or its block-banded / windowed-ELL multigrid
+(``SolverOptions(mg_banded=True)``).  One step:
 
   [1] membrane ODEs (RK4 substeps over every membrane dof)
-  [2] EMI solve (CG + SA-AMG V-cycle, kernels K1, K2, K4)
-  [3] KNP solve (ion-batched GMRES + batched V-cycle, K3, K4, K9, K10)
+  [2] EMI solve (CG + SA-AMG V-cycle, kernels K1, K2, K4; banded: K5, K7)
+  [3] KNP solve (ion-batched GMRES + batched V-cycle, K3, K4, K9, K10;
+      banded: K6a, K6b, K8)
   [4] algebraic update (eliminated ion, phi_M from the PDE traces)
 
 The JAX package jits and scans the step; here it runs eagerly, and each
@@ -50,8 +53,12 @@ class SolverOptions:
     # the solve (PETSc ksp_min_it parity)
     min_iter_knp: int = 5
     mg_coarse_max: int = 800
-    # block-banded V-cycle layouts: not ported yet (True raises)
+    # block-banded / windowed-ELL layouts of every V-cycle operator
+    # (solvers/mg.py::build_hierarchy(banded=True)); False: plain ELL
     mg_banded: bool = False
+    # store the fine-level smoothing slab in bfloat16 (storage only: the
+    # kernel upcasts after the read; needs mg_banded)
+    mg_band_bf16: bool = False
 
 
 def _global_rcm(A_hat, s):
@@ -78,8 +85,6 @@ class Simulation:
         self.dtype = dtype
         self.mem_models = {mm.tag: mm for mm in mem_models}
         opts = solver_options or SolverOptions()
-        if opts.mg_banded:
-            raise NotImplementedError("mg_banded=True is not ported yet")
         self.opts = opts
         self.emi_sys = EMISystem(geom, ions, params, splitting_scheme,
                                  dtype=dtype, device=self.device)
@@ -103,11 +108,19 @@ class Simulation:
         """Global RCM of the equilibrated operator, then the (cached) SA
         build, uploaded to the device; returns the DeviceMG."""
         A_hat, s, perm = _global_rcm(A_hat, s)
+        kw = {}
+        if self.opts.mg_banded:
+            # slabs are built in the run dtype: float64 ones would take
+            # twice the host memory only to be cast at upload
+            kw = dict(banded=True, slab_dtype=(
+                np.float32 if self.dtype == torch.float32 else np.float64))
         hier = build_hierarchy_cached(
             A_hat, B=1.0 / s, theta=MG_THETA, coarse_max=self.opts.mg_coarse_max,
+            **kw,
         )
         hier.perm = perm
-        return hier, hier.device(self.dtype, self.device)
+        band_dtype = torch.bfloat16 if self.opts.mg_band_bf16 else None
+        return hier, hier.device(self.dtype, self.device, band_dtype=band_dtype)
 
     def _setup_emi_mg(self):
         """Lagged EMI hierarchy from the initial conductivity (host, once)."""

@@ -1,6 +1,7 @@
-"""Smoothed-aggregation AMG preconditioner (Vanek/Mandel/Brezina), ELL layout.
+"""Smoothed-aggregation AMG preconditioner (Vanek/Mandel/Brezina).
 
-Counterpart of ``knpemi_tpu/solvers/mg.py`` with ``banded=False``:
+Counterpart of ``knpemi_tpu/solvers/mg.py`` with its default damped-Jacobi
+V(1,1) cycle:
 
 * **setup on the host, once** (numpy/scipy, copied from the JAX
   package so the hierarchy comes out identical): strength-of-connection
@@ -12,11 +13,19 @@ Counterpart of ``knpemi_tpu/solvers/mg.py`` with ``banded=False``:
   finest included, lagged) and every transfer is stored in ELL form and
   applied as a gather + row sum, the coarsest inverse is a dense matmul.
 
+With ``banded=True`` every level operator A, transfer P and P^T and
+product AP additionally gets the JAX package's block-banded layout
+(:func:`_csr_to_banded`, applied by kernels K7/K8 of ``ops/banded.py``)
+or, where that is refused, its windowed-ELL layout (``ops/ell.py``,
+kernels K4, K5, K6a, K6b); the cycle takes band, then windowed ELL, then
+plain ELL, and computes the post-smoothing residual from AP where that
+is stored.  The layout *decisions* are the JAX package's (they were made
+for TPU costs and are kept so the two cycles do the same arithmetic);
+its value refresh of a built hierarchy is not ported.
+
 The hierarchy is *lagged*: built from the initial operator and reused
 as the preconditioner while the Krylov solve targets the current
-operator exactly.  The block-banded and windowed-ELL layouts of the JAX
-package (``mg_banded``) are TPU storage formats and are not part of
-this slice.
+operator exactly.
 """
 
 from __future__ import annotations
@@ -31,6 +40,10 @@ from typing import Callable, List, Optional
 import numpy as np
 import scipy.sparse as sp
 import torch
+
+from ..ops import banded as band_ops
+from ..ops import ell as ell_ops
+from ..ops.assembly import index_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -261,7 +274,152 @@ class MGLevel:
     p_vals: Optional[np.ndarray] = None
     pt_cols: Optional[np.ndarray] = None
     pt_vals: Optional[np.ndarray] = None
+    # block-banded dense forms (see _csr_to_banded) of A, P, P^T and of
+    # the product A P (n x nc), which gives the post-smoothing residual as
+    # res1 - (AP) xc from a slab ~nc/n the size of A's; None -> next form
+    a_band: Optional[tuple] = None
+    p_band: Optional[tuple] = None
+    pt_band: Optional[tuple] = None
+    ap_band: Optional[tuple] = None
+    # windowed-ELL forms (ops/ell.py) where banding is refused; pt_ellw is
+    # a layout of P, applied transposed
+    a_ellw: Optional[ell_ops.ELLW] = None
+    ap_ellw: Optional[ell_ops.ELLW] = None
+    p_ellw: Optional[ell_ops.ELLW] = None
+    pt_ellw: Optional[ell_ops.ELLW] = None
     P_csr: Optional[sp.csr_matrix] = None
+
+
+def _csr_to_banded(A: sp.csr_matrix, R: int = 256, W_cap: int = 4096,
+                   density_min: float = 0.002, mem_cap: int = 512 << 20,
+                   n_windows: int = 2, dtype=np.float64):
+    """Multi-window block-banded dense layout of a sparse matrix whose
+    rows are locality-ordered: rows are grouped into blocks of R; each
+    block stores up to ``n_windows`` dense slabs
+    ``A[r0:r0+R, w0_s[b]:w0_s[b]+W_s]`` and a COO list of the few entries
+    outside every window.
+
+    Returns ``(windows, far_rows, far_cols, far_vals, n, m)`` with
+    ``windows = [(slabT (NB*W, R), w0 (NB,), W), ...]``, or None when
+    the layout is unprofitable (windows too wide / slabs too empty).
+
+    Copied from the JAX package so both build the same layouts: the
+    width ladder, the 128-aligned window starts (+128 of width), the
+    coverage and density thresholds and the byte budget (counted at 4
+    bytes per value whatever ``dtype``) are its choices for the TPU."""
+    A = A.tocsr()
+    n, m = A.shape
+    NB = -(-n // R)
+    indptr, indices, data = A.indptr, A.indices, A.data
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    blk = rows // R
+    m128 = -(-m // 128) * 128
+    mem_left = mem_cap
+
+    remaining = np.ones(A.nnz, bool)
+    windows = []
+    for _ in range(n_windows):
+        rem_nnz = int(remaining.sum())
+        if rem_nnz == 0 or (windows and rem_nnz < 0.02 * A.nnz):
+            break  # leftover is cheap enough as a COO remainder
+        # split remaining entries by row-block in one pass (blk is
+        # nondecreasing in CSR order)
+        rem_idx = np.flatnonzero(remaining)
+        bounds = np.searchsorted(blk[rem_idx], np.arange(1, NB))
+        block_cols = [
+            np.sort(part) for part in np.split(indices[rem_idx], bounds)
+        ]
+
+        def coverage(W):
+            near = 0
+            for c in block_cols:
+                if len(c):
+                    near += int(
+                        (np.searchsorted(c, c + W) - np.arange(len(c))).max()
+                    )
+            return near
+
+        # smallest ladder W capturing >= 85% of the remaining entries —
+        # but keep scanning (to <= 2x that width) for FULL coverage
+        W = W85 = best_W = None
+        best_near = -1
+        for Wc in (128, 256, 512, 1024, 1536, 2048, 3072, 4096):
+            if Wc > min(W_cap, m128) or NB * R * Wc * 4 > mem_left:
+                break
+            near = coverage(Wc)
+            if near > best_near:
+                best_near, best_W = near, Wc
+            if W85 is None and near >= 0.85 * rem_nnz:
+                W85 = Wc
+            if near >= rem_nnz:
+                W = Wc if (W85 is None or Wc <= 2 * W85) else W85
+                break
+            if W85 is not None and Wc >= 2 * W85:
+                W = W85
+                break
+        if W is None:
+            W = W85
+        if W is None:
+            # a follow-up window is accepted at lower coverage
+            accept = 0.5 if not windows else 0.35
+            if best_W is None or best_near < accept * rem_nnz:
+                break  # this window wouldn't pay for itself
+            W = best_W
+        if not windows and m128 <= min(W_cap, mem_left // (4 * NB * R)) \
+                and m128 < 2 * W:
+            W = m128  # window can cover everything: store dense
+        # densest width-W window per block (two-pointer on sorted cols),
+        # start aligned down to 128 (+128 of width)
+        w0 = np.zeros(NB, np.int32)
+        for b, c in enumerate(block_cols):
+            if len(c) == 0:
+                continue
+            cover = np.searchsorted(c, c + W) - np.arange(len(c))
+            w0[b] = c[int(np.argmax(cover))]
+        w0 = (w0 // 128 * 128).astype(np.int32)
+        W = W + 128
+        if NB * R * W * 4 > mem_left:
+            break
+        loc = indices - w0[blk]
+        inside = remaining & (loc >= 0) & (loc < W)
+        nnz_in = int(inside.sum())
+        # follow-up windows accept much sparser slabs than the first
+        dmin = density_min if not windows else density_min / 4
+        if nnz_in < dmin * NB * R * W and n > 2048:
+            break  # slab nearly empty: leftovers stay COO
+        slabT = np.zeros((NB * W, R), dtype)
+        slabT[blk[inside] * W + loc[inside], rows[inside] % R] = data[inside]
+        windows.append((slabT, w0, W))
+        remaining = remaining & ~inside
+        mem_left -= NB * R * W * 4
+
+    if not windows:
+        return None
+    if int(remaining.sum()) > 0.25 * A.nnz:
+        return None  # windows miss too much: layout not applicable
+    far_rows = rows[remaining].astype(np.int32)
+    far_cols = indices[remaining].astype(np.int32)
+    far_vals = data[remaining]
+    return windows, far_rows, far_cols, far_vals, n, m
+
+
+def _device_band(band, dtype, device, slab_dtype=None):
+    """A :func:`_csr_to_banded` layout as device tensors: slabs in
+    ``slab_dtype`` (default ``dtype``), far values in ``dtype``."""
+    if band is None:
+        return None
+    windows, far_rows, far_cols, far_vals, n, m = band
+    as_i = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
+    return dict(
+        windows=[dict(
+            # uploaded as built (the run dtype), cast on the device
+            slabT=torch.as_tensor(sT, device=device).to(slab_dtype or dtype),
+            w0=torch.as_tensor(w0, dtype=index_dtype(device), device=device),
+            W=W,
+        ) for sT, w0, W in windows],
+        far_rows=as_i(far_rows), far_cols=as_i(far_cols),
+        far_vals=torch.as_tensor(far_vals, dtype=dtype, device=device), n=n, m=m,
+    )
 
 
 @dataclasses.dataclass
@@ -277,18 +435,36 @@ class MGHierarchy:
     nu: int = 1
     perm: Optional[np.ndarray] = None
 
-    def device(self, dtype, device) -> "DeviceMG":
+    def device(self, dtype, device, band_dtype=None) -> "DeviceMG":
+        """Upload to ``device`` in ``dtype``.  ``band_dtype`` is the STORAGE
+        type of the fine-level smoothing slab (``torch.bfloat16`` halves
+        its bytes; default ``dtype``): the kernel upcasts each value after
+        the read and never rounds the vector, so the preconditioner stays
+        one fixed linear operator.  It applies to ``levels[0].a_band``
+        only: the Galerkin coarse operators and the transfers must keep
+        the near-null space exactly."""
         as_f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
         as_i = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         iperm = np.argsort(self.perm) if self.perm is not None else None
+        dev_band = lambda band, slab_dt=None: _device_band(band, dtype, device, slab_dt)
+        ellw_done = {}  # p_ellw and pt_ellw are often one layout
+
+        def dev_ellw(e):
+            if e is None:
+                return None
+            if id(e) not in ellw_done:
+                ellw_done[id(e)] = e.device(dtype, device)
+            return ellw_done[id(e)]
+
         out = []
         for ilv, lv in enumerate(self.levels):
             # matrix-free permuted fine level: the smoothing diagonal in
             # SOLVER layout, so level 0 smooths with the caller's operator
             # without permuting every application
             dinv_solver = None
-            if ilv == 0 and iperm is not None and lv.a_cols is None:
+            if (ilv == 0 and iperm is not None and lv.a_cols is None
+                    and lv.a_band is None and lv.a_ellw is None):
                 dinv_solver = as_f((1.0 / lv.diag)[iperm])
             out.append(dict(
                 n=lv.n,
@@ -300,12 +476,23 @@ class MGHierarchy:
                 a_vals=None if lv.a_vals is None else as_f(lv.a_vals),
                 p_cols=as_i(lv.p_cols), p_vals=as_f(lv.p_vals),
                 pt_cols=as_i(lv.pt_cols), pt_vals=as_f(lv.pt_vals),
+                a_band=dev_band(lv.a_band, band_dtype if ilv == 0 else None),
+                ap_band=dev_band(lv.ap_band), p_band=dev_band(lv.p_band),
+                pt_band=dev_band(lv.pt_band),
+                a_ellw=dev_ellw(lv.a_ellw), ap_ellw=dev_ellw(lv.ap_ellw),
+                p_ellw=dev_ellw(lv.p_ellw), pt_ellw=dev_ellw(lv.pt_ellw),
             ))
         return DeviceMG(
             out, as_f(self.coarse_V), as_f(self.coarse_ilam), self.nu,
             perm=None if self.perm is None else as_i(self.perm),
             iperm=None if iperm is None else as_i(iperm),
         )
+
+
+# byte budgets of the block-banded layouts (the JAX package's defaults):
+# per level operator, and per transfer or A P product
+BAND_CAP = 1024 << 20
+TBAND_CAP = 512 << 20
 
 
 def build_hierarchy(
@@ -316,17 +503,24 @@ def build_hierarchy(
     max_levels: int = 10,
     nu: int = 1,
     omega_p: float = 4.0 / 3.0,
-    fine_ell=True,
+    fine_ell="auto",
     banded: bool = False,
+    slab_dtype=np.float64,
 ) -> MGHierarchy:
     """Build the SA hierarchy of ``knpemi_tpu/solvers/mg.py::build_hierarchy``
-    with ``banded=False`` and its default damped-Jacobi smoother.  ``B`` is the near-null vector of A0 (1/s for an
-    operator equilibrated by S = diag(s)).  With ``fine_ell`` the finest
-    operator is stored in ELL form too and the V-cycle smooths with it
-    (the JAX package's ``fine_ell="auto"`` without banding does the same)."""
-    if banded:
-        raise NotImplementedError(
-            "block-banded multigrid layouts are not ported yet (mg_banded)")
+    with its default damped-Jacobi smoother.  ``B`` is the near-null
+    vector of A0 (1/s for an operator equilibrated by S = diag(s)).
+
+    With ``fine_ell`` the finest operator is stored too and the V-cycle
+    smooths with it, not with the caller's.  ``"auto"`` means yes, except
+    that with ``banded`` a finest operator that takes neither the banded
+    nor the windowed-ELL layout is dropped again.
+
+    With ``banded`` every level operator, transfer and A P product gets a
+    block-banded layout (:func:`_csr_to_banded`, slabs in ``slab_dtype``)
+    within ``BAND_CAP`` bytes per level operator and ``TBAND_CAP`` per
+    transfer or product, or else a windowed-ELL layout
+    (``ops/ell.py::build_ellw``); what takes neither keeps plain ELL."""
     A = A0.tocsr()
     if B is None:
         B = np.ones(A.shape[0])
@@ -376,8 +570,38 @@ def build_hierarchy(
             lv.a_cols, lv.a_vals = _csr_to_ell(A)
         lv.p_cols, lv.p_vals = _csr_to_ell(P, pad_diag=False)
         lv.pt_cols, lv.pt_vals = _csr_to_ell(P.T.tocsr(), pad_diag=False)
+        AP = (A @ P).tocsr()  # reused below for the Galerkin RAP
+        if banded:
+            if lv.a_cols is not None:
+                lv.a_band = _csr_to_banded(A, mem_cap=BAND_CAP, dtype=slab_dtype)
+                if lv.a_band is None:
+                    lv.a_ellw = ell_ops.build_ellw(A)
+                # fused post-smooth operand (see MGLevel.ap_band); only
+                # where the level smooths with its own lagged operator —
+                # with the caller's current fine operator a lagged AP
+                # would break the cycle's symmetry
+                lv.ap_band = _csr_to_banded(AP, mem_cap=TBAND_CAP, dtype=slab_dtype)
+                if lv.ap_band is None:
+                    lv.ap_ellw = ell_ops.build_ellw(AP)
+            lv.p_band = _csr_to_banded(P, mem_cap=TBAND_CAP, dtype=slab_dtype)
+            if lv.p_band is None:
+                # one windowed-ELL layout of P serves BOTH directions
+                # (gather = P, scatter = P^T)
+                lv.p_ellw = ell_ops.build_ellw(P)
+                lv.pt_ellw = lv.p_ellw
+            else:
+                lv.pt_band = _csr_to_banded(P.T.tocsr(), mem_cap=TBAND_CAP,
+                                            dtype=slab_dtype)
+                if lv.pt_band is None:
+                    lv.pt_ellw = ell_ops.build_ellw(P)
+        if (not levels and fine_ell == "auto" and banded
+                and lv.a_band is None and lv.a_ellw is None):
+            # no storable fine layout: drop the stored operator so the
+            # cycle smooths level 0 with the caller's operator
+            lv.a_cols = lv.a_vals = None
+            lv.ap_band = lv.ap_ellw = None
         levels.append(lv)
-        A = (P.T @ (A @ P).tocsr()).tocsr()
+        A = (P.T @ AP).tocsr()
     if A.shape[0] > 20 * coarse_max:
         raise RuntimeError(
             f"AMG coarsening stalled at n={A.shape[0]} "
@@ -390,7 +614,7 @@ def build_hierarchy(
 
 
 # cache-key version: bump whenever build_hierarchy's algorithm changes
-_BUILD_VERSION = "torch-v1"
+_BUILD_VERSION = "torch-v2"  # v2: banded and windowed-ELL layouts
 CACHE_DIR = Path(__file__).resolve().parents[1] / "build" / "mg_cache"
 
 
@@ -441,10 +665,26 @@ def _ell_mv_batch(cols, vals, X):
     return (vals[None] * X[:, cols]).sum(dim=-1)
 
 
+def _banded_mv(band, x, batch: bool):
+    """y = A x (or Y = X A^T for X (B, m)) with A in multi-window
+    block-banded form: each window through K7 (K8 for a batch, one slab
+    read for all B vectors), summed, plus the COO remainder."""
+    mv = band_ops.banded_matvec_batch if batch else band_ops.banded_matvec
+    y = None
+    for win in band["windows"]:
+        ys = mv(win["slabT"], win["w0"], x, band["n"], win["W"])
+        y = ys if y is None else y + ys
+    if band["far_rows"].shape[0]:
+        far = band["far_vals"] * x[..., band["far_cols"]]
+        y.index_add_(-1, band["far_rows"], far)  # y is this call's own
+    return y
+
+
 class DeviceMG:
     """Symmetric V(nu, nu)-cycle on the device with damped-Jacobi
-    smoothing.  Level operators are the lagged ELL matrices; a level-0
-    without one smooths with the operator the caller passes.
+    smoothing.  Level operators are the lagged matrices, each in the
+    first form it has of block-banded, windowed ELL and plain ELL; a
+    level-0 without one smooths with the operator the caller passes.
     ``fine_diag`` (set by the caller) is the raw diagonal of the operator
     the hierarchy was built from, the solvers' lagged equilibration
     scale."""
@@ -459,8 +699,26 @@ class DeviceMG:
         self.iperm = iperm
         self.fine_diag = fine_diag
 
+    def layout(self):
+        """Per level, the form the cycle takes for A, P, P^T and AP: 'band',
+        'ellw', 'ell' or, for a level-0 A without a stored operator,
+        'caller'; AP is None where the post-smooth is not fused."""
+        pick = lambda lv, w: ("band" if lv[w + "_band"] is not None
+                              else "ellw" if lv[w + "_ellw"] is not None else None)
+        return [dict(
+            n=lv["n"],
+            A=pick(lv, "a") or ("ell" if lv["a_cols"] is not None else "caller"),
+            P=pick(lv, "p") or "ell", Pt=pick(lv, "pt") or "ell",
+            AP=pick(lv, "ap") if self._fused_post(lv) else None,
+        ) for lv in self.levels]
+
     def _op(self, i: int, A0: Callable, batch: bool):
         lv = self.levels[i]
+        if lv["a_band"] is not None:
+            return lambda x: _banded_mv(lv["a_band"], x, batch)
+        if lv["a_ellw"] is not None:
+            mv = ell_ops.ellw_matvec_batch if batch else ell_ops.ellw_matvec
+            return lambda x: mv(lv["a_ellw"], x)
         if lv["a_cols"] is None:
             return A0
         mv = _ell_mv_batch if batch else _ell_mv
@@ -468,8 +726,46 @@ class DeviceMG:
 
     @staticmethod
     def _transfer(lv, which: str, x, batch: bool):
+        if lv[which + "_band"] is not None:
+            return _banded_mv(lv[which + "_band"], x, batch)
+        ellw = lv[which + "_ellw"]
+        if ellw is not None:
+            # the stored layout is always of P; restriction applies it
+            # transposed
+            if which == "pt":
+                mv = ell_ops.ellw_rmatvec_batch if batch else ell_ops.ellw_rmatvec
+            else:
+                mv = ell_ops.ellw_matvec_batch if batch else ell_ops.ellw_matvec
+            return mv(ellw, x)
         mv = _ell_mv_batch if batch else _ell_mv
         return mv(lv[which + "_cols"], lv[which + "_vals"], x)
+
+    def _fused_post(self, lv) -> bool:
+        """Take the post-smoothing residual as res1 - (AP) xc instead of a
+        second full-operator apply.  Valid for the V(1,1) cycle on a level
+        that smooths with its LAGGED operator (AP is lagged too; AP is
+        only ever stored for such a level).  A banded AP always fuses; a
+        windowed-ELL AP only when the JAX package's static work product
+        NCH*Wr*K*C says it is cheaper than the operator's own layout —
+        a TPU cost rule, kept so both cycles do the same arithmetic."""
+        if self.nu != 1:
+            return False
+        if lv["ap_band"] is not None:
+            return True
+        ap = lv["ap_ellw"]
+        if ap is None:
+            return False
+        a = lv["a_ellw"]
+        if a is not None:
+            return ap.NCH * ap.Wr * ap.K * ap.C <= a.NCH * a.Wr * a.K * a.C
+        return lv["a_band"] is None
+
+    @staticmethod
+    def _ap_apply(lv, xc, batch: bool):
+        if lv["ap_band"] is not None:
+            return _banded_mv(lv["ap_band"], xc, batch)
+        mv = ell_ops.ellw_matvec_batch if batch else ell_ops.ellw_matvec
+        return mv(lv["ap_ellw"], xc)
 
     def _coarse(self, r, batch: bool):
         V, ilam = self.coarse_V, self.coarse_ilam
@@ -489,12 +785,8 @@ class DeviceMG:
         if self.perm is None:
             return self._cycle(0, A0, r, batch)
         perm, iperm = self.perm, self.iperm
-        if batch:
-            gather = lambda v: v[:, perm]
-            scatter = lambda v: v[:, iperm]
-        else:
-            gather = lambda v: v[perm]
-            scatter = lambda v: v[iperm]
+        gather = lambda v: v[..., perm]
+        scatter = lambda v: v[..., iperm]
         if self.levels and self.levels[0]["dinv_solver"] is not None:
             return self._fine_solver_cycle(A0, r, gather, scatter, batch)
         # the hierarchy lives in the permuted space; A0 is consulted only
@@ -535,4 +827,9 @@ class DeviceMG:
         rc = self._transfer(lv, "pt", res1, batch)
         xc = self._cycle(i + 1, A0, rc, batch)
         x = x + self._transfer(lv, "p", xc, batch)
+        if self._fused_post(lv):
+            # res(x + P xc) = res1 - (AP) xc: the same arithmetic from a
+            # much smaller read than a second full-operator apply
+            res2 = res1 - self._ap_apply(lv, xc, batch)
+            return x + omega * (dinv * res2)
         return self._smooth(A, dinv, omega, r, x, self.nu)

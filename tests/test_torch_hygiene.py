@@ -102,10 +102,50 @@ def test_simulation_without_device_needs_cuda(monkeypatch):
 
 
 def test_kernel_sources_present():
-    from knpemi_tpu_torch.ops import _build
+    from knpemi_tpu_torch.ops import _build, assembly
 
+    assert set(_build.SOURCES) == {"cells", "facets", "mg"}
     for name in _build.SOURCES:
         assert (PORT / "ops" / "csrc" / f"{name}.cu").is_file()
+    # every C entry point a wrapper names is defined in its source
+    for kernel, (lib, symbol, _) in assembly._SIGS.items():
+        assert lib in _build.SOURCES, kernel
+        src = (PORT / "ops" / "csrc" / f"{lib}.cu").read_text()
+        assert re.search(rf"\bint {symbol}\(", src), f"{symbol} not in {lib}.cu"
+
+
+ELEVEN = ["K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7", "K8", "K9", "K10"]
+
+
+def test_every_wrapper_has_a_plain_twin_and_a_launch_counter():
+    import knpemi_tpu_torch.ops as ops
+
+    table = ops.kernel_table()
+    assert sorted(n.split()[0] for n in table) == sorted(ELEVEN)
+    for name, (wrapper, plain) in table.items():
+        assert plain.__name__ == wrapper.__name__ + "_plain", name
+        assert sys.modules[plain.__module__] is sys.modules[wrapper.__module__]
+        assert isinstance(wrapper.launches, int), name
+        assert "Replaces ``knpemi_tpu/ops/pallas_" in wrapper.__doc__, name
+        assert "Bound on the H100" in wrapper.__doc__, name
+
+
+@pytest.mark.parametrize("module", ["ell", "banded"])
+def test_kernel_wrappers_call_no_library_product_and_never_fall_back(module):
+    """On CUDA a wrapper launches or raises: outside its ``_plain`` twins a
+    module of wrappers calls no PyTorch product or scatter, is not
+    compiled by torch.compile and has no try around a launch."""
+    tree = ast.parse((PORT / "ops" / f"{module}.py").read_text())
+    banned = {"matmul", "bmm", "mm", "mv", "einsum", "index_add_", "index_add",
+              "scatter_add_", "scatter_add", "compile"}
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef) or fn.name.endswith("_plain") \
+                or fn.name == "_windows":
+            continue
+        for node in ast.walk(fn):
+            assert not isinstance(node, ast.Try), f"{module}.{fn.name}: try"
+            if isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute):
+                assert node.func.attr not in banned, f"{module}.{fn.name}: {node.func.attr}"
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):

@@ -60,7 +60,7 @@ def jax_simulation(dtype, use_pallas, **opts):
         params, {1: get_model("hh")}, geom, ions)
     return Simulation(
         geom, ions, params, mm,
-        JOpts(rtol_emi=1e-5, rtol_knp=1e-7, mg_banded=False, **opts),
+        JOpts(**{"rtol_emi": 1e-5, "rtol_knp": 1e-7, "mg_banded": False, **opts}),
         dtype=dtype, use_pallas=use_pallas)
 
 
@@ -131,7 +131,19 @@ def test_state_roundtrip(runs):
     assert int(back["step"]) == int(statesJ[1].step)
 
 
-def test_options_outside_the_slice_raise():
+def test_options_outside_the_slice_raise(runs):
+    """What the port has not taken over raises instead of running something
+    else: a multi-candidate near-null space, an EMI solve without its
+    hierarchy.  (``mg_banded=True`` is ported: test_torch_mg_banded.py.)"""
+    import scipy.sparse as sp
+    from knpemi_tpu_torch.solvers import mg
+    from knpemi_tpu_torch.solvers.api import EMISolver
+
+    simT = runs[0]
+    assert SolverOptions().mg_banded is False
+    A = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(2000, 2000)).tocsr()
     with pytest.raises(NotImplementedError):
-        build_idealized(dim=2, resolution=1, dtype=torch.float64, device="cpu",
-                        solver_options=SolverOptions(mg_banded=True))
+        mg.build_hierarchy(A, B=np.ones((2000, 2)))
+    s = simT.init_state()
+    with pytest.raises(NotImplementedError):
+        EMISolver(simT.emi_sys).solve(s.c, s.phi_M)
