@@ -9,19 +9,31 @@ and 4 come in two groups):
 
 0. device and build: the card's name and power limit, the torch and
    CUDA versions, and the build of every CUDA kernel from ops/csrc;
-1. kernels: each of the eleven hand-written kernels against its plain
+1. kernels: each of the twelve hand-written kernels against its plain
    PyTorch version on the card, in float32 and float64 (K7/K8 also with
-   a bfloat16 slab) — the six assembly kernels at the shapes of the 3-D
-   res-2 mesh, the five multigrid kernels at the shapes of the res-2
-   banded hierarchies' own operators (EMI for K5/K7, KNP tag 0 at B = 2
-   and once at B = 8 for K6a/K6b/K8); times of kernel, plain version
-   and (where one PyTorch call computes the same function) that call,
-   beside the bound;
+   a bfloat16 slab) — the six assembly kernels of the batched step at
+   the shapes of the 3-D res-2 mesh, the five multigrid kernels at the
+   shapes of the res-2 banded hierarchies' own operators (EMI for
+   K4/K5/K7, KNP tag 0 at B = 2 and once at B = 8 for K6a/K6b/K8), and
+   the single-ion KNP operator K11 on the three subdomains of the
+   astrocyte flagship, also row by row against K3; before each of the
+   three flagship runs, every kernel of the batched step once more on
+   that simulation's own operators: K1/K3/K4 on each of its three
+   subdomains (per-tag diffusion coefficients), K2/K9/K10 on both
+   membranes and, with mg_banded, K4-K8 on the layouts its four
+   hierarchies took; times of kernel, plain version
+   and (where one call computes the same function: a PyTorch call, for
+   K11 the port's own K3 at B = 1) that call, beside the bound;
 2. parity: 2 float64 steps of the 3-D res-1 scenario on the GPU and on
    the CPU, with ELL and with banded multigrid — equal Krylov iteration
    counts on all four, phi_M within 1e-9 V and concentrations within
-   1e-9 relative between GPU and CPU; then 5 float32 res-1 steps with
+   1e-9 relative between GPU and CPU — and per-ion with banded multigrid
+   (single-vector KNP V-cycles through K7; counts equal GPU against
+   CPU, the same gates); then 5 float32 res-1 steps with
    the fine smoothing slabs in float32 and in bfloat16 (mg_band_bf16);
+   and 2 float64 steps of the astrocyte tissue scenario at mesh_n 20 on
+   the GPU and on the CPU, ion-batched and per-ion — equal iteration
+   counts GPU against CPU, phi_M within 1e-9 mV, c within 1e-9 relative;
 3. slice: the 3-D res-2 scenario (float32, g_syn_bar 10), 2 warm-up and
    10 timed steps, once per multigrid path (mg_banded=False, then
    mg_banded=True with the layout build_hierarchy chose per level);
@@ -36,13 +48,25 @@ and 4 come in two groups):
    each timed run and read just after; every kernel the path can reach
    must have launched (all eleven in the long box), K7 or K8 on a
    banded path, and every step converged;
-4. profile, per res-2 path: the step's four phases timed by host clock over 3
-   steps, their kernel counts in one step, then 3 steps under
+   then the astrocyte tissue flagship at full width (mesh_n 64, 840,015
+   dofs/step, three subdomains, two membranes, float32, the tuned solver
+   options, mg_banded=False): ion-batched for 12 warm-up steps (past the
+   onset of the pulsed ECS source) and 20 timed steps, then per-ion
+   (knp_batched=False, K11 once per GMRES iteration of every ion) for
+   12 + 10 steps; the source gate must be on in the timed window, K_e
+   must have risen above its initial value, the per-ion run must launch
+   K11 and launch K3 only for the right-hand side's mass term, and
+   phi_M of the two runs at step 22 must agree within 1e-3 relative L2;
+   last the batched flagship with mg_banded=True for 12 + 5 steps;
+4. profile, per res-2 path and per flagship run: the
+   step's four phases timed by host clock over 3 steps, their kernel
+   counts in one step, then 3 steps under
    torch.profiler — device kernel time and busy share, kernels per
    step, the top kernels.
 
-Then the kernel table as one JSON line, the card's name and power
-limit, and the last line
+Then the kernel table as one JSON line of twelve entries (the eleven
+kernels of the batched step from the long box, K11 from the per-ion
+flagship run), the card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and the script exits non-zero without that line; it
 also exits non-zero when CUDA is unavailable or when the package is not
@@ -61,6 +85,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # peak rates outside the tensor cores (NVIDIA H100 SXM data sheet)
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, x max|y|
+CELL_KERNELS = ("K1", "K3", "K4")  # of the assembly kernels; the others: facets
 
 
 def emit(obj):
@@ -95,11 +120,13 @@ def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def kernel_cases(sim, dtype):
-    """The six assembly kernels at the main path's shapes, on random inputs
-    made from a seed: dicts of name, kern / plain / lib (calls without
-    arguments; lib may be None), nbytes (inputs read once + output
-    written once) and ops."""
+def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
+    """The six assembly kernels at the main path's shapes — the cell
+    kernels K1, K3, K4 on subdomain ``tag`` (with its own diffusion
+    coefficients), the facet kernels K2, K9, K10 on membrane ``mem`` — on
+    random inputs made from a seed: dicts of name, kern / plain / lib
+    (calls without arguments; lib may be None), nbytes (inputs read once
+    + output written once) and ops."""
     import torch
 
     from knpemi_tpu_torch.ops import assembly as A
@@ -111,8 +138,8 @@ def kernel_cases(sim, dtype):
     f = lambda t: t.to(dtype)
     es = torch.empty((), dtype=dtype).element_size()
 
-    es_, ks = sim.emi_sys.sub[0], sim.knp_sys.sub[0]
-    mb_e = sim.emi_sys.mem[1]
+    es_, ks = sim.emi_sys.sub[tag], sim.knp_sys.sub[tag]
+    mb_e = sim.emi_sys.mem[mem]
     cells, grads, vols = es_["cells"], f(es_["grads"]), f(es_["vols"])
     nc, k = cells.shape
     dim = grads.shape[-1]
@@ -140,7 +167,9 @@ def kernel_cases(sim, dtype):
         1, fdl.reshape(-1), V.reshape(2 * Ns, -1))
 
     def case(name, kern, plain, lib, inputs, n_out, ops, **extra):
-        return dict(name=name, kern=lambda: kern(*inputs),
+        on = f"tag {tag}" if name.split()[0] in CELL_KERNELS else f"membrane {mem}"
+        return dict(name=name, variant=on,
+                    kern=lambda: kern(*inputs),
                     plain=lambda: plain(*inputs), lib=lib,
                     nbytes=_nbytes(*inputs) + n_out * es, ops=ops, **extra)
 
@@ -165,6 +194,67 @@ def kernel_cases(sim, dtype):
              lambda *a: A.facet_scatter_plain(*a, n_mem), scat, (V, fd),
              2 * Ns * n_mem, 2 * Ns * nf * kf),
     ]
+
+
+def k11_cases(sim, dtype, phi_scale: float):
+    """K11 on every subdomain of ``sim``, once per solved ion's scalars
+    on tag 0 and with the first ion's on the others; random x, and w =
+    grad(phi) per cell from a random phi of ``phi_scale`` (1 mV in the
+    scenario's unit), formed by K4's plain version as the main path
+    forms it, so that the drift term is a visible share of the output.
+    Each case also holds K11 against K3: both rows of a B = 2 call
+    against two K11 calls.  The nearest single call computing the same
+    function is the port's own K3 at B = 1: it stands in the library
+    column."""
+    import torch
+
+    from knpemi_tpu_torch.ops import assembly as A
+
+    dev = sim.device
+    g = torch.Generator(device=dev).manual_seed(2)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+    es = torch.empty((), dtype=dtype).element_size()
+    dname = str(dtype).replace("torch.", "")
+    ks, p = sim.knp_sys, sim.params
+    cases = []
+    for t, s in ks.sub.items():
+        cells, grads, vols = s["cells"], s["grads"].to(dtype), s["vols"].to(dtype)
+        nc, k = cells.shape
+        dim, n = grads.shape[-1], s["n_dofs"]
+        phi = phi_scale * rnd(n)
+        w = A.ell_matvec_plain(s["grad_cols"], s["grad_vals"].to(dtype), phi).reshape(nc, dim)
+        scal = [(1.0 / p.dt, ion.D[t], ion.z * p.psi * ion.D[t]) for ion in sim.ions[:-1]]
+        X = rnd(len(scal), n)
+        geo = (cells, grads, vols, w)
+        # K11 against K3, row by row
+        coef_all = torch.tensor(scal, dtype=dtype, device=dev)
+        Y3 = A.knp_apply_batch(X, *geo, coef_all)
+        for b, sc in enumerate(scal):
+            y11 = A.knp_apply(X[b].contiguous(), *geo, *sc)
+            err, scale = float((y11 - Y3[b]).abs().max()), float(Y3[b].abs().max())
+            if not err <= TOL[dname] * scale:
+                raise AssertionError(f"K11 vs K3 row {b}, tag {t}, {dname}: {err:.3e} "
+                                     f"exceeds {TOL[dname]:.0e} x {scale:.3e}")
+        for b, sc in enumerate(scal if t == 0 else scal[:1]):
+            x = X[b].contiguous()
+            coef1 = torch.tensor([sc], dtype=dtype, device=dev)
+            cases.append(dict(
+                name="K11 knp_apply", variant=f"tag {t} ion {sim.ions[b].name}",
+                kern=lambda x=x, geo=geo, sc=sc: A.knp_apply(x, *geo, *sc),
+                plain=lambda x=x, geo=geo, sc=sc: A.knp_apply_plain(x, *geo, *sc),
+                lib=lambda x=x, geo=geo, c=coef1: A.knp_apply_batch(x[None], *geo, c)[0],
+                no_drift=lambda x=x, geo=geo, sc=sc: A.knp_apply_plain(
+                    x, *geo[:3], torch.zeros_like(geo[3]), *sc),
+                min_drift_share=1e-3,
+                # one K3 launch for all solved ions: what the batched solve
+                # pays where the per-ion solve pays one K11 launch per ion
+                also_time={"k3_all_ions_ms": lambda X=X, geo=geo, c=coef_all:
+                           A.knp_apply_batch(X, *geo, c)},
+                nbytes=_nbytes(x, *geo) + n * es,
+                ops=nc * (k + 2 * k * dim + k * (4 * dim + 10)),
+                shape=dict(n=n, nc=nc, k=k, dim=dim, scalars=list(sc)),
+            ))
+    return cases
 
 
 def _first_layout(levels, kind, roles):
@@ -233,13 +323,19 @@ def _csr_of_window(slabT, w0, W, n, m, dtype):
                                    vals[keep], (n, m)).coalesce().to_sparse_csr()
 
 
-def mg_kernel_cases(sim, dtype):
-    """The five multigrid kernels at the shapes of ``sim``'s banded
-    hierarchies: K5 and K7 on operators of the EMI hierarchy, K6a, K6b and
-    K8 on operators of the KNP hierarchy of tag 0 at B = 2 (the solved
-    ions) and once at B = 8; the scatter kernels K5 and K6b on a
-    restriction (pt) layout, the gather kernel K6a on a level operator or
-    prolongator.  Bounds: K7/K8 move the slab, the window starts and the
+def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
+                    as_built_only: bool = False):
+    """The multigrid kernels at the shapes of ``sim``'s banded
+    hierarchies: with ``emi``, K4 (the single-vector gather on a level
+    operator or prolongator), K5 and K7 on operators of the EMI
+    hierarchy; K6a, K6b and K8 on operators of the KNP hierarchy of
+    ``knp_tag`` at B = 2 (the solved ions) and once at B = 8; the scatter
+    kernels K5 and K6b on a restriction (pt) layout, the gather kernels
+    K4 and K6a on a level operator or prolongator.  A hierarchy that
+    stores no operator in a kernel's layout gets, for the windowed-ELL
+    kernels, the layout build_ellw gives one of its prolongators, and for
+    the banded ones an error — or, with ``as_built_only``, no case: the
+    caller then checks which kernels its cases cover.  Bounds: K7/K8 move the slab, the window starts and the
     vectors; K5/K6 move an index and a value per NONZERO slot (what this
     matrix needs) and the vectors — the kernels read the padded slots
     too, whose bytes stand beside the bound as ``bytes_padded``."""
@@ -254,10 +350,12 @@ def mg_kernel_cases(sim, dtype):
     g = torch.Generator(device=dev).manual_seed(1)
     rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=dtype)
     es = torch.empty((), dtype=dtype).element_size()
-    emi, knp = sim.emi_solver.mg, sim.knp_solver.mg[0]
+    emi_mg, knp = sim.emi_solver.mg, sim.knp_solver.mg[knp_tag]
     cases = []
 
-    def ell_cases(name, mg, roles, wrapper, plain, transpose, Bs):
+    def ell_cases(name, mg, hname, roles, wrapper, plain, transpose, Bs):
+        if as_built_only and _first_layout(mg.levels, "ellw", roles) is None:
+            return
         e, src = _ellw_case_source(mg, dtype, roles)
         e = dataclasses.replace(e, vals=e.vals.to(dtype))
         nnz = int((e.vals != 0).sum())
@@ -273,10 +371,13 @@ def mg_kernel_cases(sim, dtype):
                 plain=lambda V=V: plain(e, V), lib=lib,
                 nbytes=nnz * (4 + es) + nb * (n_in + n_out) * es, ops=2 * nnz * nb,
                 bytes_padded=e.n_rows * e.K * (4 + es) + nb * (n_in + n_out) * es,
-                shape=dict(rows=e.n_rows, cols=e.n_cols, K=e.K, nnz=nnz, source=src)))
+                shape=dict(rows=e.n_rows, cols=e.n_cols, K=e.K, nnz=nnz,
+                           source=f"{hname} {src}")))
 
-    def band_cases(name, mg, batch, Bs):
+    def band_cases(name, mg, hname, batch, Bs):
         found = _first_layout(mg.levels, "band", ("a", "ap", "p", "pt"))
+        if found is None and as_built_only:
+            return
         if found is None:
             raise AssertionError(f"{name}: no banded operator in the hierarchy")
         i, w, band = found
@@ -301,16 +402,23 @@ def mg_kernel_cases(sim, dtype):
                     nbytes=_nbytes(slabT, w0) + B * (m + n) * es,
                     ops=2 * slabT.numel() * B,
                     shape=dict(NB=slabT.shape[0] // W, R=slabT.shape[1], W=W, n=n,
-                               m=m, source=f"level {i} {w}_band window 0")))
+                               m=m, source=f"{hname} level {i} {w}_band window 0")))
 
-    ell_cases("K5 ellw_rmatvec", emi, ("pt",), TE.ellw_rmatvec,
-              TE.ellw_rmatvec_plain, True, (None,))
-    ell_cases("K6a ellw_matvec_batch", knp, ("a", "p", "ap"), TE.ellw_matvec_batch,
-              TE.ellw_matvec_batch_plain, False, (2, 8))
-    ell_cases("K6b ellw_rmatvec_batch", knp, ("pt",), TE.ellw_rmatvec_batch,
+    kname = f"KNP tag {knp_tag}"
+    if emi:
+        ell_cases("K5 ellw_rmatvec", emi_mg, "EMI", ("pt",), TE.ellw_rmatvec,
+                  TE.ellw_rmatvec_plain, True, (None,))
+    ell_cases("K6a ellw_matvec_batch", knp, kname, ("a", "p", "ap"),
+              TE.ellw_matvec_batch, TE.ellw_matvec_batch_plain, False, (2, 8))
+    ell_cases("K6b ellw_rmatvec_batch", knp, kname, ("pt",), TE.ellw_rmatvec_batch,
               TE.ellw_rmatvec_batch_plain, True, (2, 8))
-    band_cases("K7 banded_matvec", emi, False, (1,))
-    band_cases("K8 banded_matvec_batch", knp, True, (2, 8))
+    if emi:
+        band_cases("K7 banded_matvec", emi_mg, "EMI", False, (1,))
+    band_cases("K8 banded_matvec_batch", knp, kname, True, (2, 8))
+    if emi:
+        # after the others: the order of the random inputs above is kept
+        ell_cases("K4 ell_matvec", emi_mg, "EMI", ("a", "p", "ap"), TE.ellw_matvec,
+                  TE.ellw_matvec_plain, False, (None,))
     return cases
 
 
@@ -339,8 +447,11 @@ def check_cases(cases, dtype, time_them: bool):
             if key in c:
                 row[key] = c[key]
         if "no_drift" in c:
-            # share of K3's output that the drift term carries
+            # share of the operator's output that the drift term carries
             row["drift_share"] = float((y_ref - c["no_drift"]()).abs().max()) / scale
+            if row["drift_share"] < c.get("min_drift_share", 0.0):
+                raise AssertionError(f"{label}: the drift term is only "
+                                     f"{row['drift_share']:.3e} of max|y|")
         if time_them:
             t_bytes = c["nbytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = c["ops"] / PEAK_FLOPS[dname] * 1e3
@@ -352,6 +463,8 @@ def check_cases(cases, dtype, time_them: bool):
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=c["nbytes"], ops=c["ops"],
             )
+            for key, fn in c.get("also_time", {}).items():
+                row[key] = cuda_ms(fn)
         rows.append(row)
     return rows
 
@@ -364,6 +477,36 @@ def check_mg_kernels(sim, dtype, time_them: bool):
     return check_cases(mg_kernel_cases(sim, dtype), dtype, time_them)
 
 
+def check_k11(sim, dtype, time_them: bool, phi_scale: float):
+    return check_cases(k11_cases(sim, dtype, phi_scale), dtype, time_them)
+
+
+def check_all_operators(sim, dtype, time_them: bool):
+    """Every kernel of the batched step at every shape ``sim`` gives it:
+    the cell kernels K1, K3, K4 on each subdomain, the facet kernels K2,
+    K9, K10 on each membrane and, with mg_banded, the multigrid kernels
+    on the layouts the EMI hierarchy and each subdomain's KNP hierarchy
+    took (those layouts only; the kernels they cover must be the ones
+    the step can reach)."""
+    tags, mems = sorted(sim.knp_sys.sub), sorted(sim.emi_sys.mem)
+    on_cells = lambda c: c["name"].split()[0] in CELL_KERNELS
+    cases = []
+    for t in tags:
+        cases += filter(on_cells, kernel_cases(sim, dtype, tag=t, mem=mems[0]))
+    for m in mems:
+        cases += [c for c in kernel_cases(sim, dtype, tag=tags[0], mem=m)
+                  if not on_cells(c)]
+    if sim.opts.mg_banded:
+        for i, t in enumerate(tags):
+            cases += mg_kernel_cases(sim, dtype, knp_tag=t, emi=i == 0,
+                                     as_built_only=True)
+        covered = {c["name"].split()[0] for c in cases}
+        missed = {k for k in reachable_kernels(sim) if k != "K11"} - covered
+        if missed:
+            raise AssertionError(f"no phase-1 case for {sorted(missed)}")
+    return check_cases(cases, dtype, time_them)
+
+
 def max_rel(a, b):
     import torch
 
@@ -371,31 +514,47 @@ def max_rel(a, b):
 
 
 def parity(build_idealized, SolverOptions):
-    """2 float64 steps of the 3-D res-1 scenario on the GPU and the CPU,
-    with ELL and with banded multigrid."""
+    """2 float64 steps of the 3-D res-1 scenario on the GPU and the CPU:
+    ion-batched with ELL and with banded multigrid, and per-ion with
+    banded multigrid (the KNP V-cycles then run on single vectors: the
+    GPU run must launch K7 and K11, and neither K6a, K6b nor K8)."""
     import torch
+
+    from knpemi_tpu_torch import ops
 
     out = {}
     states = {}
-    for banded in (False, True):
+    paths = {"ell": dict(mg_banded=False), "banded": dict(mg_banded=True),
+             "banded_per_ion": dict(mg_banded=True, knp_batched=False)}
+    for path, opts in paths.items():
         for dev in ("cuda", "cpu"):
             t0 = time.perf_counter()
             sim = build_idealized(dim=3, resolution=1, g_syn_bar=10.0,
                                   dtype=torch.float64, device=dev,
-                                  solver_options=SolverOptions(mg_banded=banded))
+                                  solver_options=SolverOptions(**opts))
             s = sim.init_state()
+            ops.reset_launch_counts()
             s, it_e, it_k, ok = sim.run(s, 2)
-            key = f"{'banded' if banded else 'ell'}_{dev}"
+            key = f"{path}_{dev}"
             out[key] = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
                             seconds=time.perf_counter() - t0)
-            if banded:
+            if opts["mg_banded"]:
                 out[key]["emi_layout"] = sim.emi_solver.mg.layout()
+            if dev == "cuda":
+                out[key]["launches"] = counts = ops.launch_counts()
+                reach = reachable_kernels(sim)
+                wrong = [k for k, v in counts.items() if bool(v) != (k.split()[0] in reach)]
+                if wrong or (path == "banded_per_ion" and not {"K7", "K11"} <= reach):
+                    raise AssertionError(f"{key}: launches {counts} do not match the "
+                                         f"reachable kernels {sorted(reach)}")
             states[key] = s
-    ref = out["ell_cpu"]
-    for key, o in out.items():
-        if o["emi_iters"] != ref["emi_iters"] or o["knp_iters"] != ref["knp_iters"]:
-            raise AssertionError(f"iteration counts differ ({key} vs ell_cpu): {out}")
-    for path in ("ell", "banded"):
+    for path in paths:
+        # the per-ion solve stops each ion on its own: held to its own CPU run
+        ref = out["banded_per_ion_cpu" if path == "banded_per_ion" else "ell_cpu"]
+        for dev in ("cuda", "cpu"):
+            o = out[f"{path}_{dev}"]
+            if o["emi_iters"] != ref["emi_iters"] or o["knp_iters"] != ref["knp_iters"]:
+                raise AssertionError(f"iteration counts differ ({path}_{dev}): {out}")
         g, c = states[f"{path}_cuda"], states[f"{path}_cpu"]
         dphi = max(float((g.phi_M[m].cpu() - c.phi_M[m]).abs().max()) for m in c.phi_M)
         dc = max(max_rel(g.c[t].cpu(), c.c[t]) for t in c.c)
@@ -404,6 +563,40 @@ def parity(build_idealized, SolverOptions):
                                  f"max rel d c {dc:.3e} (gates 1e-9)")
         out[f"{path}_max_abs_dphi_M_V"] = dphi
         out[f"{path}_max_rel_dc"] = dc
+    return out
+
+
+def parity_astrocyte(build_astrocyte, baseline, SolverOptions):
+    """2 float64 steps of the astrocyte tissue scenario at mesh_n 20 (the
+    config's own resolution 0) on the GPU and the CPU, ion-batched and
+    per-ion.  Units: phi_M in mV, concentrations in mM."""
+    import torch
+
+    out = {}
+    for batched in (True, False):
+        states = {}
+        name = "batched" if batched else "per_ion"
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            sim = build_astrocyte(
+                {**baseline, "mesh_n": 20}, dtype=torch.float64, device=dev,
+                solver_options=SolverOptions(rtol_emi=1e-6, rtol_knp=1e-7,
+                                             knp_batched=batched))
+            s, it_e, it_k, ok = sim.run(sim.init_state(), 2)
+            out[f"{name}_{dev}"] = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
+                                        seconds=time.perf_counter() - t0)
+            states[dev] = s
+        g, c = out[f"{name}_cuda"], out[f"{name}_cpu"]
+        if g["emi_iters"] != c["emi_iters"] or g["knp_iters"] != c["knp_iters"]:
+            raise AssertionError(f"{name}: iteration counts differ GPU vs CPU: {out}")
+        g, c = states["cuda"], states["cpu"]
+        dphi = max(float((g.phi_M[m].cpu() - c.phi_M[m]).abs().max()) for m in c.phi_M)
+        dc = max(max_rel(g.c[t].cpu(), c.c[t]) for t in c.c)
+        if not (dphi <= 1e-9 and dc <= 1e-9):
+            raise AssertionError(f"{name}: GPU vs CPU: max|d phi_M| {dphi:.3e} mV, "
+                                 f"max rel d c {dc:.3e} (gates 1e-9)")
+        out[f"{name}_max_abs_dphi_M_mV"] = dphi
+        out[f"{name}_max_rel_dc"] = dc
     return out
 
 
@@ -502,38 +695,52 @@ KERNEL_SOURCES = {
     "K8": ("mg", "knpemi_tpu/ops/pallas_banded.py:89"),
     "K9": ("facets", "knpemi_tpu/ops/pallas_assembly.py:742"),
     "K10": ("facets", "knpemi_tpu/ops/pallas_assembly.py:758"),
+    "K11": ("cells", "knpemi_tpu/ops/pallas_assembly.py:397"),
 }
 ASSEMBLY = ("K1", "K2", "K3", "K4", "K9", "K10")
+# the kernels of the ion-batched step; K11 belongs to the per-ion one
+BATCHED_PATH = tuple(k for k in KERNEL_SOURCES if k != "K11")
 
 
 def reachable_kernels(sim):
-    """K-numbers the step of ``sim`` can launch: the six assembly kernels
-    and, from the layouts its hierarchies took, the multigrid ones."""
+    """K-numbers the step of ``sim`` can launch: the six assembly kernels,
+    K11 on the per-ion KNP branch and, from the layouts its hierarchies
+    took, the multigrid ones (the per-ion branch runs the KNP V-cycles
+    on single vectors: K5/K7 in place of K6a/K6b/K8)."""
     out = set(ASSEMBLY)
+    batched = sim.opts.knp_batched
+    if not batched:
+        out.add("K11")
     emi = sim.emi_solver.mg.layout()
     knp = [lv for mg in sim.knp_solver.mg.values() for lv in mg.layout()]
     forms = lambda lay, roles: {lv[w] for lv in lay for w in roles}
-    if "band" in forms(emi, ("A", "P", "Pt", "AP")):
+    single = emi if batched else emi + knp
+    if "band" in forms(single, ("A", "P", "Pt", "AP")):
         out.add("K7")
-    if "band" in forms(knp, ("A", "P", "Pt", "AP")):
-        out.add("K8")
-    if "ellw" in forms(emi, ("Pt",)):
+    if "ellw" in forms(single, ("Pt",)):
         out.add("K5")
-    if "ellw" in forms(knp, ("A", "P", "AP")):
-        out.add("K6a")
-    if "ellw" in forms(knp, ("Pt",)):
-        out.add("K6b")
+    if batched:
+        if "band" in forms(knp, ("A", "P", "Pt", "AP")):
+            out.add("K8")
+        if "ellw" in forms(knp, ("A", "P", "AP")):
+            out.add("K6a")
+        if "ellw" in forms(knp, ("Pt",)):
+            out.add("K6b")
     return out
 
 
 def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
-              profile: bool = True, need=(), other_bytes: int = 0):
-    """Phases 3 and 4 for one simulation: warm up, set the launch counts
-    to 0, time n_steps, read the counts, check the result (every kernel
-    the hierarchies can reach, and every K-number in ``need``, launched);
-    then, with ``profile``, phase 4.  ``other_bytes`` of device memory
-    belong to another simulation and are taken off the peak.  Returns
-    the launch counts and the state reached."""
+              profile: bool = True, need=(), other_bytes: int = 0,
+              warm: int = 2, keep_at: int = 0):
+    """Phases 3 and 4 for one simulation: ``warm`` warm-up steps, set the
+    launch counts to 0, time n_steps, read the counts, check the result
+    (every kernel the hierarchies can reach, and every K-number in
+    ``need``, launched); then, with ``profile``, phase 4.  ``other_bytes``
+    of device memory belong to another simulation and are taken off the
+    peak.  Returns the record printed, with two fields more: ``state``,
+    reached at the end of the timed steps (before phase 4), and ``kept``,
+    the state after ``keep_at`` of the timed steps."""
+    import numpy as np
     import torch
 
     from knpemi_tpu_torch import ops
@@ -541,12 +748,23 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
 
     t0 = time.perf_counter()
     state = sim.init_state()
-    state, it_e0, it_k0, _ = sim.run(state, 2)
+    state, it_e0, it_k0, _ = sim.run(state, warm)
+    # the source gate of each timed step, on the stepper's own clock
+    t_k, gates = state.t, []
+    for _ in range(n_steps):
+        gates.append(float(sim.source_gate(t_k)))
+        t_k = t_k + sim.params.dt
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t1 = time.perf_counter()
-    state, it_e, it_k, ok = sim.run(state, n_steps)
+    kept = None
+    if keep_at:
+        kept, e1, k1, ok1 = sim.run(state, keep_at)
+        state, e2, k2, ok2 = sim.run(kept, n_steps - keep_at)
+        it_e, it_k, ok = (np.concatenate(p) for p in ((e1, e2), (k1, k2), (ok1, ok2)))
+    else:
+        state, it_e, it_k, ok = sim.run(state, n_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = ops.launch_counts()
@@ -577,17 +795,24 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
         mdofs_per_s=dofs * n_steps / wall / 1e6,
         emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
         warmup_iters=[it_e0.tolist(), it_k0.tolist()],
-        converged=bool(ok.all()), launches=launches, reachable=sorted(reach),
+        converged=bool(ok.all()), launches=launches,
+        launches_per_step={k: v / n_steps for k, v in launches.items()},
+        reachable=sorted(reach), knp_batched=sim.opts.knp_batched,
         peak_device_bytes=torch.cuda.max_memory_allocated() - other_bytes,
         host_setup_seconds=setup_s,
         emi_layout=sim.emi_solver.mg.layout(),
         knp_layout={t: mg.layout() for t, mg in sim.knp_solver.mg.items()},
-        phi_M_range_V=[float(state.phi_M[1].min()), float(state.phi_M[1].max())],
+        # in the scenario's unit: V (idealized), mV (astrocyte)
+        phi_M_range={m: [float(v.min()), float(v.max())]
+                     for m, v in state.phi_M.items()},
+        source_gate_on_steps=int(sum(g > 0 for g in gates)),
+        c_ecs_first_ion_max=float(state.c[0][0].max()),
     )
     rec["seconds"] = time.perf_counter() - t0
     emit(rec)
+    rec.update(state=state, kept=kept)
     if not profile:
-        return launches, state
+        return rec
 
     # -- phase 4: where the step's time goes ---------------------------------
     t0 = time.perf_counter()
@@ -597,7 +822,7 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
     emit(dict(phase=4, path=label, case=case + ", 3 profiled steps",
               phase_ms_per_step=phases, phase_kernels_per_step=phase_k,
               **prof, seconds=time.perf_counter() - t0))
-    return launches, state
+    return rec
 
 
 def bf16_slab_steps(build_idealized, SolverOptions, n_steps: int = 5):
@@ -642,6 +867,88 @@ def bf16_slab_steps(build_idealized, SolverOptions, n_steps: int = 5):
     return out
 
 
+MESH_N, FLAGSHIP_DOFS = 64, 840_015  # the flagship's width, dofs per step
+
+
+def flagship(build_astrocyte, baseline, SolverOptions):
+    """The astrocyte tissue flagship at full width (mesh_n 64), float32,
+    the tuned solver options: the ion-batched run, the per-ion run and
+    the batched run with mg_banded=True.  Before each run, phase 1 on
+    that simulation's own operators, float32 (timed on the two batched
+    runs) and float64: every kernel
+    of the batched step on each of the three subdomains and two
+    membranes (and, banded, on the layouts of the four hierarchies), K11
+    on the three subdomains; then phases 3 and 4.  Returns K11's float32
+    rows and the launch counts of the three runs."""
+    import torch
+
+    from knpemi_tpu_torch.sim.scenarios import K_E_INIT_A  # initial ECS K+, mM
+
+    tuned = dict(min_iter_knp=2, restart=8, rtol_knp=3e-6, rtol_emi=1e-5)
+    config = {**baseline, "mesh_n": MESH_N}
+    case = f"astrocyte tissue mesh_n {MESH_N} float32 tuned options"
+    runs = {}
+    k11_rows = None
+    for label, banded, batched, warm, n_steps in (
+            ("flagship batched", False, True, 12, 20),
+            ("flagship per-ion", False, False, 12, 10),
+            # warmed past the source onset like the others: at rest the KNP
+            # solve meets its tolerance with no iteration, and no KNP
+            # V-cycle runs
+            ("flagship banded", True, True, 12, 5)):
+        t0 = time.perf_counter()
+        sim = build_astrocyte(
+            config, dtype=torch.float32, device="cuda",
+            solver_options=SolverOptions(mg_banded=banded, knp_batched=batched, **tuned))
+        setup_s = time.perf_counter() - t0
+        if (len(sim.geom.subdomains), len(sim.geom.membranes)) != (3, 2):
+            raise AssertionError(f"{label}: expected 3 subdomains and 2 membranes")
+        # -- phase 1 at this run's shapes; phi in mV ---------------------------
+        t1 = time.perf_counter()
+        rows = dict(float32=check_all_operators(sim, torch.float32, batched),
+                    float64=check_all_operators(sim, torch.float64, False))
+        if k11_rows is None:
+            k11_rows = check_k11(sim, torch.float32, True, phi_scale=1.0)
+            rows["float32"] = rows["float32"] + k11_rows
+            rows["float64"] += check_k11(sim, torch.float64, True, phi_scale=1.0)
+        emit(dict(phase=1, path=label, setup_seconds=setup_s, **rows,
+                  seconds=time.perf_counter() - t1))
+        del rows
+        torch.cuda.empty_cache()
+        rec = runs[label] = run_slice(sim, label, case, n_steps, setup_s, warm=warm,
+                                      keep_at=10 if label == "flagship batched" else 0)
+        if rec["dofs_per_step"] != FLAGSHIP_DOFS:
+            raise AssertionError(f"{label}: {rec['dofs_per_step']} dofs/step, "
+                                 f"not {FLAGSHIP_DOFS}")
+        if rec["source_gate_on_steps"] < 1:
+            raise AssertionError(f"{label}: the source gate is off in every timed step")
+        if not rec["c_ecs_first_ion_max"] > K_E_INIT_A + 0.1:
+            raise AssertionError(f"{label}: K_e max {rec['c_ecs_first_ion_max']} mM "
+                                 f"has not risen above its initial {K_E_INIT_A}")
+        del sim
+        torch.cuda.empty_cache()
+    launches = {k: r["launches"] for k, r in runs.items()}
+    per_ion = launches["flagship per-ion"]
+    if per_ion["K3 knp_apply_batch"] != 3 * 10:
+        raise AssertionError("flagship per-ion: K3 must launch once per subdomain and "
+                             f"step (the rhs mass term), got {per_ion['K3 knp_apply_batch']}")
+    if launches["flagship batched"]["K11 knp_apply"]:
+        raise AssertionError("flagship batched: K11 launched on the batched branch")
+    # both runs' states at step 22
+    a, b = runs["flagship batched"]["kept"], runs["flagship per-ion"]["state"]
+    if int(a.step) != 22 or int(b.step) != 22:
+        raise AssertionError(f"steps {int(a.step)} and {int(b.step)}, expected 22")
+    rel = {m: float(torch.linalg.norm(a.phi_M[m] - b.phi_M[m])
+                    / torch.linalg.norm(b.phi_M[m])) for m in b.phi_M}
+    if not max(rel.values()) <= 1e-3:
+        raise AssertionError(f"batched vs per-ion phi_M at step 22: rel L2 {rel}")
+    emit(dict(phase=3, path="flagship batched vs per-ion", step=22,
+              phi_M_rel_l2=rel, gate=1e-3,
+              ms_per_step={k: r["ms_per_step"] for k, r in runs.items()},
+              k11_launches_per_step=per_ion["K11 knp_apply"] / 10))
+    return k11_rows, launches
+
+
 def main() -> int:
     try:
         import torch
@@ -658,7 +965,9 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(repo))
     from knpemi_tpu_torch.ops import _build
-    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+    from knpemi_tpu_torch.sim import (
+        ASTROCYTE_BASELINE, SolverOptions, build_astrocyte, build_idealized,
+    )
 
     smi = smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -690,9 +999,9 @@ def main() -> int:
                   float64=r64, seconds=time.perf_counter() - t1))
         # -- phases 3 and 4: the slice at res 2, float32 ------------------------
         torch.cuda.empty_cache()
-        launches[label], _ = run_slice(
+        launches[label] = run_slice(
             sim, label, "3-D res 2 float32 g_syn_bar 10", 10, setup_s,
-            other_bytes=other_bytes)
+            other_bytes=other_bytes)["launches"]
         del sim
         torch.cuda.empty_cache()
 
@@ -712,11 +1021,15 @@ def main() -> int:
     emit(dict(phase=1, path="mg_banded=True l=4", setup_seconds=setup_s,
               float32=rows32, float64=r64, seconds=time.perf_counter() - t1))
     torch.cuda.empty_cache()
-    launches["long box"], _ = run_slice(
+    launches["long box"] = run_slice(
         sim, "mg_banded=True l=4", "3-D res 2 l=4 float32 g_syn_bar 10", 5,
-        setup_s, profile=False, need=KERNEL_SOURCES)
+        setup_s, profile=False, need=BATCHED_PATH)["launches"]
     del sim
     torch.cuda.empty_cache()
+
+    # -- the astrocyte flagship: K11's phase 1, then batched and per-ion ------
+    k11_rows, fl = flagship(build_astrocyte, ASTROCYTE_BASELINE, SolverOptions)
+    launches.update(fl)
 
     # -- phase 2: GPU vs CPU parity, float64 ---------------------------------
     t0 = time.perf_counter()
@@ -727,22 +1040,35 @@ def main() -> int:
     emit(dict(phase=2, case="3-D res 1 float32 mg_banded=True, fine slab dtype",
               **bf16_slab_steps(build_idealized, SolverOptions),
               seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    emit(dict(phase=2, case="astrocyte tissue mesh_n 20 float64",
+              **parity_astrocyte(build_astrocyte, ASTROCYTE_BASELINE, SolverOptions),
+              seconds=time.perf_counter() - t0))
 
-    # one row per kernel, all of it from the path on which all eleven lie
-    # (the long box): launches of its 5 timed steps, and error, times and
-    # bound of the kernel's first variant (K6a/K6b/K8 at B = 2, the slab in
-    # the run dtype) at that path's shapes.  Beside them the two res-2
-    # paths' launch counts over 10 steps.
+    # one row per kernel.  The eleven of the batched step: all from the path
+    # on which all eleven lie (the long box): launches of its 5 timed steps,
+    # and error, times and bound of the kernel's first variant (K6a/K6b/K8
+    # at B = 2, the slab in the run dtype) at that path's shapes.  K11: from
+    # the per-ion flagship run, launches of its 10 timed steps, error, times
+    # and bound on the flagship's ECS subdomain with the first ion's scalars;
+    # its library_ms is the port's own K3 at B = 1.  Beside them every other
+    # path's launch counts (res 2: 10 steps; flagship batched 20, per-ion
+    # 10, banded 5).
     first = {}
-    for r in rows32:
+    for r in rows32 + k11_rows:
         first.setdefault(r["name"], r)
+    main_path = lambda name: ("flagship per-ion" if name.startswith("K11 ")
+                              else "long box")
     emit({"kernels": [
         dict(name=name, route="cuda",
              source=f"knpemi_tpu_torch/ops/csrc/{KERNEL_SOURCES[name.split()[0]][0]}.cu",
              replaces=KERNEL_SOURCES[name.split()[0]][1],
-             launches=launches["long box"][name],
+             launches=launches[main_path(name)][name], main_path=main_path(name),
              launches_res2_banded=launches["mg_banded=True"][name],
              launches_res2_ell=launches["mg_banded=False"][name],
+             launches_flagship_batched=launches["flagship batched"][name],
+             launches_flagship_per_ion=launches["flagship per-ion"][name],
+             launches_flagship_banded=launches["flagship banded"][name],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r["library_ms"], variant=r.get("variant"),

@@ -21,7 +21,9 @@ from .systems.coupling import set_initial_conditions, update_pde_variables  # no
 from .models.engine import (  # noqa: E402
     MembraneModel, setup_membrane_model, update_ode_variables,
 )
-from .sim import Simulation, SolverOptions, build_idealized  # noqa: E402
+from .sim import (  # noqa: E402
+    ASTROCYTE_BASELINE, Simulation, SolverOptions, build_astrocyte, build_idealized,
+)
 
 __all__ = [
     "Ion",
@@ -38,4 +40,6 @@ __all__ = [
     "Simulation",
     "SolverOptions",
     "build_idealized",
+    "build_astrocyte",
+    "ASTROCYTE_BASELINE",
 ]

@@ -6,6 +6,13 @@ from .generators import (
     idealized_2d_mesh,
     idealized_3d_mesh,
 )
+from .tissue import (
+    astrocyte_tissue_mesh,
+    two_cell_tissue_mesh,
+    remark_emimesh,
+    split_membrane_x_slabs,
+    find_roi_points,
+)
 
 __all__ = [
     "Mesh",
@@ -15,4 +22,9 @@ __all__ = [
     "box_3d_mesh",
     "idealized_2d_mesh",
     "idealized_3d_mesh",
+    "astrocyte_tissue_mesh",
+    "two_cell_tissue_mesh",
+    "remark_emimesh",
+    "split_membrane_x_slabs",
+    "find_roi_points",
 ]

@@ -4,7 +4,7 @@ from .engine import (
     update_ode_variables,
     rk4_step,
 )
-from .registry import get_model, register_model
+from .registry import available_models, get_model, register_model
 
 __all__ = [
     "MembraneModel",
@@ -13,4 +13,5 @@ __all__ = [
     "rk4_step",
     "get_model",
     "register_model",
+    "available_models",
 ]

@@ -24,11 +24,26 @@ class ODEModel:
     currents: Callable  # (t, y, p) -> tuple of per-ion currents (n,)
     current_names: Sequence[str]  # ion names, e.g. ("Na", "K", "Cl")
 
-    def init_states(self) -> np.ndarray:
-        return self.default_states.copy()
+    def init_states(self, **overrides) -> np.ndarray:
+        y = self.default_states.copy()
+        for k, v in overrides.items():
+            y[list(self.state_names).index(k)] = v
+        return y
 
-    def init_params(self) -> np.ndarray:
-        return self.default_params.copy()
+    def init_params(self, **overrides) -> np.ndarray:
+        p = self.default_params.copy()
+        for k, v in overrides.items():
+            p[list(self.param_names).index(k)] = v
+        return p
+
+    def state_indices(self, *names):
+        """Index of one state name, or the list of indices of several."""
+        idx = [list(self.state_names).index(n) for n in names]
+        return idx if len(idx) > 1 else idx[0]
+
+    def parameter_indices(self, *names):
+        idx = [list(self.param_names).index(n) for n in names]
+        return idx if len(idx) > 1 else idx[0]
 
 
 _REGISTRY: Dict[str, ODEModel] = {}
@@ -40,6 +55,12 @@ def register_model(model: ODEModel) -> ODEModel:
 
 
 def get_model(name: str) -> ODEModel:
-    from . import hh  # noqa: F401  (populates the registry)
+    from . import glial, hh  # noqa: F401  (populate the registry)
 
     return _REGISTRY[name]
+
+
+def available_models():
+    from . import glial, hh  # noqa: F401
+
+    return sorted(_REGISTRY)

@@ -1,4 +1,4 @@
-"""The six Hopper assembly kernels of the coupled step, with plain twins.
+"""The seven Hopper assembly kernels of the coupled step, with plain twins.
 
 Each wrapper below launches a hand-written CUDA kernel (``ops/csrc``,
 built by :mod:`._build`) for CUDA tensors and uses its plain PyTorch
@@ -43,6 +43,9 @@ _SIGS = {
                       [_c_int] + [_c_ptr] * 5 + [_c_int] * 3 + [_c_ptr]),
     "knp_apply_batch": ("cells", "knp_knp_apply_batch",
                         [_c_int] + [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]),
+    "knp_apply": ("cells", "knp_knp_apply",
+                  [_c_int] + [_c_ptr] * 6 + [ctypes.c_double] * 3
+                  + [_c_int] * 3 + [_c_ptr]),
     "ell_matvec": ("cells", "knp_ell_matvec",
                    [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
     "facet_mass": ("facets", "knp_facet_mass",
@@ -208,6 +211,56 @@ def knp_apply_batch(X, cells, grads, vols, w, coef):
 
 
 knp_apply_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K11: KNP operator of one ion
+# ---------------------------------------------------------------------------
+def knp_apply_plain(x, cells, grads, vols, w, dt_inv, D, zpsiD):
+    c = cells.long()
+    n = x.shape[0]
+    return (dt_inv * K.mass_apply(n, x, c, vols)
+            + D * K.stiffness_apply(n, x, c, grads, vols)
+            + zpsiD * K.drift_apply(n, x, c, grads, vols, w))
+
+
+def knp_apply(x, cells, grads, vols, w, dt_inv: float, D: float, zpsiD: float):
+    """K11.  y = dt_inv M x + D K x + zpsiD Drift(w) x for ONE ion: the
+    operator of :func:`knp_apply_batch` on a single vector, its three
+    scalars passed to the kernel by value (Python floats: no coefficient
+    tensor, no upload per ion).  The per-ion KNP solve applies it once
+    per GMRES iteration of every (subdomain, ion) block.
+
+    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_knp_kernel`` (via
+    ``knp_apply_blocked``, whose scalars sit in SMEM).  Bound on the H100:
+    bytes — x, cells, grads, vols, w read once, y written once
+    (``csrc/cells.cu``).  Design: one thread per cell, k exact gathers,
+    the three terms summed in registers, k atomic adds.
+
+    x (n,), cells (nc, k), grads (nc, k, dim), vols (nc,), w (nc, dim)
+    -> y (n,)."""
+    _check_value(x, "x")
+    if x.dim() != 1:
+        raise ValueError(f"x must be a vector, got shape {tuple(x.shape)}")
+    nc, k = cells.shape
+    dim = grads.shape[-1]
+    _check_mesh(k, dim)
+    _check(cells, "cells", x, index=True)
+    _check(grads, "grads", x, (nc, k, dim))
+    _check(vols, "vols", x, (nc,))
+    _check(w, "w", x, (nc, dim))
+    dt_inv, D, zpsiD = float(dt_inv), float(D), float(zpsiD)
+    if not x.is_cuda:
+        return knp_apply_plain(x, cells, grads, vols, w, dt_inv, D, zpsiD)
+    y = torch.zeros_like(x)
+    _launch("knp_apply", x, x.data_ptr(), cells.data_ptr(), grads.data_ptr(),
+            vols.data_ptr(), w.data_ptr(), y.data_ptr(), dt_inv, D, zpsiD,
+            nc, k, dim)
+    knp_apply.launches += 1
+    return y
+
+
+knp_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -405,4 +458,5 @@ KERNELS = {
     "K4 ell_matvec": (ell_matvec, ell_matvec_plain),
     "K9 facet_gather": (facet_gather, facet_gather_plain),
     "K10 facet_scatter": (facet_scatter, facet_scatter_plain),
+    "K11 knp_apply": (knp_apply, knp_apply_plain),
 }

@@ -98,3 +98,10 @@ def drift_diag(n_dofs, cells, grads, vols, w_cell, coef=1.0):
     wg = torch.einsum("cd,ckd->ck", w_cell, grads)
     return scatter_add(n_dofs, cells, (coef * vols / k)[:, None] * wg)
 
+
+def source_rhs_quad(n_dofs, f_at_q, cells, vols, bary, qw):
+    """RHS of ``integral f * v`` with f given at cell quadrature points.
+
+    f_at_q: (n_cells, n_q); bary: (n_q, k); qw: (n_q,)."""
+    vals = torch.einsum("cq,q,qk->ck", f_at_q, qw, bary) * vols[:, None]
+    return scatter_add(n_dofs, cells, vals)

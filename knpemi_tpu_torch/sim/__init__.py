@@ -1,4 +1,7 @@
 from .stepper import Simulation, SolverOptions
-from .scenarios import build_idealized, dofs_per_step
+from .scenarios import (
+    ASTROCYTE_BASELINE, build_astrocyte, build_idealized, dofs_per_step,
+)
 
-__all__ = ["Simulation", "SolverOptions", "build_idealized", "dofs_per_step"]
+__all__ = ["Simulation", "SolverOptions", "build_idealized", "build_astrocyte",
+           "ASTROCYTE_BASELINE", "dofs_per_step"]

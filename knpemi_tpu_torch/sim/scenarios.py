@@ -1,20 +1,30 @@
-"""The idealized scenarios of ``examples/idealized/run_2d.py`` / ``run_3d.py``.
+"""The scenarios: idealized axons and the astrocyte tissue flagship.
 
-``build_idealized`` is the port's counterpart of their
-``build_simulation``: the same physical parameters, the same 3-ion list
-[K, Cl, Na] with Na eliminated, the same calibrated initial
-concentrations, HH membranes with the synaptic stimulus on x < 20 um,
-and the same solver tolerances (rtol EMI 1e-5, KNP 1e-7).
+``build_idealized`` is the counterpart of ``build_simulation`` in
+``examples/idealized/run_2d.py`` / ``run_3d.py``: the same physical
+parameters, the same 3-ion list [K, Cl, Na] with Na eliminated, the same
+calibrated initial concentrations, HH membranes with the synaptic
+stimulus on x < 20 um, and the same solver tolerances (rtol EMI 1e-5,
+KNP 1e-7).
+
+``build_astrocyte`` is the counterpart of ``build_simulation`` in
+``examples/astrocyte/run_stim_duration.py`` on the synthetic tissue
+mesh: ECS(0) + neuron(1, ``hh_mv``) + glial(2, Kir) in mV / ms / cm / mM
+units, tortuosity-scaled diffusion, immobile background charge, and a
+pulsed K+ / Na- source in an ECS box.  ``ASTROCYTE_BASELINE`` holds the
+values of its ``config_files/baseline.yml`` over the config defaults, so
+the scenario needs no YAML reader.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..mesh import idealized_2d_mesh, idealized_3d_mesh
+from ..mesh import astrocyte_tissue_mesh, idealized_2d_mesh, idealized_3d_mesh
 from ..models import get_model, setup_membrane_model
 from ..ops.geometry import build_geometry
 from ..systems.types import Ion, PhysicalParams
+from .config import DEFAULTS, pulsed_source_gate, source_box_indicator_q
 from .stepper import Simulation, SolverOptions
 
 # calibrated initial concentrations (mol/m^3)
@@ -64,6 +74,108 @@ def build_idealized(dim: int = 3, resolution: int = 1, g_syn_bar: float = 0.0,
         geom, ions, params, mem_models,
         solver_options or SolverOptions(rtol_emi=1e-5, rtol_knp=1e-7),
         dtype=dtype, device=device,
+    )
+
+
+# --- the astrocyte tissue scenario (mV / ms / cm / mM) ----------------------
+# calibrated initial concentrations: ECS, neuron, glial
+K_E_INIT_A = 3.092970607490389
+K_N_INIT = 124.13988964240784
+K_G_INIT = 99.3100014897692
+NA_E_INIT_A = 144.60625137617149
+NA_N_INIT = 12.850454639128186
+NA_G_INIT = 15.775818906083778
+CL_E_INIT_A = 133.62525154406637
+CL_N_INIT = 5.0
+CL_G_INIT = 5.203660274163705
+
+# free diffusion coefficients (cm^2/ms)
+D_NA_A, D_K_A, D_CL_A = 1.33e-8, 1.96e-8, 2.03e-8
+
+# examples/astrocyte/config_files/baseline.yml over the config defaults
+ASTROCYTE_BASELINE = {
+    **DEFAULTS,
+    "fname": "baseline",
+    "Tstop": 300,
+    "f_value": 97,
+    "period": 10,
+    "delay": 1.0,
+    "pulse_width": 1,
+    "end_time": 100,
+    "lambda_e": 1.2,
+    "lambda_i": 2.55,
+    "x_L": 2100.0e-7,
+    "x_U": 2900.0e-7,
+    "y_L": 2100.0e-7,
+    "y_U": 2900.0e-7,
+    "z_L": 2100.0e-7,
+    "z_U": 2500.0e-7,
+    "save_frequency": 5,
+    "resolution": 0,
+}
+
+
+def build_astrocyte(config: dict, dtype=torch.float64, device=None,
+                    solver_options: SolverOptions | None = None):
+    """The astrocyte tissue scenario of ``config`` (keys of
+    ``sim/config.py``; ``mesh_n`` overrides the per-axis cell count, 64
+    gives the 840,015 dofs/step flagship); ``device=None`` means CUDA.
+    ``solver_options`` replaces that script's defaults (rtol EMI 1e-6, KNP
+    1e-7) overlaid with ``config['solver']``."""
+    if config.get("mesh_file"):
+        raise NotImplementedError(
+            "reading a mesh file is not ported; leave mesh_file unset to use "
+            "the synthetic tissue mesh")
+    mesh = astrocyte_tissue_mesh(int(config.get("resolution", 0)),
+                                 n=config.get("mesh_n"))
+    geom = build_geometry(mesh)
+    params = PhysicalParams(
+        dt=float(config.get("dt", 0.1)), F=96500e3, R=8.315e3,
+        temperature=307e3, C_M=1.0, n_steps_ODE=25, rho_z=-1.0,
+        # immobile background charge balancing the initial state
+        rho={
+            0: NA_E_INIT_A + K_E_INIT_A - CL_E_INIT_A,
+            1: NA_N_INIT + K_N_INIT - CL_N_INIT,
+            2: NA_G_INIT + K_G_INIT - CL_G_INIT,
+        },
+    )
+    le2 = float(config["lambda_e"]) ** 2
+    li2 = float(config["lambda_i"]) ** 2
+    D_sub = lambda D: {0: D / le2, 1: D / li2, 2: D / li2}
+
+    # pulsed ECS source: +f for K, -f for Na, inside the config box
+    lo = (config["x_L"], config["y_L"], config["z_L"])
+    hi = (config["x_U"], config["y_U"], config["z_U"])
+    f = float(config["f_value"])
+    box_q = source_box_indicator_q(geom, 0, lo, hi)
+    ions = [
+        Ion("K", 1.0, D_sub(D_K_A), {0: K_E_INIT_A, 1: K_N_INIT, 2: K_G_INIT},
+            f_source_q={0: f * box_q}),
+        Ion("Cl", -1.0, D_sub(D_CL_A), {0: CL_E_INIT_A, 1: CL_N_INIT, 2: CL_G_INIT}),
+        Ion("Na", 1.0, D_sub(D_NA_A), {0: NA_E_INIT_A, 1: NA_N_INIT, 2: NA_G_INIT},
+            f_source_q={0: -f * box_q}),
+    ]
+    stim_params = {
+        "stimulus": {"stim_amplitude": float(config.get("g_syn_bar", 0.0))},
+        "stimulus_locator": lambda x: x[0] < 20e-4,
+    }
+    mem_models = setup_membrane_model(
+        stim_params, params, {1: get_model("hh_mv"), 2: get_model("glial")},
+        geom, ions)
+    # resting membrane states consistent with the calibrated concentrations
+    inside = {1: (K_N_INIT, NA_N_INIT, CL_N_INIT), 2: (K_G_INIT, NA_G_INIT, CL_G_INIT)}
+    for mm in mem_models:
+        values = dict(zip(("K_e", "Na_e", "Cl_e"),
+                          (K_E_INIT_A, NA_E_INIT_A, CL_E_INIT_A)))
+        values.update(zip(("K_i", "Na_i", "Cl_i"), inside[mm.tag]))
+        for name, v in values.items():
+            mm.params0[:, mm.param_index(name)] = v
+    if solver_options is None:
+        solver_options = SolverOptions(**{
+            "rtol_emi": 1e-6, "rtol_knp": 1e-7, **(config.get("solver") or {})})
+    return Simulation(
+        geom, ions, params, mem_models, solver_options,
+        source_gate=pulsed_source_gate(config), dtype=dtype, device=device,
     )
 
 

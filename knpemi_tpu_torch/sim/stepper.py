@@ -11,7 +11,10 @@ default here) or its block-banded / windowed-ELL multigrid
   [1] membrane ODEs (RK4 substeps over every membrane dof)
   [2] EMI solve (CG + SA-AMG V-cycle, kernels K1, K2, K4; banded: K5, K7)
   [3] KNP solve (ion-batched GMRES + batched V-cycle, K3, K4, K9, K10;
-      banded: K6a, K6b, K8)
+      banded: K6a, K6b, K8; with ``knp_batched=False`` one GMRES per ion
+      on K11 with the single-vector V-cycle; banded: K4, K5, K7), its
+      right-hand side carrying the ECS source term times
+      ``source_gate(t)``
   [4] algebraic update (eliminated ion, phi_M from the PDE traces)
 
 The JAX package jits and scans the step; here it runs eagerly, and each
@@ -49,9 +52,15 @@ MG_THETA = 0.04
 class SolverOptions:
     rtol_emi: float = 1e-5
     rtol_knp: float = 1e-7
+    # GMRES restart length of the KNP solve
+    restart: int = 30
     # minimum KNP GMRES iterations before the convergence test may stop
     # the solve (PETSc ksp_min_it parity)
     min_iter_knp: int = 5
+    # True: the solved ions of a subdomain share one batched GMRES (K3);
+    # False: one GMRES per ion on the single-ion operator (K11) — the two
+    # branches the JAX package picks between by use_pallas
+    knp_batched: bool = True
     mg_coarse_max: int = 800
     # block-banded / windowed-ELL layouts of every V-cycle operator
     # (solvers/mg.py::build_hierarchy(banded=True)); False: plain ELL
@@ -72,8 +81,12 @@ class Simulation:
     def __init__(self, geom: DiscreteGeometry, ions: List[Ion],
                  params: PhysicalParams, mem_models: List[MembraneModel],
                  solver_options: Optional[SolverOptions] = None,
+                 source_gate: Optional[Callable] = None,
                  splitting_scheme: bool = True, dtype=torch.float64,
                  device=None):
+        """``source_gate`` maps the state's 0-d time tensor to the scalar
+        (number or 0-d tensor) that multiplies the ions' ECS source terms
+        in the step starting at that time; None: always 1."""
         self.device = resolve_device(device)
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"dtype must be float32 or float64, got {dtype}")
@@ -96,9 +109,11 @@ class Simulation:
             self.emi_sys, rtol=opts.rtol_emi, dot=dot2 if comp else torch.dot,
         )
         self.knp_solver = KNPSolver(
-            self.knp_sys, rtol=opts.rtol_knp, min_iter=opts.min_iter_knp,
-            bdot=bdot2 if comp else None,
+            self.knp_sys, rtol=opts.rtol_knp, restart=opts.restart,
+            min_iter=opts.min_iter_knp, dot=dot2 if comp else torch.dot,
+            bdot=bdot2 if comp else None, batched=opts.knp_batched,
         )
+        self.source_gate = source_gate or (lambda t: 1.0)
         self._maps = membrane_maps(geom, self.device)
         self._setup_emi_mg()
         self._setup_knp_mg()
@@ -217,7 +232,8 @@ class Simulation:
         # [3] KNP solve (drift linearized around the fresh phi)
         with span("step/knp"):
             c_solved, knp_info = self.knp_solver.solve(
-                state.c, phi, phi_M_new, I_ch, x0=state.c)
+                state.c, phi, phi_M_new, I_ch,
+                source_gate=self.source_gate(state.t), x0=state.c)
         # [4] algebraic refresh: eliminated ion + phi_M from the traces
         with span("step/update"):
             c_new, phi_M_pde = update_pde_variables(

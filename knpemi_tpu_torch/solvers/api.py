@@ -1,12 +1,16 @@
 """Solver front-ends: configure and run the EMI and KNP solves.
 
 Counterpart of ``knpemi_tpu/solvers/api.py``: CG with the SA-AMG V-cycle
-for the symmetric EMI system (constant null space), and GMRES batched
-over the solved ions of each subdomain for the KNP blocks, each on an
-operator symmetrically Jacobi-equilibrated with the hierarchy's lagged
-fine diagonal.  Only the iterative multigrid path is ported; the JAX
-package's direct LU path, its deflated-Jacobi EMI fallback and its
-per-ion (vmapped) KNP branch are not.
+for the symmetric EMI system (constant null space), and GMRES for the
+KNP blocks, each on an operator symmetrically Jacobi-equilibrated with
+the hierarchy's lagged fine diagonal.  The KNP solve has the JAX
+package's two branches: batched over the solved ions of each subdomain
+(one K3 pass and one batched V-cycle per iteration, the branch the JAX
+package takes with ``use_pallas``) and per ion (one GMRES per
+(subdomain, ion) block on the single-ion operator K11 with the
+single-vector V-cycle, the branch it takes without).  Only the
+iterative multigrid path is ported; the JAX package's direct LU path
+and its deflated-Jacobi EMI fallback are not.
 """
 
 from __future__ import annotations
@@ -15,8 +19,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from .cg import cg
-from .gmres import gmres_batched
+from .cg import KrylovResult, cg
+from .gmres import gmres, gmres_batched
 
 
 class SolveInfo(NamedTuple):
@@ -74,24 +78,74 @@ class EMISolver:
 class KNPSolver:
     def __init__(self, system, rtol: float = 1e-7, atol: float = 2e-40,
                  maxiter: int = 1000, restart: int = 30, min_iter: int = 5,
-                 bdot: Optional[Callable] = None, mg=None):
+                 dot: Callable = torch.dot, bdot: Optional[Callable] = None,
+                 mg=None, batched: bool = True):
         self.system = system
         self.rtol = rtol
         self.atol = atol
         self.maxiter = maxiter
         self.restart = restart
         self.min_iter = min_iter
+        self.dot = dot
         self.bdot = bdot
         self.mg = mg or {}
+        # True: all solved ions of a subdomain in one GMRES; False: one
+        # GMRES per ion (the choice the JAX package makes by use_pallas)
+        self.batched = batched
 
-    def solve(self, c, phi, phi_M, I_ch=None,
+    def _solve_batched(self, t, rhs_t, diag, x0_t, gradphi_t, mg_t) -> KrylovResult:
+        """All solved ions of subdomain ``t`` in one GMRES on K3's operator
+        with the batched V-cycle; x and resnorm have one row per ion."""
+        sys_ = self.system
+        s_eq = 1.0 / torch.sqrt(torch.abs(diag))  # (Ns, n)
+        A_hat = lambda V: s_eq * sys_.matvec_batch(t, s_eq * V, gradphi_t)
+        M = None
+        if mg_t is not None:
+            # level 0 smooths with its lagged ELL operator: no A0 needed
+            M = lambda V: mg_t.apply_batch(lambda W: W, V)
+        res = gmres_batched(
+            A_hat, s_eq * rhs_t, x0=x0_t / s_eq, M=M, rtol=self.rtol,
+            atol=self.atol, maxiter=self.maxiter, restart=self.restart,
+            min_iter=self.min_iter, bdot=self.bdot,
+        )
+        return res._replace(x=s_eq * res.x)
+
+    def _solve_per_ion(self, t, rhs_t, diag, x0_t, gradphi_t, mg_t) -> KrylovResult:
+        """One GMRES per solved ion of subdomain ``t`` on K11's operator
+        with the single-vector V-cycle; iters is the max over the ions,
+        converged their conjunction.  The loop takes the place of the JAX
+        package's vmap: each ion stops at its own iteration."""
+        sys_ = self.system
+        results = []
+        for k, ion in enumerate(sys_.ions[:-1]):
+            D_k, z_k = ion.D[t], ion.z
+            A_hat, b_hat, x0_hat, s = _equilibrate(
+                lambda v, D_k=D_k, z_k=z_k: sys_.matvec_one(t, v, gradphi_t, D_k, z_k),
+                rhs_t[k], diag[k], x0_t[k],
+            )
+            M = None if mg_t is None else (lambda v, A_hat=A_hat: mg_t.apply(A_hat, v))
+            res = gmres(
+                A_hat, b_hat, x0=x0_hat, M=M, rtol=self.rtol, atol=self.atol,
+                maxiter=self.maxiter, restart=self.restart,
+                min_iter=self.min_iter, dot=self.dot,
+            )
+            results.append(res._replace(x=s * res.x))
+        return KrylovResult(
+            x=torch.stack([r.x for r in results]),
+            iters=max(r.iters for r in results),
+            resnorm=torch.stack([r.resnorm for r in results]),
+            converged=all(r.converged for r in results),
+        )
+
+    def solve(self, c, phi, phi_M, I_ch=None, source_gate=1.0,
               x0: Optional[Dict[int, torch.Tensor]] = None):
         """Returns ({tag: (N_solved, n)}, SolveInfo); iters and resnorm are
         the max over the (subdomain, ion) blocks, converged their
         conjunction."""
         sys_ = self.system
-        rhs = sys_.rhs(c, phi, phi_M, I_ch)
+        rhs = sys_.rhs(c, phi, phi_M, I_ch, source_gate)
         gradphi = sys_.gradphi_cells(phi)
+        solve_tag = self._solve_batched if self.batched else self._solve_per_ion
         out = {}
         iters, resnorm, converged = 0, None, True
         Ns = sys_.n_solved
@@ -103,20 +157,8 @@ class KNPSolver:
             else:
                 diag = sys_.diag(t, gradphi[t])
             x0_t = torch.zeros_like(rhs[t]) if x0 is None else x0[t][:Ns]
-            s_eq = 1.0 / torch.sqrt(torch.abs(diag))  # (Ns, n)
-            A_hat = lambda V, t=t, s_eq=s_eq: s_eq * sys_.matvec_batch(
-                t, s_eq * V, gradphi[t]
-            )
-            M = None
-            if mg_t is not None:
-                # level 0 smooths with its lagged ELL operator: no A0 needed
-                M = lambda V, mg_t=mg_t: mg_t.apply_batch(lambda W: W, V)
-            res = gmres_batched(
-                A_hat, s_eq * rhs[t], x0=x0_t / s_eq, M=M, rtol=self.rtol,
-                atol=self.atol, maxiter=self.maxiter, restart=self.restart,
-                min_iter=self.min_iter, bdot=self.bdot,
-            )
-            out[t] = s_eq * res.x
+            res = solve_tag(t, rhs[t], diag, x0_t, gradphi[t], mg_t)
+            out[t] = res.x
             iters = max(iters, res.iters)
             rn_t = res.resnorm.max()
             resnorm = rn_t if resnorm is None else torch.maximum(resnorm, rn_t)

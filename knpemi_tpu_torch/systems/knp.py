@@ -1,16 +1,19 @@
-"""The KNP (concentration) block system, ion-batched, on the Hopper kernels.
+"""The KNP (concentration) block system on the Hopper kernels.
 
 Counterpart of ``knpemi_tpu/systems/knp.py`` on its blocked-assembly
 path (``use_pallas``): for every subdomain and solved ion (the last ion
 is eliminated) one implicit-Euler advection-diffusion equation
 
     (1/dt) int u v + int D_k grad(u).grad(v) + z_k psi int D_k u grad(phi).grad(v)
-  = (1/dt) int c_prev v + membrane Robin terms.
+  = (1/dt) int c_prev v + gate(t) int f_k v + membrane Robin terms.
 
 The left-hand side has no interface terms, so the solved ions of one
 subdomain form a batch: K3 (:func:`ops.assembly.knp_apply_batch`)
-applies all of them in one pass, with grad(phi) per cell from K4.  The
-membrane Robin right-hand side runs in membrane-dof space: K9 gathers
+applies all of them in one pass, with grad(phi) per cell from K4; K11
+(:func:`ops.assembly.knp_apply`) applies one ion's operator for the
+per-ion solve.  The ECS source f_k has a static spatial profile (only
+its scalar gate varies in time), so its load vector is assembled once.
+The membrane Robin right-hand side runs in membrane-dof space: K9 gathers
 the stacked fields to the facet vertex slots, the quadrature algebra of
 ``_robin_facet_values`` (``knp.py:359``) runs in PyTorch, and K10
 scatters the result back.
@@ -34,8 +37,6 @@ class KNPSystem:
     def __init__(self, geom: DiscreteGeometry, ions: List[Ion],
                  params: PhysicalParams, splitting_scheme: bool = True,
                  dtype=torch.float64, device=None):
-        if any(ion.f_source_q for ion in ions):
-            raise NotImplementedError("ECS source terms are not ported yet")
         device = resolve_device(device)
         self.geom = geom
         self.ions = ions
@@ -80,6 +81,31 @@ class KNPSystem:
             )
         fb, fw = quad.facet_rule(self.dim)
         self.fb, self.fw = as_f(fb), as_f(fw)
+        self._src_vec = self._source_vectors(ions, as_f)
+
+    def _source_vectors(self, ions, as_f):
+        """{tag: (N_solved, n) or None}: the load vector of every solved
+        ion's source term, from its values at the cell quadrature points
+        (``Ion.f_source_q``); an ion without one contributes a zero row."""
+        cb, cw = quad.cell_rule(self.dim)
+        cb, cw = as_f(cb), as_f(cw)
+        out = {}
+        for t, s in self.sub.items():
+            if not any(ion.f_source_q and t in ion.f_source_q for ion in ions[:-1]):
+                out[t] = None
+                continue
+            cells = s["cells"].long()
+            rows = []
+            for ion in ions[:-1]:
+                if ion.f_source_q and t in ion.f_source_q:
+                    rows.append(K.source_rhs_quad(
+                        s["n_dofs"], as_f(ion.f_source_q[t]), cells, s["vols"],
+                        cb, cw))
+                else:
+                    rows.append(torch.zeros(s["n_dofs"], dtype=self.dtype,
+                                            device=self.device))
+            out[t] = torch.stack(rows)
+        return out
 
     # ------------------------------------------------------------------
     def gradphi_cells(self, phi: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
@@ -96,6 +122,15 @@ class KNPSystem:
         s = self.sub[tag]
         return A.knp_apply_batch(X.contiguous(), s["cells"], s["grads"], s["vols"],
                                  gradphi, s["coef"])
+
+    def matvec_one(self, tag: int, x: torch.Tensor, gradphi: torch.Tensor,
+                   D: float, z: float):
+        """One solved ion's system of one subdomain by K11: x (n,) -> (n,);
+        ``D`` and ``z`` are the ion's Python floats."""
+        s = self.sub[tag]
+        return A.knp_apply(x.contiguous(), s["cells"], s["grads"], s["vols"],
+                           gradphi, 1.0 / self.params.dt, D,
+                           z * self.params.psi * D)
 
     def diag(self, tag: int, gradphi: torch.Tensor) -> torch.Tensor:
         """Batched Jacobi diagonal (N_solved, n) (plain; the coupled step
@@ -163,14 +198,19 @@ class KNPSystem:
         Y = A.facet_scatter(vals.contiguous(), mb["facet_dofs"], mb["n_mem"])
         return Y[: self.n_solved], Y[self.n_solved:]
 
-    def rhs(self, c, phi, phi_M, I_ch=None) -> Dict[int, torch.Tensor]:
+    def rhs(self, c, phi, phi_M, I_ch=None, source_gate=1.0) -> Dict[int, torch.Tensor]:
         """RHS per subdomain: {tag: (N_solved, n)} — the mass term
-        (1/dt) M c_prev by K3 with D = z = 0, plus the membrane terms."""
+        (1/dt) M c_prev by K3 with D = z = 0, the gated source term, plus
+        the membrane terms.  ``source_gate`` is a number or a 0-d tensor."""
         Ns = self.n_solved
+        if torch.is_tensor(source_gate):
+            source_gate = source_gate.to(self.dtype)
         r = {}
         for t, s in self.sub.items():
             r[t] = A.knp_apply_batch(c[t][:Ns].contiguous(), s["cells"], s["grads"],
                                      s["vols"], s["zero_w"], s["coef_mass"])
+            if self._src_vec[t] is not None:
+                r[t] = r[t] + source_gate * self._src_vec[t]
         for m, mb in self.mem.items():
             y_e, y_i = self._membrane_rhs(mb, c, phi, phi_M[m], I_ch[m])
             ct = mb["cell_tag"]

@@ -32,8 +32,8 @@ class Ion:
     z: float
     D: Dict[int, float]
     c_init: Dict[int, Any] = dataclasses.field(default_factory=dict)
-    # optional ECS source term at cell quadrature points; not supported by
-    # this port yet (systems/knp.py raises when one is given)
+    # optional source term: {tag: (n_cells, n_q)} values at the cell
+    # quadrature points; its time gate is the simulation's ``source_gate``
     f_source_q: Optional[Dict[int, np.ndarray]] = None
 
 

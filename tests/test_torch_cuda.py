@@ -1,7 +1,7 @@
 """Each Hopper kernel against its plain version, on a CUDA device.
 
 Skipped where there is no CUDA device (the CPU test machines); on the
-GPU run ``python -m pytest tests/test_torch_cuda.py -q``.  Tolerances:
+GPU run ``python -m pytest tests/test_torch_cuda.py -q --noconftest``.  Tolerances:
 the kernels sum with atomics, in another order than the plain versions:
 1e-5 max|y| in float32, 1e-12 max|y| in float64.
 """
@@ -36,17 +36,39 @@ def sim_banded():
                                                     mg_coarse_max=100))
 
 
+@pytest.fixture(scope="module")
+def sim_astro():
+    """The astrocyte tissue scenario at mesh_n 20 on its per-ion KNP branch
+    (three subdomains, two membranes; K11 once per GMRES iteration)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from knpemi_tpu_torch.sim import ASTROCYTE_BASELINE, SolverOptions, build_astrocyte
+
+    return build_astrocyte(
+        {**ASTROCYTE_BASELINE, "mesh_n": 20}, dtype=torch.float32, device="cuda",
+        solver_options=SolverOptions(rtol_emi=1e-5, rtol_knp=3e-6, knp_batched=False))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernels_match_plain_on_cuda(sim, sim_banded, dtype):
-    """All eleven: the six assembly kernels at the mesh's shapes, the five
-    multigrid kernels at the shapes of the banded hierarchies' level 0
-    (float32 and float64 vectors, and a bfloat16 slab for K7/K8)."""
+def test_kernels_match_plain_on_cuda(sim, sim_banded, sim_astro, dtype):
+    """All twelve: the six assembly kernels of the batched step at the
+    mesh's shapes and on every subdomain and membrane of the tissue mesh,
+    the multigrid kernels at the shapes of the banded hierarchies'
+    level 0 (float32 and float64 vectors, and a bfloat16 slab for
+    K7/K8), and K11 on the idealized mesh (phi in V) and on the three
+    subdomains of the tissue mesh (phi in mV), also against K3 row by row."""
     import chip_smoke
 
     rows = chip_smoke.check_kernels(sim, dtype, time_them=False)
     assert len(rows) == 6
+    rows = chip_smoke.check_k11(sim, dtype, time_them=False, phi_scale=1e-3)
+    rows += chip_smoke.check_k11(sim_astro, dtype, time_them=False, phi_scale=1.0)
+    assert {r["name"] for r in rows} == {"K11 knp_apply"} and len(rows) == 3 + 4
     rows = chip_smoke.check_mg_kernels(sim_banded, dtype, time_them=False)
-    assert {r["name"].split()[0] for r in rows} == {"K5", "K6a", "K6b", "K7", "K8"}
+    assert {r["name"].split()[0] for r in rows} == {"K4", "K5", "K6a", "K6b", "K7", "K8"}
+    # every kernel of the batched step on each subdomain and membrane
+    rows = chip_smoke.check_all_operators(sim_astro, dtype, time_them=False)
+    assert len(rows) == 3 * 3 + 3 * 2
 
 
 def test_step_launches_every_kernel(sim):
@@ -58,6 +80,55 @@ def test_step_launches_every_kernel(sim):
     counts = ops.launch_counts()
     assert all(counts[k] for k in counts if k.split()[0] in
                ("K1", "K2", "K3", "K4", "K9", "K10"))
+
+
+def test_per_ion_step_launches_k11_and_k3_only_for_the_mass_term(sim_astro):
+    from knpemi_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    state, it_e, it_k, ok = sim_astro.run(sim_astro.init_state(), 2)
+    assert ok.all()
+    counts = ops.launch_counts()
+    assert counts["K11 knp_apply"] > 0
+    assert counts["K3 knp_apply_batch"] == 2 * 3  # steps x subdomains
+    assert all(bool(torch.isfinite(v).all()) for v in state.c.values())
+
+
+def test_k11_raises_on_a_cuda_tensor_it_does_not_take(sim_astro):
+    """On the card the wrapper launches or raises: no path to K3 or to the
+    plain version."""
+    from knpemi_tpu_torch.ops import assembly as A
+
+    s = sim_astro.knp_sys.sub[1]
+    x = torch.ones(s["n_dofs"], device="cuda")
+    w = torch.zeros(s["n_cells"], 3, device="cuda")
+    with pytest.raises(TypeError):
+        A.knp_apply(x, s["cells"].long(), s["grads"], s["vols"], w, 10.0, 1.0, 0.0)
+    with pytest.raises(ValueError):
+        A.knp_apply(x, s["cells"], s["grads"], s["vols"], w.cpu(), 10.0, 1.0, 0.0)
+    before = A.knp_apply.launches
+    A.knp_apply(x, s["cells"], s["grads"], s["vols"], w, 10.0, 1.0, 0.0)
+    assert A.knp_apply.launches == before + 1
+
+
+def test_per_ion_banded_step_runs_the_knp_vcycle_on_single_vectors():
+    """knp_batched=False with mg_banded=True: K7 and K11, no batch kernel."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from knpemi_tpu_torch import ops
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+
+    sim = build_idealized(
+        dim=3, resolution=0, l=1, g_syn_bar=10.0, dtype=torch.float32, device="cuda",
+        solver_options=SolverOptions(mg_banded=True, mg_coarse_max=100,
+                                     knp_batched=False))
+    ops.reset_launch_counts()
+    state, it_e, it_k, ok = sim.run(sim.init_state(), 2)
+    assert ok.all() and it_k.max() > 0
+    counts = ops.launch_counts()
+    assert counts["K7 banded_matvec"] and counts["K11 knp_apply"]
+    assert not (counts["K6a ellw_matvec_batch"] or counts["K6b ellw_rmatvec_batch"]
+                or counts["K8 banded_matvec_batch"])
 
 
 def test_banded_step_launches_the_multigrid_kernels(sim_banded):

@@ -5,7 +5,8 @@
 * no file of the port, and not ``chip_smoke.py``, names ``knpemi_tpu``
   other than as ``knpemi_tpu_torch`` except in prose about what a
   kernel replaces (``knpemi_tpu/...`` paths in comments and docstrings);
-* ``Simulation`` with no device raises when CUDA is absent;
+* ``Simulation``, ``build_idealized`` and ``build_astrocyte`` with no
+  device raise when CUDA is absent;
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA.
 """
 
@@ -83,6 +84,14 @@ def test_simulation_without_device_needs_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         build_idealized(dim=2, resolution=1)
+    from knpemi_tpu_torch.sim import ASTROCYTE_BASELINE, build_astrocyte
+
+    small = {**ASTROCYTE_BASELINE, "mesh_n": 10}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_astrocyte(small)
+    assert build_astrocyte(small, device="cpu").device == torch.device("cpu")
+    with pytest.raises(NotImplementedError):
+        build_astrocyte({**small, "mesh_file": "tissue.xdmf"}, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
@@ -114,14 +123,14 @@ def test_kernel_sources_present():
         assert re.search(rf"\bint {symbol}\(", src), f"{symbol} not in {lib}.cu"
 
 
-ELEVEN = ["K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7", "K8", "K9", "K10"]
+TWELVE = ["K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7", "K8", "K9", "K10", "K11"]
 
 
 def test_every_wrapper_has_a_plain_twin_and_a_launch_counter():
     import knpemi_tpu_torch.ops as ops
 
     table = ops.kernel_table()
-    assert sorted(n.split()[0] for n in table) == sorted(ELEVEN)
+    assert sorted(n.split()[0] for n in table) == sorted(TWELVE)
     for name, (wrapper, plain) in table.items():
         assert plain.__name__ == wrapper.__name__ + "_plain", name
         assert sys.modules[plain.__module__] is sys.modules[wrapper.__module__]
@@ -130,7 +139,36 @@ def test_every_wrapper_has_a_plain_twin_and_a_launch_counter():
         assert "Bound on the H100" in wrapper.__doc__, name
 
 
-@pytest.mark.parametrize("module", ["ell", "banded"])
+def test_k11_is_its_own_kernel_with_its_own_launch():
+    """K11's wrapper launches its own C entry point, whose source has its
+    own __global__ function; it reaches neither K3 nor, on a CUDA tensor,
+    the plain version; the scalars travel by value."""
+    from knpemi_tpu_torch.ops import assembly
+
+    lib, symbol, argtypes = assembly._SIGS["knp_apply"]
+    assert (lib, symbol) == ("cells", "knp_knp_apply")
+    assert sum(a is assembly.ctypes.c_double for a in argtypes) == 3
+    src = (PORT / "ops" / "csrc" / "cells.cu").read_text()
+    assert re.search(r"__global__ void knp_apply_kernel\(", src)
+    body = src[src.index("int knp_apply_t("):src.index("}  // namespace")]
+    assert "knp_apply_kernel<T, 4, 3><<<" in body and "knp_apply_kernel<T, 3, 2><<<" in body
+    assert "knp_apply_batch_kernel" not in body
+    tree = ast.parse((PORT / "ops" / "assembly.py").read_text())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == "knp_apply")
+    called = [c.func.id for c in ast.walk(fn)
+              if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)]
+    assert "knp_apply_batch" not in called and called.count("knp_apply_plain") == 1
+    assert called.count("_launch") == 1
+    assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
+    # the one call of the plain version sits under `if not x.is_cuda:`
+    guard = next(n for n in ast.walk(fn) if isinstance(n, ast.If)
+                 and any(isinstance(c, ast.Call) and getattr(c.func, "id", "") ==
+                         "knp_apply_plain" for c in ast.walk(n)))
+    assert ast.unparse(guard.test) == "not x.is_cuda"
+
+
+@pytest.mark.parametrize("module", ["ell", "banded", "assembly"])
 def test_kernel_wrappers_call_no_library_product_and_never_fall_back(module):
     """On CUDA a wrapper launches or raises: outside its ``_plain`` twins a
     module of wrappers calls no PyTorch product or scatter, is not
@@ -140,7 +178,7 @@ def test_kernel_wrappers_call_no_library_product_and_never_fall_back(module):
               "scatter_add_", "scatter_add", "compile"}
     for fn in ast.walk(tree):
         if not isinstance(fn, ast.FunctionDef) or fn.name.endswith("_plain") \
-                or fn.name == "_windows":
+                or fn.name in ("_windows", "_ell_from_cells"):
             continue
         for node in ast.walk(fn):
             assert not isinstance(node, ast.Try), f"{module}.{fn.name}: try"

@@ -19,7 +19,10 @@ All on the CPU, at small sizes, inputs made from a seed with numpy.
     gives the hierarchies real levels), port ``mg_banded=True`` against
     JAX ``use_pallas=False, mg_banded=True``: equal EMI and KNP iteration
     counts, phi_M and every concentration within 1e-9 relative; and
-    against the port's ELL path: equal counts.
+    against the port's ELL path: equal counts.  The same JAX run (with
+    ``use_pallas=False`` its KNP solve is the per-ion one) against the
+    port's per-ion branch with ``mg_banded=True``, whose KNP V-cycles run
+    on single vectors: the same gates.
 """
 
 import numpy as np
@@ -338,7 +341,7 @@ def test_new_wrappers_take_plain_path_on_cpu_and_check_inputs():
     TE.ellw_matvec(e, x), TE.ellw_rmatvec(e, x)
     TE.ellw_matvec_batch(e, x[None]), TE.ellw_rmatvec_batch(e, x[None])
     TB.banded_matvec(slabT, w0, x, n, W), TB.banded_matvec_batch(slabT, w0, x[None], n, W)
-    assert len(ops.launch_counts()) == 11
+    assert len(ops.launch_counts()) == 12
     assert all(v == 0 for v in ops.launch_counts().values())
     with pytest.raises(ValueError):
         TE.ellw_matvec(e, x[:-1])
@@ -405,11 +408,12 @@ def slice_runs():
     simJ = jax_simulation(jnp.float64, use_pallas=False, mg_banded=True,
                           mg_coarse_max=100)
     opts = dict(rtol_emi=1e-5, rtol_knp=1e-7, mg_coarse_max=100)
-    build = lambda banded: build_idealized(
+    build = lambda banded, batched=True: build_idealized(
         dim=2, resolution=1, g_syn_bar=10.0, dtype=torch.float64, device="cpu",
-        solver_options=SolverOptions(mg_banded=banded, **opts))
-    simB, simE = build(True), build(False)
-    return simB, run_jax(simJ, N_STEPS), run_port(simB, N_STEPS), run_port(simE, N_STEPS)
+        solver_options=SolverOptions(mg_banded=banded, knp_batched=batched, **opts))
+    simB, simE, simP = build(True), build(False), build(True, batched=False)
+    return (simB, run_jax(simJ, N_STEPS), run_port(simB, N_STEPS),
+            run_port(simE, N_STEPS), simP, run_port(simP, N_STEPS))
 
 
 def test_slice_hierarchies_are_banded(slice_runs):
@@ -422,8 +426,23 @@ def test_slice_hierarchies_are_banded(slice_runs):
 
 @pytest.mark.parametrize("step", range(N_STEPS))
 def test_banded_step_f64_matches_jax(slice_runs, step):
-    _, statesJ, statesB, _ = slice_runs
-    sJ, sT = statesJ[step], statesB[step]
+    assert_banded_step_matches(slice_runs[1][step], slice_runs[2][step])
+
+
+def test_per_ion_banded_hierarchies_are_banded(slice_runs):
+    """The per-ion branch hands single vectors to banded KNP levels."""
+    simP = slice_runs[4]
+    assert not simP.knp_solver.batched and simP.opts.mg_banded
+    for mg_t in simP.knp_solver.mg.values():
+        assert any(lv[w] == "band" for lv in mg_t.layout() for w in ("A", "P", "Pt"))
+
+
+@pytest.mark.parametrize("step", range(N_STEPS))
+def test_per_ion_banded_step_f64_matches_jax(slice_runs, step):
+    assert_banded_step_matches(slice_runs[1][step], slice_runs[5][step])
+
+
+def assert_banded_step_matches(sJ, sT):
     assert int(sT.emi_iters) == int(sJ.emi_iters)
     assert int(sT.knp_iters) == int(sJ.knp_iters)
     assert bool(sT.emi_ok) and bool(sT.knp_ok)
@@ -437,7 +456,7 @@ def test_banded_step_f64_matches_jax(slice_runs, step):
 
 @pytest.mark.parametrize("step", range(N_STEPS))
 def test_banded_step_counts_equal_ell_path(slice_runs, step):
-    _, _, statesB, statesE = slice_runs
+    statesB, statesE = slice_runs[2:4]
     sB, sE = statesB[step], statesE[step]
     assert int(sB.emi_iters) == int(sE.emi_iters)
     assert int(sB.knp_iters) == int(sE.knp_iters)
