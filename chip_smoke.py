@@ -10,8 +10,8 @@ and 4 come in two groups):
 0. device and build: the card's name and power limit, the torch and
    CUDA versions, and the build of every CUDA kernel from ops/csrc;
 1. kernels: each of the twelve hand-written kernels against its plain
-   PyTorch version on the card, in float32 and float64 (K7/K8 also with
-   a bfloat16 slab) — the six assembly kernels of the batched step at
+   PyTorch version on the card, in float32 and float64 (K7/K8 on the
+   packed windows, also with bfloat16 values) — the six assembly kernels of the batched step at
    the shapes of the 3-D res-2 mesh, the five multigrid kernels at the
    shapes of the res-2 banded hierarchies' own operators (EMI for
    K4/K5/K7, KNP tag 0 at B = 2 and once at B = 8 for K6a/K6b/K8), and
@@ -21,9 +21,12 @@ and 4 come in two groups):
    that simulation's own operators: K1/K3/K4 on each of its three
    subdomains (per-tag diffusion coefficients), K2/K9/K10 on both
    membranes and, with mg_banded, K4-K8 on the layouts its four
-   hierarchies took; times of kernel, plain version
-   and (where one call computes the same function: a PyTorch call, for
-   K11 the port's own K3 at B = 1) that call, beside the bound;
+   hierarchies took (K7/K8 on every banded window of the EMI and first
+   KNP hierarchies, by both routes of reading x); device times (L2
+   flushed, by torch.profiler) of kernel, plain version and the PyTorch
+   call that computes the same function (torch.mv / torch.sparse.mm on
+   its CSR; for K1, K2, K3, K11 assembled from the port's host COO
+   helpers), beside the bound, and each call's time with the host's;
 2. parity: 2 float64 steps of the 3-D res-1 scenario on the GPU and on
    the CPU, with ELL and with banded multigrid — equal Krylov iteration
    counts on all four, phi_M within 1e-9 V and concentrations within
@@ -59,8 +62,8 @@ and 4 come in two groups):
    phi_M of the two runs at step 22 must agree within 1e-3 relative L2;
    last the batched flagship with mg_banded=True for 12 + 5 steps;
 4. profile, per res-2 path and per flagship run: the
-   step's four phases timed by host clock over 3 steps, their kernel
-   counts in one step, then 3 steps under
+   step's four phases timed by host clock over 2 steps, their kernel
+   counts in one step, then 2 steps under
    torch.profiler — device kernel time and busy share, kernels per
    step, the top kernels.
 
@@ -116,8 +119,117 @@ def cuda_ms(fn, reps: int = 100, warm: int = 5) -> float:
     return start.elapsed_time(stop) / reps
 
 
+_FLUSH = {}  # the 256 MB buffer and the profiler keys of its kernel
+
+
+def _flush_l2():
+    """Read and write 256 MB with one elementwise kernel: five times what
+    the 50 MB L2 holds, through the SMs, so that L2 keeps nothing else."""
+    import torch
+
+    if "buf" not in _FLUSH:
+        _FLUSH["buf"] = torch.zeros(256 << 20, dtype=torch.uint8, device="cuda")
+    _FLUSH["buf"].bitwise_not_()
+
+
+def _device_events(fn, reps: int):
+    """[(profiler key, start us, duration us)] of the device events of reps
+    calls of fn(), each after an L2 flush.  The card is kept busy for ~5 ms
+    first (flushes, queued before the profiler starts), so that its clocks
+    have risen from idle."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(30):
+        _flush_l2()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            _flush_l2()
+            fn()
+        torch.cuda.synchronize()
+    return [(e.key, e.time_range.start, e.time_range.elapsed_us()) for e in prof.events()
+            if e.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, reps: int = 30):
+    """Median over reps calls of the device time of the kernels, copies and
+    sets that one fn() call launches, by torch.profiler, each call after a
+    pass that evicts L2 (the pass's own kernel left out): what a caller
+    pays who finds the inputs in device memory, not in L2, without the
+    host's time between launches.  None where the profiler reports no
+    device time."""
+    import statistics
+
+    if "keys" not in _FLUSH:
+        _FLUSH["keys"] = {key for key, _, _ in _device_events(lambda: None, 3)}
+    fn()
+    calls = []  # device us per call: each flush opens the next call
+    for key, _, us in sorted(_device_events(fn, reps), key=lambda e: e[1]):
+        if key in _FLUSH["keys"]:
+            calls.append(0.0)
+        elif calls:
+            calls[-1] += us
+    calls = [t for t in calls if t > 0]  # the warm-up flushes launch no call
+    return statistics.median(calls) / 1e3 if calls else None
+
+
 def _nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _lazy(build, call):
+    """A library call whose operand ``build()`` makes at its first use, so
+    that only the timed cases pay for assembling it."""
+    held = []
+
+    def run():
+        if not held:
+            held.append(build())
+        return call(held[0])
+    return run
+
+
+def _device_csr(rows, cols, vals, shape, dtype, device):
+    """The CSR matrix on the device of numpy COO triplets, duplicates summed."""
+    import numpy as np
+    import torch
+
+    idx = torch.as_tensor(np.stack([rows.ravel(), cols.ravel()]).astype(np.int64),
+                          device=device)
+    v = torch.as_tensor(vals.ravel(), device=device).to(dtype)
+    return torch.sparse_coo_tensor(idx, v, shape).coalesce().to_sparse_csr()
+
+
+def _knp_coo(cells, grads, vols, w, coefs, n: int):
+    """COO of dt_inv M + D K + zpsiD Drift(w) per row (dt_inv, D, zpsiD) of
+    ``coefs``, block-diagonal over the rows: the operators of K3 (all rows)
+    and K11 (one row), from the port's host COO helpers and the P1 drift
+    element coef * vol * (w . g_i) / k."""
+    import numpy as np
+
+    from knpemi_tpu_torch.solvers import direct as D
+
+    r, c, Me = D._mass_coo(cells, vols)
+    _, _, Ke = D._stiffness_coo(cells, grads, vols)
+    k = cells.shape[1]
+    De = np.repeat((vols[:, None] * np.einsum("cd,ckd->ck", w, grads) / k)[:, :, None],
+                   k, axis=2)
+    rows, cols, vals = [], [], []
+    for b, (dt_inv, Dc, zpsiD) in enumerate(coefs):
+        rows.append(r + b * n)
+        cols.append(c + b * n)
+        vals.append(dt_inv * Me + Dc * Ke + zpsiD * De)
+    return np.concatenate(rows), np.concatenate(cols), np.concatenate(vals)
+
+
+def _knp_csr(cells, grads, vols, w, coefs, n: int, dtype):
+    """:func:`_knp_coo`'s operator from device tensors, as a CSR on their
+    device."""
+    host = lambda t: t.detach().cpu().numpy()
+    N = len(coefs) * n
+    return _device_csr(*_knp_coo(host(cells), host(grads.double()), host(vols.double()),
+                                 host(w.double()), coefs, n), (N, N), dtype, cells.device)
 
 
 def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
@@ -130,6 +242,7 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
     import torch
 
     from knpemi_tpu_torch.ops import assembly as A
+    from knpemi_tpu_torch.solvers import direct as D
 
     dev = sim.device
     g = torch.Generator(device=dev).manual_seed(0)
@@ -173,13 +286,25 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
                     plain=lambda: plain(*inputs), lib=lib,
                     nbytes=_nbytes(*inputs) + n_out * es, ops=ops, **extra)
 
+    # the library yardsticks: torch.mv on the CSR of each operator, made
+    # from the port's host COO helpers (K3: block-diagonal over the ions)
+    host = lambda t: t.detach().cpu().numpy()
+    csr_on = lambda N: lambda r, c, v: _device_csr(r, c, v, (N, N), dtype, dev)
+    lib_k1 = _lazy(lambda: csr_on(n)(*D._stiffness_coo(host(cells), host(grads.double()),
+                                                        host(wv.double()))),
+                   lambda csr: torch.mv(csr, x))
+    lib_k2 = _lazy(lambda: csr_on(n_mem)(*D._facet_mass_coo(
+                       host(fd), host(fd), host(fwv.double()) * kf * (kf + 1))),
+                   lambda csr: torch.mv(csr, xm))
+    lib_k3 = _lazy(lambda: _knp_csr(cells, grads, vols, w, host(coef.double()), n, dtype),
+                   lambda csr: torch.mv(csr, X.reshape(-1)).reshape(Ns, n))
     k3_in = (X, cells, grads, vols, w, coef)
     return [
-        case("K1 emi_stiffness", A.emi_stiffness, A.emi_stiffness_plain, None,
+        case("K1 emi_stiffness", A.emi_stiffness, A.emi_stiffness_plain, lib_k1,
              (x, cells, grads, wv), n, nc * (4 * k * dim + k)),
-        case("K2 facet_mass", A.facet_mass, A.facet_mass_plain, None,
+        case("K2 facet_mass", A.facet_mass, A.facet_mass_plain, lib_k2,
              (xm, fd, fwv), n_mem, nf * 4 * kf),
-        case("K3 knp_apply_batch", A.knp_apply_batch, A.knp_apply_batch_plain, None,
+        case("K3 knp_apply_batch", A.knp_apply_batch, A.knp_apply_batch_plain, lib_k3,
              k3_in, Ns * n,
              nc * (2 * k * dim + Ns * (k + 2 * k * dim + k * (2 * dim + 10))),
              # K3 without its drift term, for the share the term carries
@@ -203,9 +328,8 @@ def k11_cases(sim, dtype, phi_scale: float):
     scenario's unit), formed by K4's plain version as the main path
     forms it, so that the drift term is a visible share of the output.
     Each case also holds K11 against K3: both rows of a B = 2 call
-    against two K11 calls.  The nearest single call computing the same
-    function is the port's own K3 at B = 1: it stands in the library
-    column."""
+    against two K11 calls.  The library yardstick is torch.mv on the CSR
+    of the same operator; the port's own K3 at B = 1 is timed beside it."""
     import torch
 
     from knpemi_tpu_torch.ops import assembly as A
@@ -238,18 +362,24 @@ def k11_cases(sim, dtype, phi_scale: float):
         for b, sc in enumerate(scal if t == 0 else scal[:1]):
             x = X[b].contiguous()
             coef1 = torch.tensor([sc], dtype=dtype, device=dev)
+            lib = _lazy(lambda geo=geo, sc=sc, n=n: _knp_csr(*geo, [sc], n, dtype),
+                        lambda csr, x=x: torch.mv(csr, x))
             cases.append(dict(
                 name="K11 knp_apply", variant=f"tag {t} ion {sim.ions[b].name}",
                 kern=lambda x=x, geo=geo, sc=sc: A.knp_apply(x, *geo, *sc),
                 plain=lambda x=x, geo=geo, sc=sc: A.knp_apply_plain(x, *geo, *sc),
-                lib=lambda x=x, geo=geo, c=coef1: A.knp_apply_batch(x[None], *geo, c)[0],
+                lib=lib,
                 no_drift=lambda x=x, geo=geo, sc=sc: A.knp_apply_plain(
                     x, *geo[:3], torch.zeros_like(geo[3]), *sc),
                 min_drift_share=1e-3,
-                # one K3 launch for all solved ions: what the batched solve
-                # pays where the per-ion solve pays one K11 launch per ion
-                also_time={"k3_all_ions_ms": lambda X=X, geo=geo, c=coef_all:
-                           A.knp_apply_batch(X, *geo, c)},
+                # the port's K3 at B = 1 on the same operator, and one K3
+                # launch for all solved ions: what the batched solve pays
+                # where the per-ion solve pays one K11 launch per ion
+                also_time={
+                    "k3_b1_ms": lambda x=x, geo=geo, c=coef1:
+                        A.knp_apply_batch(x[None], *geo, c)[0],
+                    "k3_all_ions_ms": lambda X=X, geo=geo, c=coef_all:
+                        A.knp_apply_batch(X, *geo, c)},
                 nbytes=_nbytes(x, *geo) + n * es,
                 ops=nc * (k + 2 * k * dim + k * (4 * dim + 10)),
                 shape=dict(n=n, nc=nc, k=k, dim=dim, scalars=list(sc)),
@@ -309,22 +439,34 @@ def _csr_of_ell(e, transpose: bool):
     return (A.t().coalesce() if transpose else A).to_sparse_csr()
 
 
-def _csr_of_window(slabT, w0, W, n, m, dtype):
-    """The sparse matrix one window of a banded operator stores."""
+def _csr_of_window(win, n, m, dtype):
+    """The sparse matrix one packed window of a banded operator stores,
+    from its nonzero slots."""
     import torch
 
-    NB, R = slabT.shape[0] // W, slabT.shape[1]
-    nz = slabT.nonzero()
-    blk, w = nz[:, 0] // W, nz[:, 0] % W
-    rows, cols = blk * R + nz[:, 1], w0.long()[blk] + w
-    keep = (rows < n) & (cols < m)
-    vals = slabT[nz[:, 0], nz[:, 1]].to(dtype)
-    return torch.sparse_coo_tensor(torch.stack([rows[keep], cols[keep]]),
-                                   vals[keep], (n, m)).coalesce().to_sparse_csr()
+    from knpemi_tpu_torch.ops import banded as TB
+
+    keep = win.val != 0
+    rows = TB._slot_rows(win)[keep]
+    cols = win.w0.long()[rows // win.R] + (win.off.long()[keep] & 0xFFFF)
+    inside = (rows < n) & (cols < m)
+    return torch.sparse_coo_tensor(
+        torch.stack([rows[inside], cols[inside]]), win.val[keep][inside].to(dtype),
+        (n, m)).coalesce().to_sparse_csr()
+
+
+def _bands(levels, every: bool):
+    """(level, role, window index, band) of the banded operators: every
+    window of every level and role, or only the first window of the first
+    banded operator (fine level and roles a, ap, p, pt first)."""
+    out = [(i, w, j, lv[f"{w}_band"]) for i, lv in enumerate(levels)
+           for w in ("a", "ap", "p", "pt") if lv[f"{w}_band"] is not None
+           for j in range(len(lv[f"{w}_band"]["windows"]))]
+    return out if every else out[:1]
 
 
 def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
-                    as_built_only: bool = False):
+                    as_built_only: bool = False, all_bands: bool = False):
     """The multigrid kernels at the shapes of ``sim``'s banded
     hierarchies: with ``emi``, K4 (the single-vector gather on a level
     operator or prolongator), K5 and K7 on operators of the EMI
@@ -335,10 +477,14 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
     stores no operator in a kernel's layout gets, for the windowed-ELL
     kernels, the layout build_ellw gives one of its prolongators, and for
     the banded ones an error — or, with ``as_built_only``, no case: the
-    caller then checks which kernels its cases cover.  Bounds: K7/K8 move the slab, the window starts and the
-    vectors; K5/K6 move an index and a value per NONZERO slot (what this
-    matrix needs) and the vectors — the kernels read the padded slots
-    too, whose bytes stand beside the bound as ``bytes_padded``."""
+    caller then checks which kernels its cases cover.  K7/K8 run on the
+    first banded window (fine level first) or, with ``all_bands``, on
+    every window of every level and role, each with its values in the
+    run dtype and in bfloat16, by both routes of reading x.  Bounds count
+    what the matrix needs: K7/K8 a value and a 2-byte offset per nonzero,
+    the window starts and the vectors; K5/K6 an index and a value per
+    nonzero slot and the vectors.  The kernels read padding slots too,
+    whose bytes stand beside the bound as ``bytes_padded``."""
     import dataclasses
 
     import torch
@@ -375,34 +521,54 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
                            source=f"{hname} {src}")))
 
     def band_cases(name, mg, hname, batch, Bs):
-        found = _first_layout(mg.levels, "band", ("a", "ap", "p", "pt"))
-        if found is None and as_built_only:
+        bands = _bands(mg.levels, all_bands)
+        if not bands and as_built_only:
             return
-        if found is None:
+        if not bands:
             raise AssertionError(f"{name}: no banded operator in the hierarchy")
-        i, w, band = found
-        win = band["windows"][0]
-        W, w0, n, m = win["W"], win["w0"], band["n"], band["m"]
-        slab_run = win["slabT"].to(dtype)
-        csr = _csr_of_window(slab_run, w0, W, n, m, dtype)
-        for B in Bs:
-            V = rnd(B, m) if batch else rnd(m)
-            for slabT in (slab_run, slab_run.to(torch.bfloat16)):
-                sname = str(slabT.dtype).replace("torch.", "")
-                mv = TB.banded_matvec_batch if batch else TB.banded_matvec
-                pl = TB.banded_matvec_batch_plain if batch else TB.banded_matvec_plain
-                lib = (lambda V=V: torch.sparse.mm(csr, V.T)) if batch else (
-                    lambda V=V: torch.mv(csr, V))
-                cases.append(dict(
-                    name=name, variant=f"B={B} slab={sname}",
-                    kern=lambda s=slabT, V=V: mv(s, w0, V, n, W),
-                    plain=lambda s=slabT, V=V: pl(s, w0, V, n, W),
-                    # the library call works on the run-dtype matrix
-                    lib=lib if slabT is slab_run else None,
-                    nbytes=_nbytes(slabT, w0) + B * (m + n) * es,
-                    ops=2 * slabT.numel() * B,
-                    shape=dict(NB=slabT.shape[0] // W, R=slabT.shape[1], W=W, n=n,
-                               m=m, source=f"{hname} level {i} {w}_band window 0")))
+        mv = TB.banded_matvec_batch if batch else TB.banded_matvec
+        pl = TB.banded_matvec_batch_plain if batch else TB.banded_matvec_plain
+        for k, (i, w, j, band) in enumerate(bands):
+            # timed: the first (the kernel table's row) and level 1's A
+            timed = k == 0 or (i, w, j) == (1, "a", 0)
+            win_run = band["windows"][j]
+            win_run = dataclasses.replace(win_run, val=win_run.val.to(dtype))
+            n, m, W, R = band["n"], band["m"], win_run.W, win_run.R
+            csr = _csr_of_window(win_run, n, m, dtype)
+            for B in Bs:
+                V = rnd(B, m) if batch else rnd(m)
+                for win in (win_run, dataclasses.replace(
+                        win_run, val=win_run.val.to(torch.bfloat16))):
+                    ves = win.val.element_size()
+                    sname = str(win.val.dtype).replace("torch.", "")
+                    lib = (lambda V=V, csr=csr: torch.sparse.mm(csr, V.T)) if batch else (
+                        lambda V=V, csr=csr: torch.mv(csr, V))
+                    # both ways of reading x, each held against the plain version
+                    routes = {"l2": lambda s=win, V=V, n=n: mv(s, V, n, route="l2")}
+                    if B * W * es <= TB.STAGE_MAX_BYTES:
+                        routes["staged"] = lambda s=win, V=V, n=n: mv(s, V, n, route="staged")
+                    slots = win.val.numel()
+                    cases.append(dict(
+                        name=name, variant=f"B={B} slab={sname}",
+                        kern=lambda s=win, V=V, n=n: mv(s, V, n),
+                        plain=lambda s=win, V=V, n=n: pl(s, V, n),
+                        # the library call works on the run-dtype matrix
+                        lib=lib if win is win_run else None,
+                        routes=routes, time=timed,
+                        # the nonzeros (a value and a 2-byte offset each),
+                        # the window starts, x and y: what this matrix needs
+                        nbytes=win.nnz * (ves + 2) + _nbytes(win.w0) + B * (m + n) * es,
+                        ops=2 * win.nnz * B,
+                        # what the kernel reads beside that: the padding slots
+                        # and slot_ptr; and the dense slab of the earlier design
+                        bytes_padded=slots * (ves + 2) + _nbytes(win.slot_ptr, win.w0)
+                        + B * (m + n) * es,
+                        bytes_dense_slab=win.NB * W * R * ves + _nbytes(win.w0)
+                        + B * (m + n) * es,
+                        shape=dict(NB=win.NB, R=R, W=W, n=n, m=m, nnz=win.nnz,
+                                   slots=slots, slots_per_nonzero=slots / max(win.nnz, 1),
+                                   packed_bytes=win.nbytes,
+                                   source=f"{hname} level {i} {w}_band window {j}")))
 
     kname = f"KNP tag {knp_tag}"
     if emi:
@@ -424,25 +590,37 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
 
 def check_cases(cases, dtype, time_them: bool):
     """Run each case's kernel against its plain version (tolerance TOL of
-    the vector dtype, times max|y|); with ``time_them`` also time kernel,
-    plain version and library call and compute the bound."""
+    the vector dtype, times max|y|), and each other route of the kernel
+    too; with ``time_them`` also time, for the cases not marked
+    ``time=False``, kernel, routes, plain version and library call and
+    compute the bound.  Times: ``ms``, ``plain_ms``, ``library_ms`` are
+    device times with L2 flushed (:func:`device_ms`; the time per call by
+    CUDA events where the profiler sees no device time); ``call_ms`` and
+    ``library_call_ms`` the time per call of back-to-back calls by CUDA
+    events, the host's time between launches included."""
     import torch
 
     dname = str(dtype).replace("torch.", "")
+    dev_ms = lambda fn: device_ms(fn) or cuda_ms(fn, reps=20)
     rows = []
     for c in cases:
         label = " ".join(filter(None, [c["name"], c.get("variant"), dname]))
-        y = c["kern"]()
-        torch.cuda.synchronize()
-        y_ref = c["plain"]()
-        err = float((y - y_ref).abs().max())
-        scale = float(y_ref.abs().max()) or 1.0
-        if y.shape != y_ref.shape or not (err <= TOL[dname] * scale) \
-                or not bool(torch.isfinite(y).all()):
-            raise AssertionError(
-                f"{label}: max|kernel - plain| = {err:.3e} exceeds "
-                f"{TOL[dname]:.0e} x max|y| = {TOL[dname] * scale:.3e}")
-        row = dict(name=c["name"], dtype=dname, max_abs_err=err, max_abs_y=scale)
+        y_ref = None
+        row = dict(name=c["name"], dtype=dname)
+        for route, fn in [(None, c["kern"]), *c.get("routes", {}).items()]:
+            y = fn()
+            torch.cuda.synchronize()
+            if y_ref is None:
+                y_ref = c["plain"]()
+                scale = float(y_ref.abs().max()) or 1.0
+            err = float((y - y_ref).abs().max())
+            if y.shape != y_ref.shape or not (err <= TOL[dname] * scale) \
+                    or not bool(torch.isfinite(y).all()):
+                raise AssertionError(
+                    f"{label} {route or ''}: max|kernel - plain| = {err:.3e} exceeds "
+                    f"{TOL[dname]:.0e} x max|y| = {TOL[dname] * scale:.3e}")
+            row["max_abs_err" if route is None else f"max_abs_err_{route}"] = err
+        row["max_abs_y"] = scale
         for key in ("variant", "shape", "bytes_padded"):
             if key in c:
                 row[key] = c[key]
@@ -452,20 +630,27 @@ def check_cases(cases, dtype, time_them: bool):
             if row["drift_share"] < c.get("min_drift_share", 0.0):
                 raise AssertionError(f"{label}: the drift term is only "
                                      f"{row['drift_share']:.3e} of max|y|")
-        if time_them:
+        if time_them and c.get("time", True):
             t_bytes = c["nbytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = c["ops"] / PEAK_FLOPS[dname] * 1e3
             row.update(
-                ms=cuda_ms(c["kern"]),
-                plain_ms=cuda_ms(c["plain"], reps=20),
-                library_ms=None if c["lib"] is None else cuda_ms(c["lib"], reps=20),
+                ms=dev_ms(c["kern"]), call_ms=cuda_ms(c["kern"]),
+                plain_ms=dev_ms(c["plain"]),
+                library_ms=None if c["lib"] is None else dev_ms(c["lib"]),
+                library_call_ms=None if c["lib"] is None else cuda_ms(c["lib"], reps=20),
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=c["nbytes"], ops=c["ops"],
             )
+            if "bytes_dense_slab" in c:
+                row["dense_slab_bound_ms"] = c["bytes_dense_slab"] / HBM_BYTES_PER_S * 1e3
+            for route, fn in c.get("routes", {}).items():
+                row[f"ms_{route}"] = dev_ms(fn)
             for key, fn in c.get("also_time", {}).items():
-                row[key] = cuda_ms(fn)
+                row[key] = dev_ms(fn)
         rows.append(row)
+    # the flush buffer must not count in a later run's peak memory
+    _FLUSH.pop("buf", None)
     return rows
 
 
@@ -473,8 +658,8 @@ def check_kernels(sim, dtype, time_them: bool):
     return check_cases(kernel_cases(sim, dtype), dtype, time_them)
 
 
-def check_mg_kernels(sim, dtype, time_them: bool):
-    return check_cases(mg_kernel_cases(sim, dtype), dtype, time_them)
+def check_mg_kernels(sim, dtype, time_them: bool, all_bands: bool = False):
+    return check_cases(mg_kernel_cases(sim, dtype, all_bands=all_bands), dtype, time_them)
 
 
 def check_k11(sim, dtype, time_them: bool, phi_scale: float):
@@ -487,7 +672,8 @@ def check_all_operators(sim, dtype, time_them: bool):
     K9, K10 on each membrane and, with mg_banded, the multigrid kernels
     on the layouts the EMI hierarchy and each subdomain's KNP hierarchy
     took (those layouts only; the kernels they cover must be the ones
-    the step can reach)."""
+    the step can reach) — K7/K8 on every banded window of every level of
+    the EMI hierarchy and of the first subdomain's KNP hierarchy."""
     tags, mems = sorted(sim.knp_sys.sub), sorted(sim.emi_sys.mem)
     on_cells = lambda c: c["name"].split()[0] in CELL_KERNELS
     cases = []
@@ -499,7 +685,7 @@ def check_all_operators(sim, dtype, time_them: bool):
     if sim.opts.mg_banded:
         for i, t in enumerate(tags):
             cases += mg_kernel_cases(sim, dtype, knp_tag=t, emi=i == 0,
-                                     as_built_only=True)
+                                     as_built_only=True, all_bands=i == 0)
         covered = {c["name"].split()[0] for c in cases}
         missed = {k for k in reachable_kernels(sim) if k != "K11"} - covered
         if missed:
@@ -816,10 +1002,10 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
 
     # -- phase 4: where the step's time goes ---------------------------------
     t0 = time.perf_counter()
-    phases = phase_ms(sim, state, 3)
+    phases = phase_ms(sim, state, 2)
     phase_k = phase_kernels(sim, state)
-    prof = profile_steps(sim, state, 3, wall / n_steps * 1e3)
-    emit(dict(phase=4, path=label, case=case + ", 3 profiled steps",
+    prof = profile_steps(sim, state, 2, wall / n_steps * 1e3)
+    emit(dict(phase=4, path=label, case=case + ", 2 profiled steps",
               phase_ms_per_step=phases, phase_kernels_per_step=phase_k,
               **prof, seconds=time.perf_counter() - t0))
     return rec
@@ -828,9 +1014,10 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
 def bf16_slab_steps(build_idealized, SolverOptions, n_steps: int = 5):
     """SolverOptions.mg_band_bf16 driven once: n_steps float32 steps of the
     3-D res-1 scenario (every level banded there) with the fine smoothing
-    slabs stored in float32 and in bfloat16.  Every step must converge,
-    the bfloat16 run must hold bfloat16 fine slabs and launch K7 and K8
-    with them; the iteration counts of both are reported."""
+    slabs' packed values stored in float32 and in bfloat16.  Every step
+    must converge, the bfloat16 run must hold bfloat16 fine values and
+    launch K7 and K8 with them; the iteration counts of both and the
+    packed bytes of the fine windows are reported."""
     import torch
 
     from knpemi_tpu_torch import ops
@@ -845,9 +1032,9 @@ def bf16_slab_steps(build_idealized, SolverOptions, n_steps: int = 5):
                 (sim.emi_solver.mg, *sim.knp_solver.mg.values())]
         want = torch.bfloat16 if bf16 else torch.float32
         if any(b is None for b in fine) or any(
-                w["slabT"].dtype != want for b in fine for w in b["windows"]):
+                w.val.dtype != want for b in fine for w in b["windows"]):
             raise AssertionError(f"mg_band_bf16={bf16}: a fine level is not "
-                                 f"banded or its slab is not {want}")
+                                 f"banded or its packed values are not {want}")
         ops.reset_launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -862,8 +1049,9 @@ def bf16_slab_steps(build_idealized, SolverOptions, n_steps: int = 5):
             raise AssertionError(f"mg_band_bf16={bf16}: K7/K8 idle: {launches}")
         out["bf16_slab" if bf16 else "float32_slab"] = dict(
             ms_per_step_first_steps=ms, emi_iters=it_e.tolist(),
-            knp_iters=it_k.tolist(), fine_slab_bytes=sum(
-                _nbytes(w["slabT"]) for b in fine for w in b["windows"]))
+            knp_iters=it_k.tolist(), fine_packed_bytes=sum(
+                w.nbytes for b in fine for w in b["windows"]),
+            fine_value_bytes=sum(_nbytes(w.val) for b in fine for w in b["windows"]))
     return out
 
 
@@ -910,7 +1098,7 @@ def flagship(build_astrocyte, baseline, SolverOptions):
         if k11_rows is None:
             k11_rows = check_k11(sim, torch.float32, True, phi_scale=1.0)
             rows["float32"] = rows["float32"] + k11_rows
-            rows["float64"] += check_k11(sim, torch.float64, True, phi_scale=1.0)
+            rows["float64"] += check_k11(sim, torch.float64, False, phi_scale=1.0)
         emit(dict(phase=1, path=label, setup_seconds=setup_s, **rows,
                   seconds=time.perf_counter() - t1))
         del rows
@@ -994,7 +1182,7 @@ def main() -> int:
         t1 = time.perf_counter()
         check = check_mg_kernels if banded else check_kernels
         r32 = check(sim, torch.float32, time_them=True)
-        r64 = check(sim, torch.float64, time_them=True)
+        r64 = check(sim, torch.float64, time_them=False)
         emit(dict(phase=1, path=label, setup_seconds_res2=setup_s, float32=r32,
                   float64=r64, seconds=time.perf_counter() - t1))
         # -- phases 3 and 4: the slice at res 2, float32 ------------------------
@@ -1015,9 +1203,9 @@ def main() -> int:
     setup_s = time.perf_counter() - t0
     t1 = time.perf_counter()
     rows32 = (check_kernels(sim, torch.float32, time_them=True)
-              + check_mg_kernels(sim, torch.float32, time_them=True))
+              + check_mg_kernels(sim, torch.float32, time_them=True, all_bands=True))
     r64 = (check_kernels(sim, torch.float64, time_them=False)
-           + check_mg_kernels(sim, torch.float64, time_them=False))
+           + check_mg_kernels(sim, torch.float64, time_them=False, all_bands=True))
     emit(dict(phase=1, path="mg_banded=True l=4", setup_seconds=setup_s,
               float32=rows32, float64=r64, seconds=time.perf_counter() - t1))
     torch.cuda.empty_cache()
@@ -1048,10 +1236,11 @@ def main() -> int:
     # one row per kernel.  The eleven of the batched step: all from the path
     # on which all eleven lie (the long box): launches of its 5 timed steps,
     # and error, times and bound of the kernel's first variant (K6a/K6b/K8
-    # at B = 2, the slab in the run dtype) at that path's shapes.  K11: from
-    # the per-ion flagship run, launches of its 10 timed steps, error, times
-    # and bound on the flagship's ECS subdomain with the first ion's scalars;
-    # its library_ms is the port's own K3 at B = 1.  Beside them every other
+    # at B = 2, the values in the run dtype) at that path's shapes.  K11:
+    # from the per-ion flagship run, launches of its 10 timed steps, error,
+    # times and bound on the flagship's ECS subdomain with the first ion's
+    # scalars.  ms, plain_ms, library_ms: device times with L2 flushed;
+    # call_ms: per call, back to back, host included.  Beside them every other
     # path's launch counts (res 2: 10 steps; flagship batched 20, per-ion
     # 10, banded 5).
     first = {}
@@ -1072,7 +1261,9 @@ def main() -> int:
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
              bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r["library_ms"], variant=r.get("variant"),
-             shape=r.get("shape"), bytes_padded=r.get("bytes_padded"))
+             shape=r.get("shape"), bytes_padded=r.get("bytes_padded"),
+             **{k: r[k] for k in ("call_ms", "library_call_ms", "ms_staged", "ms_l2",
+                                  "dense_slab_bound_ms", "k3_b1_ms") if k in r})
         for name, r in first.items()
     ]})
     print(smi, flush=True)

@@ -62,9 +62,9 @@ _SIGS = {
     "ell_rmatvec_batch": ("mg", "knp_ell_rmatvec_batch",
                           [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]),
     "banded_matvec": ("mg", "knp_banded_matvec",
-                      [_c_int] * 2 + [_c_ptr] * 4 + [_c_int] * 5 + [_c_ptr]),
+                      [_c_int] * 2 + [_c_ptr] * 6 + [_c_int] * 6 + [_c_ptr]),
     "banded_matvec_batch": ("mg", "knp_banded_matvec_batch",
-                            [_c_int] * 2 + [_c_ptr] * 4 + [_c_int] * 6 + [_c_ptr]),
+                            [_c_int] * 2 + [_c_ptr] * 6 + [_c_int] * 7 + [_c_ptr]),
 }
 _FNS = {}
 

@@ -1,9 +1,9 @@
 // Multigrid V-cycle kernels for Hopper (sm_90a): K5, K6a, K6b (sparse
 // operators in ELL form, for one vector and for B vectors) and K7, K8
-// (block-banded dense slabs).  Plain C interface, loaded with ctypes by
-// knpemi_tpu_torch/ops/ell.py and ops/banded.py, which hold the plain
-// PyTorch version of each kernel, the input checks and the launch
-// counters.
+// (block-banded operators, read as the packed nonzeros of their slabs).
+// Plain C interface, loaded with ctypes by knpemi_tpu_torch/ops/ell.py
+// and ops/banded.py, which hold the plain PyTorch version of each
+// kernel, the input checks and the launch counters.
 //
 // They replace the TPU kernels of knpemi_tpu/ops/pallas_ell.py and
 // pallas_banded.py.  Those gather and scatter through one-hot matrix
@@ -11,9 +11,10 @@
 // align every start to the (8, 128) tiling; here a gather is a load and
 // a scatter an atomicAdd, exact in the vector's type, and no alignment
 // is asked of the layout.  All five are bound by the bytes they move:
-// the ELL kernels by indices + values, the banded kernels by the slab.
-// Sums taken with atomics (K5, K6b) are order-dependent, so those agree
-// with the plain version to a few ulps of max|y|, not bit for bit.
+// the ELL kernels by indices + values, the banded kernels by the
+// nonzeros of the slabs.  Sums taken with atomics (K5, K6b) are
+// order-dependent, so those agree with the plain version to a few ulps
+// of max|y|, not bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -22,7 +23,6 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kTile = 512;  // window columns staged in shared memory
 
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
@@ -89,47 +89,167 @@ __global__ void ell_rmatvec_batch_kernel(const int* __restrict__ cols,
 }
 
 // ---------------------------------------------------------------------
-// Block-banded slabs: slabT[(blk*W + w), r] = A[blk*Rb + r, w0[blk] + w].
+// Block-banded operators, packed (ops/banded.py::pack_window).  Row
+// i = blk*R + r of one window is y[i] = sum_w slab[i, w] x[w0[blk] + w];
+// the packed form keeps only the slab's nonzeros, as a sliced ELL: slice
+// s (rows 32s .. 32s+31) owns slots slot_ptr[s] .. slot_ptr[s+1], slot k
+// of its row l at slot_ptr[s] + 32k + l, each an offset w (uint16) and a
+// value (padding: value 0 at offset 0), in the row's column order.
+//
+// K7 (B = 1) and K8 replace _banded_mv_call (pallas_banded.py:38) and
+// _banded_mv_call_batch (:89).  The TPU kernel streams the dense slab
+// through its matrix unit; the slabs are a few percent nonzero, so on
+// the H100 the least time is set by the nonzeros: a value and a 2-byte
+// offset each, plus w0, x and y once (the padding slots come on top;
+// chip_smoke.py prints them beside each bound).
+// Design:
+// * one warp per 32-row slice; slot k of its 32 rows is one coalesced
+//   load of values and one of offsets; kUnroll slots are in flight per
+//   thread: the bytes in flight, not the number of CTAs, decide how
+//   close the kernel comes to the memory rate (chosen on the card
+//   among 2-16 slices per CTA and 2-16 slots in flight);
+// * kBandWarps slices per CTA, any R that is a multiple of 32: a CTA
+//   covers a 256-row block, or part of a larger one;
+// * the window x[w0 .. w0+W) of all B vectors (zero beyond m) is copied
+//   into shared memory with cp.async (16 bytes where aligned) while the
+//   first slots load ("staged", where B*W values fit in kStageMax
+//   bytes), or each x value is read through the read-only path from L2
+//   ("l2");
+// * each row sums its slots in column order with fused multiply-adds,
+//   as a dense-slab kernel does over the full slab row: fma(0, x, acc) =
+//   acc, so both give the same bits on finite inputs.
 // ---------------------------------------------------------------------
 
-// K7 (B = 1) and K8: one CTA per row block, thread r owns row r of the
-// block.  The windows X[b, w0 .. w0+W) (zero beyond m) of all B vectors
-// are staged in shared memory kTile columns at a time; every slab value
-// is read once, coalesced over r, upcast and used for all B vectors.
-template <typename S, typename T, int B>
-__global__ void banded_matvec_kernel(const S* __restrict__ slabT,
-                                     const int* __restrict__ w0,
-                                     const T* __restrict__ X,
-                                     T* __restrict__ Y, int Rb, int W,
-                                     int n, int m) {
-  __shared__ T xs[B * kTile];
-  const int blk = blockIdx.x;
-  const int r = threadIdx.x;
+constexpr int kBandWarps = 8;             // 32-row slices per CTA
+constexpr int kUnroll = 8;                // slots in flight per thread
+constexpr int kStageMax = 112 << 10;      // two staged CTAs per SM
+
+__device__ __forceinline__ float fma_t(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_t(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+template <typename S>
+__device__ __forceinline__ S zero_of() { return S(0); }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16(0.f);
+}
+
+// cp.async of N bytes (4, 8 or 16) from global to shared memory; the
+// bytes past src_bytes are filled with zeros.
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
+               "l"(src), "n"(N), "r"(src_bytes)
+               : "memory");
+}
+
+// xs[0 .. W) = x[start .. start+W), zero from m on; by the whole CTA.
+template <typename T>
+__device__ __forceinline__ void stage_window(T* xs, const T* x,
+                                             int64_t start, int W, int m) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const T* src = x + start;
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && W % V == 0) {
+    for (int i = threadIdx.x * V; i < W; i += blockDim.x * V) {
+      const int64_t left = m - (start + i);
+      const int nv = left <= 0 ? 0 : (left >= V ? V : static_cast<int>(left));
+      cp_async<16>(xs + i, nv ? src + i : src, nv * static_cast<int>(sizeof(T)));
+    }
+  } else {
+    for (int i = threadIdx.x; i < W; i += blockDim.x) {
+      const bool in = start + i < m;
+      cp_async<static_cast<int>(sizeof(T))>(xs + i, in ? src + i : x,
+                          in ? static_cast<int>(sizeof(T)) : 0);
+    }
+  }
+}
+
+template <typename S, typename T, int B, bool STAGE>
+__global__ void __launch_bounds__(kBandWarps * 32)
+banded_packed_kernel(const int* __restrict__ slot_ptr,
+                     const uint16_t* __restrict__ off,
+                     const S* __restrict__ val, const int* __restrict__ w0,
+                     const T* __restrict__ X, T* __restrict__ Y, int R,
+                     int W, int n, int m, int ctas_per_block) {
+  extern __shared__ __align__(16) unsigned char band_smem[];
+  T* xs = reinterpret_cast<T*>(band_smem);
+  const int blk = static_cast<int>(blockIdx.x) / ctas_per_block;
+  const int lane = threadIdx.x & 31;
+  // this warp's slice within the block; warps past the block's last
+  // slice only help to stage the window
+  const int ls =
+      (static_cast<int>(blockIdx.x) - blk * ctas_per_block) * kBandWarps +
+      static_cast<int>(threadIdx.x >> 5);
+  const bool live = ls < R / 32;
   const int64_t start = w0[blk];
-  const S* slab = slabT + static_cast<int64_t>(blk) * W * Rb + r;
+  if (STAGE) {
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+      stage_window(xs + b * W, X + static_cast<int64_t>(b) * m, start, W, m);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
+  int64_t p = 0;
+  int K = 0;
+  if (live) {
+    const int s = blk * (R / 32) + ls;
+    p = slot_ptr[s] + lane;
+    K = (slot_ptr[s + 1] - slot_ptr[s]) >> 5;
+  }
+  // the first kUnroll slots load while the window arrives
+  S v[kUnroll];
+  unsigned o[kUnroll];
+#pragma unroll
+  for (int u = 0; u < kUnroll; ++u) {
+    v[u] = u < K ? val[p + 32 * u] : zero_of<S>();
+    o[u] = u < K ? off[p + 32 * u] : 0u;
+  }
+  if (STAGE) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+  }
   T acc[B];
 #pragma unroll
   for (int b = 0; b < B; ++b) acc[b] = T(0);
-  for (int t0 = 0; t0 < W; t0 += kTile) {
-    const int tw = min(kTile, W - t0);
-    for (int i = r; i < B * tw; i += Rb) {
-      const int b = i / tw;
-      const int w = i - b * tw;
-      const int64_t c = start + t0 + w;
-      xs[b * kTile + w] =
-          (c >= 0 && c < m) ? X[static_cast<int64_t>(b) * m + c] : T(0);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int w = 0; w < tw; ++w) {
-      const T s = static_cast<T>(upcast(slab[static_cast<int64_t>(t0 + w) * Rb]));
+  for (int k0 = 0; k0 < K; k0 += kUnroll) {
+    S vn[kUnroll];
+    unsigned on[kUnroll];
 #pragma unroll
-      for (int b = 0; b < B; ++b) acc[b] += s * xs[b * kTile + w];
+    for (int u = 0; u < kUnroll; ++u) {
+      const int k = k0 + kUnroll + u;
+      vn[u] = k < K ? val[p + 32 * static_cast<int64_t>(k)] : zero_of<S>();
+      on[u] = k < K ? off[p + 32 * static_cast<int64_t>(k)] : 0u;
     }
-    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      if (k0 + u < K) {
+        const T a = static_cast<T>(upcast(v[u]));
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          T xv;
+          if (STAGE) {
+            xv = xs[b * W + o[u]];
+          } else {
+            const int64_t c = start + o[u];
+            xv = c < m ? __ldg(X + static_cast<int64_t>(b) * m + c) : T(0);
+          }
+          acc[b] = fma_t(a, xv, acc[b]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      v[u] = vn[u];
+      o[u] = on[u];
+    }
   }
-  const int64_t row = static_cast<int64_t>(blk) * Rb + r;
-  if (row < n) {
+  const int64_t row = static_cast<int64_t>(blk) * R + ls * 32 + lane;
+  if (live && row < n) {
 #pragma unroll
     for (int b = 0; b < B; ++b) Y[static_cast<int64_t>(b) * n + row] = acc[b];
   }
@@ -173,34 +293,62 @@ int ell_rmatvec_batch_t(const int* cols, const void* vals, const void* Rv,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S, typename T>
-int banded_matvec_t(const void* slabT, const int* w0, const void* X, void* Y,
-                    int NB, int Rb, int W, int n, int m, int nb,
-                    cudaStream_t s) {
-#define CALL(BB)                                                          \
-  banded_matvec_kernel<S, T, BB><<<NB, Rb, 0, s>>>(                       \
-      static_cast<const S*>(slabT), w0, static_cast<const T*>(X),         \
-      static_cast<T*>(Y), Rb, W, n, m)
-  KNP_FOR_BATCH(nb, CALL)
-#undef CALL
+template <typename S, typename T, int B, bool STAGE>
+int banded_launch(const int* slot_ptr, const void* off, const void* val,
+                  const int* w0, const void* X, void* Y, int NB, int R,
+                  int W, int n, int m, cudaStream_t s) {
+  auto kern = banded_packed_kernel<S, T, B, STAGE>;
+  const size_t smem = STAGE ? static_cast<size_t>(B) * W * sizeof(T) : 0;
+  if (smem > (48 << 10)) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kStageMax);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const int cpb = (R / 32 + kBandWarps - 1) / kBandWarps;
+  kern<<<static_cast<unsigned int>(NB) * cpb, kBandWarps * 32, smem, s>>>(
+      slot_ptr, static_cast<const uint16_t*>(off), static_cast<const S*>(val),
+      w0, static_cast<const T*>(X), static_cast<T*>(Y), R, W, n, m, cpb);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: vector type, 0 = float32, 1 = float64.  slab: slab storage type,
-// 0 = float32, 1 = float64, 2 = bfloat16 (with either vector type).
-int banded_dispatch(int dtype, int slab, const void* slabT, const int* w0,
-                    const void* X, void* Y, int NB, int Rb, int W, int n,
-                    int m, int nb, cudaStream_t s) {
-  if (NB == 0 || nb == 0) return 0;
-  if (Rb <= 0 || Rb > 1024) return static_cast<int>(cudaErrorInvalidValue);
+// route: 0 = staged where the B windows fit in kStageMax bytes, else l2;
+// 1 = staged (refused where they do not fit); 2 = l2.
+template <typename S, typename T>
+int banded_matvec_t(const int* slot_ptr, const void* off, const void* val,
+                    const int* w0, const void* X, void* Y, int NB, int R,
+                    int W, int n, int m, int nb, int route, cudaStream_t s) {
+  const bool fits = static_cast<size_t>(nb) * W * sizeof(T) <= kStageMax;
+  if (route == 1 && !fits) return static_cast<int>(cudaErrorInvalidValue);
+  const bool stage = route == 1 || (route == 0 && fits);
+#define CALL(BB)                                                         \
+  return stage ? banded_launch<S, T, BB, true>(slot_ptr, off, val, w0, X, \
+                                               Y, NB, R, W, n, m, s)      \
+               : banded_launch<S, T, BB, false>(slot_ptr, off, val, w0, X, \
+                                                Y, NB, R, W, n, m, s)
+  KNP_FOR_BATCH(nb, CALL)
+#undef CALL
+  return 0;
+}
+
+// dtype: vector type, 0 = float32, 1 = float64.  slab: storage type of
+// the values, 0 = float32, 1 = float64, 2 = bfloat16 (with either vector
+// type).
+int banded_dispatch(int dtype, int slab, const int* slot_ptr, const void* off,
+                    const void* val, const int* w0, const void* X, void* Y,
+                    int NB, int R, int W, int n, int m, int nb, int route,
+                    cudaStream_t s) {
+  if (NB == 0 || nb == 0 || n == 0) return 0;
+  if (R <= 0 || R % 32 || R > 1024 || W <= 0 || W > (1 << 16) || m <= 0 ||
+      route < 0 || route > 2)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0 && slab == 0)
-    return banded_matvec_t<float, float>(slabT, w0, X, Y, NB, Rb, W, n, m, nb, s);
+    return banded_matvec_t<float, float>(slot_ptr, off, val, w0, X, Y, NB, R, W, n, m, nb, route, s);
   if (dtype == 0 && slab == 2)
-    return banded_matvec_t<__nv_bfloat16, float>(slabT, w0, X, Y, NB, Rb, W, n, m, nb, s);
+    return banded_matvec_t<__nv_bfloat16, float>(slot_ptr, off, val, w0, X, Y, NB, R, W, n, m, nb, route, s);
   if (dtype == 1 && slab == 1)
-    return banded_matvec_t<double, double>(slabT, w0, X, Y, NB, Rb, W, n, m, nb, s);
+    return banded_matvec_t<double, double>(slot_ptr, off, val, w0, X, Y, NB, R, W, n, m, nb, route, s);
   if (dtype == 1 && slab == 2)
-    return banded_matvec_t<__nv_bfloat16, double>(slabT, w0, X, Y, NB, Rb, W, n, m, nb, s);
+    return banded_matvec_t<__nv_bfloat16, double>(slot_ptr, off, val, w0, X, Y, NB, R, W, n, m, nb, route, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -244,21 +392,22 @@ int knp_ell_rmatvec_batch(int dtype, const int* cols, const void* vals,
              : ell_rmatvec_batch_t<double>(cols, vals, Rv, Y, R, K, m, nb, s);
 }
 
-// K7: y (n,) = one window of a block-banded operator times x (m,).
-int knp_banded_matvec(int dtype, int slab, const void* slabT, const int* w0,
-                      const void* x, void* y, int NB, int Rb, int W, int n,
-                      int m, void* stream) {
-  return banded_dispatch(dtype, slab, slabT, w0, x, y, NB, Rb, W, n, m, 1,
-                         static_cast<cudaStream_t>(stream));
+// K7: y (n,) = one packed window of a block-banded operator times x (m,).
+int knp_banded_matvec(int dtype, int slab, const int* slot_ptr,
+                      const void* off, const void* val, const int* w0,
+                      const void* x, void* y, int NB, int R, int W, int n,
+                      int m, int route, void* stream) {
+  return banded_dispatch(dtype, slab, slot_ptr, off, val, w0, x, y, NB, R, W,
+                         n, m, 1, route, static_cast<cudaStream_t>(stream));
 }
 
 // K8: Y (nb, n) = the same window times X (nb, m), nb <= 8.
-int knp_banded_matvec_batch(int dtype, int slab, const void* slabT,
-                            const int* w0, const void* X, void* Y, int NB,
-                            int Rb, int W, int n, int m, int nb,
-                            void* stream) {
-  return banded_dispatch(dtype, slab, slabT, w0, X, Y, NB, Rb, W, n, m, nb,
-                         static_cast<cudaStream_t>(stream));
+int knp_banded_matvec_batch(int dtype, int slab, const int* slot_ptr,
+                            const void* off, const void* val, const int* w0,
+                            const void* X, void* Y, int NB, int R, int W,
+                            int n, int m, int nb, int route, void* stream) {
+  return banded_dispatch(dtype, slab, slot_ptr, off, val, w0, X, Y, NB, R, W,
+                         n, m, nb, route, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

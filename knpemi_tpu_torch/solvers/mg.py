@@ -15,7 +15,8 @@ V(1,1) cycle:
 
 With ``banded=True`` every level operator A, transfer P and P^T and
 product AP additionally gets the JAX package's block-banded layout
-(:func:`_csr_to_banded`, applied by kernels K7/K8 of ``ops/banded.py``)
+(:func:`_csr_to_banded`; uploaded as the packed nonzeros of its slabs and
+applied by kernels K7/K8 of ``ops/banded.py``)
 or, where that is refused, its windowed-ELL layout (``ops/ell.py``,
 kernels K4, K5, K6a, K6b); the cycle takes band, then windowed ELL, then
 plain ELL, and computes the post-smoothing residual from AP where that
@@ -43,7 +44,6 @@ import torch
 
 from ..ops import banded as band_ops
 from ..ops import ell as ell_ops
-from ..ops.assembly import index_dtype
 
 
 # ---------------------------------------------------------------------------
@@ -404,19 +404,17 @@ def _csr_to_banded(A: sp.csr_matrix, R: int = 256, W_cap: int = 4096,
 
 
 def _device_band(band, dtype, device, slab_dtype=None):
-    """A :func:`_csr_to_banded` layout as device tensors: slabs in
-    ``slab_dtype`` (default ``dtype``), far values in ``dtype``."""
+    """A :func:`_csr_to_banded` layout as device tensors: each window in
+    the packed form K7/K8 read (``ops/banded.py::pack_window``, values in
+    ``slab_dtype``, default ``dtype``; the dense slab stays on the host),
+    far values in ``dtype``."""
     if band is None:
         return None
     windows, far_rows, far_cols, far_vals, n, m = band
     as_i = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
     return dict(
-        windows=[dict(
-            # uploaded as built (the run dtype), cast on the device
-            slabT=torch.as_tensor(sT, device=device).to(slab_dtype or dtype),
-            w0=torch.as_tensor(w0, dtype=index_dtype(device), device=device),
-            W=W,
-        ) for sT, w0, W in windows],
+        windows=[band_ops.pack_window(sT, w0, W, slab_dtype or dtype, device)
+                 for sT, w0, W in windows],
         far_rows=as_i(far_rows), far_cols=as_i(far_cols),
         far_vals=torch.as_tensor(far_vals, dtype=dtype, device=device), n=n, m=m,
     )
@@ -437,10 +435,11 @@ class MGHierarchy:
 
     def device(self, dtype, device, band_dtype=None) -> "DeviceMG":
         """Upload to ``device`` in ``dtype``.  ``band_dtype`` is the STORAGE
-        type of the fine-level smoothing slab (``torch.bfloat16`` halves
-        its bytes; default ``dtype``): the kernel upcasts each value after
-        the read and never rounds the vector, so the preconditioner stays
-        one fixed linear operator.  It applies to ``levels[0].a_band``
+        type of the fine-level smoothing slab's packed values
+        (``torch.bfloat16`` halves their bytes; default ``dtype``): the
+        kernel upcasts each value after the read and never rounds the
+        vector, so the preconditioner stays one fixed linear operator.
+        It applies to ``levels[0].a_band``
         only: the Galerkin coarse operators and the transfers must keep
         the near-null space exactly."""
         as_f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
@@ -667,12 +666,13 @@ def _ell_mv_batch(cols, vals, X):
 
 def _banded_mv(band, x, batch: bool):
     """y = A x (or Y = X A^T for X (B, m)) with A in multi-window
-    block-banded form: each window through K7 (K8 for a batch, one slab
-    read for all B vectors), summed, plus the COO remainder."""
+    block-banded form: each packed window through K7 (K8 for a batch, one
+    read of its nonzeros for all B vectors), summed, plus the COO
+    remainder."""
     mv = band_ops.banded_matvec_batch if batch else band_ops.banded_matvec
     y = None
     for win in band["windows"]:
-        ys = mv(win["slabT"], win["w0"], x, band["n"], win["W"])
+        ys = mv(win, x, band["n"])
         y = ys if y is None else y + ys
     if band["far_rows"].shape[0]:
         far = band["far_vals"] * x[..., band["far_cols"]]

@@ -2,8 +2,9 @@
 
 Skipped where there is no CUDA device (the CPU test machines); on the
 GPU run ``python -m pytest tests/test_torch_cuda.py -q --noconftest``.  Tolerances:
-the kernels sum with atomics, in another order than the plain versions:
-1e-5 max|y| in float32, 1e-12 max|y| in float64.
+the kernels sum with atomics or with fused multiply-adds, in another
+order than the plain versions: 1e-5 max|y| in float32, 1e-12 max|y| in
+float64.  K7/K8 run on the packed band windows (``ops/banded.py``).
 """
 
 import pytest
@@ -139,3 +140,43 @@ def test_banded_step_launches_the_multigrid_kernels(sim_banded):
     assert ok.all()
     counts = ops.launch_counts()
     assert counts["K7 banded_matvec"] and counts["K8 banded_matvec_batch"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_packed_band_kernels_match_plain_on_every_window(sim_banded, dtype):
+    """K7 and K8 on every packed window of the banded hierarchies (EMI and
+    KNP tag 0, every level and role), values in the run dtype and in
+    bfloat16, each route of reading x held against the plain version."""
+    import chip_smoke
+
+    rows = chip_smoke.check_mg_kernels(sim_banded, dtype, time_them=False, all_bands=True)
+    band = [r for r in rows if r["name"].split()[0] in ("K7", "K8")]
+    assert band and all("max_abs_err_l2" in r for r in band)
+    windows = sum(len(lv[f"{w}_band"]["windows"]) for lv in sim_banded.emi_solver.mg.levels
+                  for w in ("a", "ap", "p", "pt") if lv[f"{w}_band"] is not None)
+    # one case per window and value type
+    assert sum(r["name"].startswith("K7") for r in band) == 2 * windows
+
+
+def test_packed_band_wrappers_raise_rather_than_fall_back(sim_banded):
+    import dataclasses
+
+    from knpemi_tpu_torch.ops import banded as TB
+
+    band = next(lv[f"{w}_band"] for lv in sim_banded.emi_solver.mg.levels
+                for w in ("a", "ap", "p", "pt") if lv[f"{w}_band"] is not None)
+    win, n, m = band["windows"][0], band["n"], band["m"]
+    x = torch.ones(m, device="cuda")
+    before = TB.banded_matvec.launches
+    with pytest.raises(TypeError):
+        TB.banded_matvec(win, x.double(), n)
+    with pytest.raises(ValueError):
+        TB.banded_matvec(win, x.cpu(), n)
+    # eight float64 windows of 4,096 do not fit in shared memory: refused
+    wide = dataclasses.replace(win, val=win.val.double(), W=4096)
+    with pytest.raises(RuntimeError):
+        TB.banded_matvec_batch(wide, torch.ones(8, m, device="cuda", dtype=torch.float64),
+                               n, route="staged")
+    assert TB.banded_matvec.launches == before
+    TB.banded_matvec(win, x, n)
+    assert TB.banded_matvec.launches == before + 1

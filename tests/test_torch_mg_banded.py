@@ -10,7 +10,11 @@ All on the CPU, at small sizes, inputs made from a seed with numpy.
     interpret mode, at 1e-5 max|y| (the JAX kernels gather through bf16
     split passes and both sides sum in their own order); in float64
     against scipy, at 1e-12 max|y|; with far-COO spill, B in {1, 2, 8},
-    and a bfloat16 slab for K7/K8;
+    and bfloat16 values for K7/K8, which run on the packed form
+    (``ops/banded.py::pack_window``) of the same slabs; the packed form
+    of every window of the 3-D res-1 hierarchies rebuilds its slab
+    exactly, stores at most 2.5 slots per nonzero and gives the slab's
+    product to 1e-12 in float64;
 (c) ``DeviceMG.apply`` / ``apply_batch`` of a ``banded=True`` hierarchy
     against JAX's on the same residuals, as built (all banded) and with
     banding refused in both packages (all windowed ELL): float64, 1e-10
@@ -24,6 +28,8 @@ All on the CPU, at small sizes, inputs made from a seed with numpy.
     port's per-ion branch with ``mg_banded=True``, whose KNP V-cycles run
     on single vectors: the same gates.
 """
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -281,20 +287,21 @@ def test_ellw_device_form_is_the_matrix():
 @pytest.mark.parametrize("slab", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["tridiag_far", "tall", "two_windows"])
 def test_banded_plain_f32_vs_jax_interpret(case, slab, B):
-    """K7 (B = 1, the single wrapper) and K8, window by window."""
+    """K7 (B = 1, the single wrapper) and K8, window by window: the packed
+    form's plain version against the JAX kernel on the same slab."""
     A = BAND_CASES[case]()
     windows, _, _, _, n, m = tmg._csr_to_banded(A, R=256, dtype=np.float32)
     X = np.random.default_rng(B).standard_normal((B, m)).astype(np.float32)
     st, sj = getattr(torch, slab), getattr(jnp, slab)
     for sT, w0, W in windows:
-        slabT, w0t = torch.as_tensor(sT).to(st), torch.as_tensor(w0)
+        win = TB.pack_window(sT, w0, W, st, "cpu")
         slabJ, w0r = jnp.asarray(sT, sj), jnp.asarray(w0 // 128, jnp.int32)
         if B == 1:
-            y = TB.banded_matvec(slabT, w0t, torch.as_tensor(X[0]), n, W)[None]
+            y = TB.banded_matvec(win, torch.as_tensor(X[0]), n)[None]
             y_jax = JB.banded_matvec(slabJ, w0r, jnp.asarray(X[0]), n, W,
                                      interpret=True)[None]
         else:
-            y = TB.banded_matvec_batch(slabT, w0t, torch.as_tensor(X), n, W)
+            y = TB.banded_matvec_batch(win, torch.as_tensor(X), n)
             y_jax = JB.banded_matvec_batch(slabJ, w0r, jnp.asarray(X), n, W,
                                            interpret=True)
         close(y, y_jax, TOL32)
@@ -316,17 +323,17 @@ def test_banded_mv_f64_vs_scipy(case, B):
 
 
 def test_bf16_slab_is_storage_only():
-    """A bfloat16 slab is upcast after the read and x is never rounded: the
-    result is the float64 product with the ROUNDED matrix, to 1e-12."""
+    """bfloat16 packed values are upcast after the read and x is never
+    rounded: the result is the float64 product with the ROUNDED matrix,
+    to 1e-12."""
     A = BAND_CASES["tridiag_far"]()
     (sT, w0, W), = tmg._csr_to_banded(A, R=256, dtype=np.float32)[0][:1]
-    x = np.random.default_rng(0).standard_normal(A.shape[1])
-    slab16 = torch.as_tensor(sT).to(torch.bfloat16)
-    y = TB.banded_matvec(slab16, torch.as_tensor(w0), torch.as_tensor(x),
-                         A.shape[0], W)
-    y_ref = TB.banded_matvec(slab16.to(torch.float64), torch.as_tensor(w0),
-                             torch.as_tensor(x), A.shape[0], W)
-    assert y.dtype == torch.float64
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(A.shape[1]))
+    win16 = TB.pack_window(sT, w0, W, torch.bfloat16, "cpu")
+    y = TB.banded_matvec(win16, x, A.shape[0])
+    y_ref = TB.banded_matvec(
+        dataclasses.replace(win16, val=win16.val.to(torch.float64)), x, A.shape[0])
+    assert win16.val.dtype == torch.bfloat16 and y.dtype == torch.float64
     close(y, y_ref, TOL64)
 
 
@@ -335,12 +342,12 @@ def test_new_wrappers_take_plain_path_on_cpu_and_check_inputs():
     n = A.shape[0]
     e = TE.build_ellw(A).device(torch.float32, "cpu")
     (sT, w0, W), = tmg._csr_to_banded(A, R=256, dtype=np.float32)[0][:1]
-    slabT, w0 = torch.as_tensor(sT), torch.as_tensor(w0)
+    win = TB.pack_window(sT, w0, W, torch.float32, "cpu")
     x = torch.ones(n)
     ops.reset_launch_counts()
     TE.ellw_matvec(e, x), TE.ellw_rmatvec(e, x)
     TE.ellw_matvec_batch(e, x[None]), TE.ellw_rmatvec_batch(e, x[None])
-    TB.banded_matvec(slabT, w0, x, n, W), TB.banded_matvec_batch(slabT, w0, x[None], n, W)
+    TB.banded_matvec(win, x, n), TB.banded_matvec_batch(win, x[None], n)
     assert len(ops.launch_counts()) == 12
     assert all(v == 0 for v in ops.launch_counts().values())
     with pytest.raises(ValueError):
@@ -349,12 +356,114 @@ def test_new_wrappers_take_plain_path_on_cpu_and_check_inputs():
         TE.ellw_rmatvec_batch(e, x)
     with pytest.raises(TypeError):
         TE.ellw_matvec(e, x.double())
+    replace = dataclasses.replace
     with pytest.raises(TypeError):
-        TB.banded_matvec(slabT.double(), w0, x, n, W)
+        TB.banded_matvec(replace(win, val=win.val.double()), x, n)
     with pytest.raises(ValueError):
-        TB.banded_matvec(slabT, w0, x, n + 300, W)
+        TB.banded_matvec(win, x, n + 300)
     with pytest.raises(ValueError):
-        TB.banded_matvec(slabT, w0[:-1], x, n, W)
+        TB.banded_matvec(replace(win, w0=win.w0[:-1]), x, n)
+    with pytest.raises(ValueError):
+        TB.banded_matvec_batch(win, x, n)
+    # rows per block not a multiple of 32, a window wider than uint16
+    with pytest.raises(ValueError):
+        TB.banded_matvec(replace(win, R=48), x, n)
+    with pytest.raises(ValueError):
+        TB.banded_matvec(replace(win, W=70_000), x, n)
+    with pytest.raises(ValueError):
+        TB.pack_window(np.zeros((2 * 128, 48), np.float32), np.zeros(2, np.int32),
+                       128, torch.float32, "cpu")
+    with pytest.raises(ValueError):
+        TB.pack_window(np.zeros((70_000, 32), np.float32), np.zeros(1, np.int32),
+                       70_000, torch.float32, "cpu")
+
+
+@pytest.fixture(scope="module")
+def res1_bands():
+    """Every banded layout (level, role) of the 3-D res-1 scenario's four
+    hierarchies (EMI and one KNP per subdomain) with mg_banded=True, as
+    the host holds it: [(label, band), ...]."""
+    from knpemi_tpu_torch.sim import stepper
+
+    hosts = []
+    build = stepper.build_hierarchy_cached
+
+    def record(*a, **k):
+        hosts.append(build(*a, **k))
+        return hosts[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(stepper, "build_hierarchy_cached", record)
+        build_idealized(dim=3, resolution=1, g_syn_bar=10.0, dtype=torch.float32,
+                        device="cpu", solver_options=SolverOptions(mg_banded=True))
+    bands = [(f"hierarchy {h} level {i} {w}_band", getattr(lv, w + "_band"))
+             for h, hier in enumerate(hosts) for i, lv in enumerate(hier.levels)
+             for w in ("a", "p", "pt", "ap") if getattr(lv, w + "_band") is not None]
+    assert len(hosts) == 3 and len(bands) >= 20
+    return bands
+
+
+def unpack_window(win):
+    """The dense slab (NB*W, R) a packed window stores, in its storage type."""
+    # padding slots (value 0) may share a position with a stored value
+    keep = win.val != 0
+    row, col = TB._slot_rows(win)[keep], win.off.long()[keep] & 0xFFFF
+    slab = torch.zeros(win.NB * win.W, win.R, dtype=win.val.dtype)
+    slab[row // win.R * win.W + col, row % win.R] = win.val[keep]
+    return slab
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pack_window_round_trip(res1_bands, dtype):
+    """The dense slab rebuilt from slot_ptr/off/val is the host slab, for
+    every window of the res-1 hierarchies, all roles."""
+    for label, band in res1_bands:
+        for sT, w0, W in band[0]:
+            win = TB.pack_window(sT, w0, W, dtype, "cpu")
+            assert win.val.dtype == dtype and win.off.dtype == torch.int16, label
+            assert win.nnz == np.count_nonzero(sT), label
+            assert torch.equal(unpack_window(win), torch.as_tensor(sT).to(dtype)), label
+            assert torch.equal(win.w0, torch.as_tensor(w0, dtype=torch.int64)), label
+
+
+def test_packed_slots_per_nonzero(res1_bands):
+    """Stored slots against nonzeros: at most 2.5 (1.00-2.22 on these
+    hierarchies), and the packed window far smaller than the slab."""
+    for label, band in res1_bands:
+        for sT, w0, W in band[0]:
+            win = TB.pack_window(sT, w0, W, torch.float32, "cpu")
+            ptr = win.slot_ptr.numpy()
+            assert ptr[0] == 0 and (ptr % TB.SLICE == 0).all() and (np.diff(ptr) >= 0).all()
+            assert win.nnz <= win.val.numel() <= 2.5 * win.nnz, label
+            assert win.nbytes < sT.nbytes / 10, label
+
+
+def test_packed_plain_is_the_slab_product_f64(res1_bands):
+    """K7/K8's plain versions on the packed form against the dense slab
+    product, window by window, float64: 1e-12 of max|y|."""
+    rng = np.random.default_rng(4)
+    for label, (windows, _, _, _, n, m) in res1_bands:
+        X = rng.standard_normal((2, m))
+        for sT, w0, W in windows:
+            win = TB.pack_window(sT, w0, W, torch.float64, "cpu")
+            NB, R = sT.shape[0] // W, sT.shape[1]
+            Xw = np.pad(X, ((0, 0), (0, W)))[:, w0[:, None] + np.arange(W)]
+            ref = np.einsum("nwr,bnw->bnr", sT.reshape(NB, W, R).astype(np.float64),
+                            Xw).reshape(2, -1)[:, :n]
+            close(TB.banded_matvec_batch(win, torch.as_tensor(X), n), ref, TOL64)
+            close(TB.banded_matvec(win, torch.as_tensor(X[0]), n), ref[0], TOL64)
+
+
+def test_device_band_holds_no_dense_slab():
+    """_device_band uploads each window packed: no (NB*W, R) slab."""
+    A = BAND_CASES["two_windows"]()
+    band = tmg._csr_to_banded(A, R=256, dtype=np.float32)
+    dev = tmg._device_band(band, torch.float32, "cpu")
+    assert len(dev["windows"]) == len(band[0]) == 2
+    for win, (sT, w0, W) in zip(dev["windows"], band[0]):
+        assert isinstance(win, TB.PackedWindow) and (win.W, win.R) == (W, 256)
+        assert all(t.dim() == 1 for t in (win.slot_ptr, win.off, win.val, win.w0))
+        assert win.val.numel() < sT.size / 10
 
 
 # ---------------------------------------------------------------------------
@@ -474,8 +583,8 @@ def test_bf16_fine_slab_option_runs():
                                      mg_coarse_max=100))
     a_band = sim.emi_solver.mg.levels[0]["a_band"]
     assert a_band is not None
-    assert a_band["windows"][0]["slabT"].dtype == torch.bfloat16
+    assert a_band["windows"][0].val.dtype == torch.bfloat16
     p_band = sim.emi_solver.mg.levels[0]["p_band"]
-    assert p_band is None or p_band["windows"][0]["slabT"].dtype == torch.float32
+    assert p_band is None or p_band["windows"][0].val.dtype == torch.float32
     (s,) = run_port(sim, 1)
     assert bool(s.emi_ok) and bool(s.knp_ok)
