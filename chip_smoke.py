@@ -9,24 +9,31 @@ and 4 come in two groups):
 
 0. device and build: the card's name and power limit, the torch and
    CUDA versions, and the build of every CUDA kernel from ops/csrc;
-1. kernels: each of the twelve hand-written kernels against its plain
+1. kernels: each of the fourteen hand-written kernels against its plain
    PyTorch version on the card, in float32 and float64 (K7/K8 on the
-   packed windows, also with bfloat16 values) — the six assembly kernels of the batched step at
-   the shapes of the 3-D res-2 mesh, the five multigrid kernels at the
-   shapes of the res-2 banded hierarchies' own operators (EMI for
-   K4/K5/K7, KNP tag 0 at B = 2 and once at B = 8 for K6a/K6b/K8), and
-   the single-ion KNP operator K11 on the three subdomains of the
-   astrocyte flagship, also row by row against K3; before each of the
-   three flagship runs, every kernel of the batched step once more on
-   that simulation's own operators: K1/K3/K4 on each of its three
-   subdomains (per-tag diffusion coefficients), K2/K9/K10 on both
-   membranes and, with mg_banded, K4-K8 on the layouts its four
-   hierarchies took (K7/K8 on every banded window of the EMI and first
-   KNP hierarchies, by both routes of reading x); device times (L2
-   flushed, by torch.profiler) of kernel, plain version and the PyTorch
-   call that computes the same function (torch.mv / torch.sparse.mm on
-   its CSR; for K1, K2, K3, K11 assembled from the port's host COO
-   helpers), beside the bound, and each call's time with the host's;
+   packed windows, also with bfloat16 values) — the seven assembly
+   kernels of the batched step (K1 is the apply of a subdomain's
+   assembled P1 operator, K1f the fill of its values once per EMI
+   solve) at the shapes of the 3-D res-2 mesh, the five multigrid
+   kernels at the shapes of the res-2 banded hierarchies' own operators
+   (EMI for K4/K5/K7, KNP tag 0 at B = 2 and once at B = 8 for
+   K6a/K6b/K8), and the single-ion KNP operator K11 (the same apply with
+   two value streams) and its drift fill K11f on every subdomain of the
+   astrocyte flagship and of the l = 4 box, K11 also row by row against
+   K3; before each of the three flagship runs, every kernel of the
+   batched step once more on that simulation's own operators:
+   K1/K1f/K3/K4 on each of its three subdomains (per-tag diffusion
+   coefficients), K2/K9/K10 on both membranes and, with mg_banded, K4-K8
+   on the layouts its four hierarchies took (K7/K8 on every banded
+   window of the EMI and first KNP hierarchies, by both routes of
+   reading x); device times (L2 flushed, by torch.profiler) of kernel,
+   plain version and the PyTorch call that computes the same function
+   (torch.mv / torch.sparse.mm on its CSR; for K1 and K11 the CSR of
+   the same P1 operator, for K2, K3 assembled from the port's host COO
+   helpers), beside the bound, and each call's time with the host's; K1
+   and K11 also with the bound of their nonzeros and that of the
+   earlier cell-loop formulation's bytes, and after phase 3 the cost
+   per solve (fill + applies) against the cell-loop kernels';
 2. parity: 2 float64 steps of the 3-D res-1 scenario on the GPU and on
    the CPU, with ELL and with banded multigrid — equal Krylov iteration
    counts on all four, phi_M within 1e-9 V and concentrations within
@@ -42,23 +49,24 @@ and 4 come in two groups):
    mg_banded=True with the layout build_hierarchy chose per level);
    then the same scenario in the box of twice the length (l = 4, 1.1 M
    dofs/step), mg_banded=True, 2 warm-up and 5 timed steps: there the
-   KNP transfers take the windowed-ELL layout too, so all eleven
-   kernels are on the path, and phase 1 is run once more on this
-   simulation's own operators before it is driven (K5 and K6b on its
-   restriction layouts): the kernel table's launches, times, bounds
-   and errors all come from this one path.  The launch counts are set
-   to 0 just before
-   each timed run and read just after; every kernel the path can reach
-   must have launched (all eleven in the long box), K7 or K8 on a
+   KNP transfers take the windowed-ELL layout too, so all twelve
+   kernels of the batched step are on the path, and phase 1 is run once
+   more on this simulation's own operators before it is driven (K5 and
+   K6b on its restriction layouts): the kernel table's launches, times,
+   bounds and errors all come from this one path.  The launch counts
+   are set to 0 just before each timed run and read just after; every kernel the path can reach
+   must have launched (all twelve in the long box), K7 or K8 on a
    banded path, and every step converged;
    then the astrocyte tissue flagship at full width (mesh_n 64, 840,015
    dofs/step, three subdomains, two membranes, float32, the tuned solver
    options, mg_banded=False): ion-batched for 12 warm-up steps (past the
    onset of the pulsed ECS source) and 20 timed steps, then per-ion
-   (knp_batched=False, K11 once per GMRES iteration of every ion) for
-   12 + 10 steps; the source gate must be on in the timed window, K_e
-   must have risen above its initial value, the per-ion run must launch
-   K11 and launch K3 only for the right-hand side's mass term, and
+   (knp_batched=False, K11 once per GMRES iteration of every ion, K11f
+   once per step and subdomain) for 12 + 10 steps; the source gate must
+   be on in the timed window, K_e must have risen above its initial
+   value, every run must launch K1f once per step and subdomain, the
+   per-ion run must launch K11 and K11f and launch K3 only for the
+   right-hand side's mass term, and
    phi_M of the two runs at step 22 must agree within 1e-3 relative L2;
    last the batched flagship with mg_banded=True for 12 + 5 steps;
 4. profile, per res-2 path and per flagship run: the
@@ -67,9 +75,10 @@ and 4 come in two groups):
    torch.profiler — device kernel time and busy share, kernels per
    step, the top kernels.
 
-Then the kernel table as one JSON line of twelve entries (the eleven
-kernels of the batched step from the long box, K11 from the per-ion
-flagship run), the card's name and power limit, and the last line
+Then the kernel table as one JSON line of fourteen entries (the twelve
+kernels of the batched step from the long box, K11 and K11f from the
+per-ion flagship run), the cost per solve of the P1 operator's fill and
+applies, the card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and the script exits non-zero without that line; it
 also exits non-zero when CUDA is unavailable or when the package is not
@@ -88,7 +97,16 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # peak rates outside the tensor cores (NVIDIA H100 SXM data sheet)
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, x max|y|
-CELL_KERNELS = ("K1", "K3", "K4")  # of the assembly kernels; the others: facets
+CELL_KERNELS = ("K1", "K1f", "K3", "K4")  # of the assembly kernels; the others: facets
+P1_KERNELS = ("K1", "K1f")  # of the cell kernels: the P1 operator's
+# device ms (L2 flushed) of the cell-loop K1 (l = 4 box, tag 0) and K11
+# (flagship ECS, first ion) that the P1 operator's kernels replaced, as
+# recorded in PERF.md's kernel table: the per-solve comparison's base.
+# Not measured by this script: those kernels are no longer in the tree.
+CELL_LOOP_MS = {"K1": 0.0601, "K11": 0.0592}
+CELL_LOOP_SOURCE = ("recorded, not measured in this run: PERF.md's kernel table, "
+                    "the cell-loop kernels' device ms on an NVIDIA H100 80GB HBM3 "
+                    "at 700 W")
 
 
 def emit(obj):
@@ -201,6 +219,13 @@ def _device_csr(rows, cols, vals, shape, dtype, device):
     return torch.sparse_coo_tensor(idx, v, shape).coalesce().to_sparse_csr()
 
 
+def _p1_csr(op, vals):
+    """The P1 operator ``op`` with slot values ``vals`` (the row-sum form)
+    as a CSR matrix of their type on their device."""
+    A = op.scipy_csr(vals).tocoo()
+    return _device_csr(A.row, A.col, A.data, A.shape, vals.dtype, vals.device)
+
+
 def _knp_coo(cells, grads, vols, w, coefs, n: int):
     """COO of dt_inv M + D K + zpsiD Drift(w) per row (dt_inv, D, zpsiD) of
     ``coefs``, block-diagonal over the rows: the operators of K3 (all rows)
@@ -233,15 +258,21 @@ def _knp_csr(cells, grads, vols, w, coefs, n: int, dtype):
 
 
 def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
-    """The six assembly kernels at the main path's shapes — the cell
-    kernels K1, K3, K4 on subdomain ``tag`` (with its own diffusion
+    """The seven assembly kernels at the main path's shapes — the cell
+    kernels K1, K1f, K3, K4 on subdomain ``tag`` (with its own diffusion
     coefficients), the facet kernels K2, K9, K10 on membrane ``mem`` — on
     random inputs made from a seed: dicts of name, kern / plain / lib
     (calls without arguments; lib may be None), nbytes (inputs read once
-    + output written once) and ops."""
+    + output written once) and ops.  K1 applies the values the plain K1f
+    fills; its bound counts the operator's nonzeros (a column and a value
+    each), ``nbytes_slots`` the pattern's slots with their padding,
+    ``bytes_cell_loop`` what the earlier one-thread-per-cell K1 read and
+    wrote; K1f's bound writes one value per nonzero, ``nbytes_slots`` one
+    per slot."""
     import torch
 
     from knpemi_tpu_torch.ops import assembly as A
+    from knpemi_tpu_torch.ops import p1op as P
     from knpemi_tpu_torch.solvers import direct as D
 
     dev = sim.device
@@ -253,7 +284,8 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
 
     es_, ks = sim.emi_sys.sub[tag], sim.knp_sys.sub[tag]
     mb_e = sim.emi_sys.mem[mem]
-    cells, grads, vols = es_["cells"], f(es_["grads"]), f(es_["vols"])
+    op = es_["op"]
+    cells, grads, vols = op.cells, f(es_["grads"]), f(es_["vols"])
     nc, k = cells.shape
     dim = grads.shape[-1]
     n = es_["n_dofs"]
@@ -264,6 +296,7 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
     F = 3 * len(sim.ions) + 2
 
     x, wv = rnd(n), vols * pos(nc)
+    vals = P.emi_fill_plain(op, grads, wv)  # K1's values for this wv
     # phi of the main path's size (mV), and K3's grad(phi) per cell from it
     # as the main path forms it: the drift term is then a visible share of
     # K3's output, not one below the float32 tolerance
@@ -279,20 +312,18 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
     scat = lambda: torch.zeros(2 * Ns, n_mem, dtype=dtype, device=dev).index_add_(
         1, fdl.reshape(-1), V.reshape(2 * Ns, -1))
 
-    def case(name, kern, plain, lib, inputs, n_out, ops, **extra):
+    def case(name, kern, plain, lib, inputs, n_out, ops, nbytes=None, **extra):
         on = f"tag {tag}" if name.split()[0] in CELL_KERNELS else f"membrane {mem}"
         return dict(name=name, variant=on,
                     kern=lambda: kern(*inputs),
                     plain=lambda: plain(*inputs), lib=lib,
-                    nbytes=_nbytes(*inputs) + n_out * es, ops=ops, **extra)
+                    nbytes=nbytes or _nbytes(*inputs) + n_out * es, ops=ops, **extra)
 
     # the library yardsticks: torch.mv on the CSR of each operator, made
     # from the port's host COO helpers (K3: block-diagonal over the ions)
     host = lambda t: t.detach().cpu().numpy()
     csr_on = lambda N: lambda r, c, v: _device_csr(r, c, v, (N, N), dtype, dev)
-    lib_k1 = _lazy(lambda: csr_on(n)(*D._stiffness_coo(host(cells), host(grads.double()),
-                                                        host(wv.double()))),
-                   lambda csr: torch.mv(csr, x))
+    lib_k1 = _lazy(lambda: _p1_csr(op, vals), lambda csr: torch.mv(csr, x))
     lib_k2 = _lazy(lambda: csr_on(n_mem)(*D._facet_mass_coo(
                        host(fd), host(fd), host(fwv.double()) * kf * (kf + 1))),
                    lambda csr: torch.mv(csr, xm))
@@ -300,8 +331,18 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
                    lambda csr: torch.mv(csr, X.reshape(-1)).reshape(Ns, n))
     k3_in = (X, cells, grads, vols, w, coef)
     return [
-        case("K1 emi_stiffness", A.emi_stiffness, A.emi_stiffness_plain, lib_k1,
-             (x, cells, grads, wv), n, nc * (4 * k * dim + k)),
+        case("K1 emi_stiffness", P.emi_stiffness, P.emi_stiffness_plain, lib_k1,
+             (x, op, vals), n, 2 * op.nnz,
+             nbytes=op.nnz * (4 + es) + 2 * n * es,
+             nbytes_slots=op.slots * (4 + es) + _nbytes(op.slot_ptr) + 2 * n * es,
+             bytes_cell_loop=_nbytes(cells, grads, wv) + 2 * n * es,
+             shape=dict(n=n, nc=nc, nnz=op.nnz, slots=op.slots,
+                        slots_per_nonzero=op.slots / op.nnz, pattern_bytes=op.nbytes)),
+        case("K1f emi_fill", P.emi_fill, P.emi_fill_plain, None, (op, grads, wv),
+             op.slots, nc * k * k * (2 * dim + 1),
+             nbytes=_nbytes(op.cells, op.pos, grads, wv) + op.nnz * es,
+             nbytes_slots=_nbytes(op.cells, op.pos, op.slot_ptr, grads, wv) + op.slots * es,
+             shape=dict(nc=nc, slots=op.slots)),
         case("K2 facet_mass", A.facet_mass, A.facet_mass_plain, lib_k2,
              (xm, fd, fwv), n_mem, nf * 4 * kf),
         case("K3 knp_apply_batch", A.knp_apply_batch, A.knp_apply_batch_plain, lib_k3,
@@ -322,17 +363,24 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
 
 
 def k11_cases(sim, dtype, phi_scale: float):
-    """K11 on every subdomain of ``sim``, once per solved ion's scalars
-    on tag 0 and with the first ion's on the others; random x, and w =
-    grad(phi) per cell from a random phi of ``phi_scale`` (1 mV in the
-    scenario's unit), formed by K4's plain version as the main path
-    forms it, so that the drift term is a visible share of the output.
-    Each case also holds K11 against K3: both rows of a B = 2 call
+    """K11 and its drift fill K11f on every subdomain of ``sim``: K11 once
+    per solved ion's scalars on tag 0 and with the first ion's on the
+    others, on random x; w = grad(phi) per cell from a random phi of
+    ``phi_scale`` (1 mV in the scenario's unit), formed by K4's plain
+    version as the main path forms it, so that the drift term is a
+    visible share of the output.  Each ion's constant values P_b are
+    assembled for the check (not kept in ``sim``) from the geometry as
+    the device holds it, the drift values Dr filled by the plain K11f.
+    Each subdomain also holds K11 against K3: both rows of a B = 2 call
     against two K11 calls.  The library yardstick is torch.mv on the CSR
-    of the same operator; the port's own K3 at B = 1 is timed beside it."""
+    of the same operator (P_b + z psi D Dr); the port's own K3 at B = 1
+    is timed beside it.  Bounds as in :func:`kernel_cases`, with two
+    value streams."""
     import torch
 
     from knpemi_tpu_torch.ops import assembly as A
+    from knpemi_tpu_torch.ops import p1op as P
+    from knpemi_tpu_torch.systems.knp import ion_operator_values
 
     dev = sim.device
     g = torch.Generator(device=dev).manual_seed(2)
@@ -342,35 +390,42 @@ def k11_cases(sim, dtype, phi_scale: float):
     ks, p = sim.knp_sys, sim.params
     cases = []
     for t, s in ks.sub.items():
-        cells, grads, vols = s["cells"], s["grads"].to(dtype), s["vols"].to(dtype)
+        op, cells = s["op"], s["cells"]
+        grads, vols = s["grads"].to(dtype), s["vols"].to(dtype)
         nc, k = cells.shape
         dim, n = grads.shape[-1], s["n_dofs"]
         phi = phi_scale * rnd(n)
         w = A.ell_matvec_plain(s["grad_cols"], s["grad_vals"].to(dtype), phi).reshape(nc, dim)
         scal = [(1.0 / p.dt, ion.D[t], ion.z * p.psi * ion.D[t]) for ion in sim.ions[:-1]]
+        # from the geometry as the device holds it (in the run dtype), as K3 reads it
+        Pv = ion_operator_values(op, sim.geom.subdomains[t].cells,
+                                 grads.double().cpu().numpy(), vols.double().cpu().numpy(),
+                                 1.0 / p.dt, [sc[1] for sc in scal], dtype)
+        Dr = P.drift_fill_plain(op, grads, vols, w)
         X = rnd(len(scal), n)
         geo = (cells, grads, vols, w)
         # K11 against K3, row by row
         coef_all = torch.tensor(scal, dtype=dtype, device=dev)
         Y3 = A.knp_apply_batch(X, *geo, coef_all)
         for b, sc in enumerate(scal):
-            y11 = A.knp_apply(X[b].contiguous(), *geo, *sc)
+            y11 = P.knp_apply(X[b].contiguous(), op, Pv[b], Dr, sc[2])
             err, scale = float((y11 - Y3[b]).abs().max()), float(Y3[b].abs().max())
             if not err <= TOL[dname] * scale:
                 raise AssertionError(f"K11 vs K3 row {b}, tag {t}, {dname}: {err:.3e} "
                                      f"exceeds {TOL[dname]:.0e} x {scale:.3e}")
         for b, sc in enumerate(scal if t == 0 else scal[:1]):
-            x = X[b].contiguous()
+            x, Pb, zpsiD = X[b].contiguous(), Pv[b], sc[2]
             coef1 = torch.tensor([sc], dtype=dtype, device=dev)
-            lib = _lazy(lambda geo=geo, sc=sc, n=n: _knp_csr(*geo, [sc], n, dtype),
+            lib = _lazy(lambda op=op, Pb=Pb, Dr=Dr, zpsiD=zpsiD: _p1_csr(op, Pb + zpsiD * Dr),
                         lambda csr, x=x: torch.mv(csr, x))
+            args = (x, op, Pb, Dr, zpsiD)
             cases.append(dict(
                 name="K11 knp_apply", variant=f"tag {t} ion {sim.ions[b].name}",
-                kern=lambda x=x, geo=geo, sc=sc: A.knp_apply(x, *geo, *sc),
-                plain=lambda x=x, geo=geo, sc=sc: A.knp_apply_plain(x, *geo, *sc),
+                kern=lambda args=args: P.knp_apply(*args),
+                plain=lambda args=args: P.knp_apply_plain(*args),
                 lib=lib,
-                no_drift=lambda x=x, geo=geo, sc=sc: A.knp_apply_plain(
-                    x, *geo[:3], torch.zeros_like(geo[3]), *sc),
+                no_drift=lambda args=args: P.knp_apply_plain(
+                    *args[:3], torch.zeros_like(args[3]), args[4]),
                 min_drift_share=1e-3,
                 # the port's K3 at B = 1 on the same operator, and one K3
                 # launch for all solved ions: what the batched solve pays
@@ -380,10 +435,24 @@ def k11_cases(sim, dtype, phi_scale: float):
                         A.knp_apply_batch(x[None], *geo, c)[0],
                     "k3_all_ions_ms": lambda X=X, geo=geo, c=coef_all:
                         A.knp_apply_batch(X, *geo, c)},
-                nbytes=_nbytes(x, *geo) + n * es,
-                ops=nc * (k + 2 * k * dim + k * (4 * dim + 10)),
-                shape=dict(n=n, nc=nc, k=k, dim=dim, scalars=list(sc)),
+                nbytes=op.nnz * (4 + 2 * es) + 2 * n * es,
+                nbytes_slots=op.slots * (4 + 2 * es) + _nbytes(op.slot_ptr) + 2 * n * es,
+                bytes_cell_loop=_nbytes(x, *geo) + n * es,
+                ops=4 * op.nnz,
+                shape=dict(n=n, nc=nc, k=k, dim=dim, nnz=op.nnz, slots=op.slots,
+                           slots_per_nonzero=op.slots / op.nnz, scalars=list(sc)),
             ))
+        cases.append(dict(
+            name="K11f drift_fill", variant=f"tag {t}",
+            kern=lambda op=op, grads=grads, vols=vols, w=w: P.drift_fill(op, grads, vols, w),
+            plain=lambda op=op, grads=grads, vols=vols, w=w: P.drift_fill_plain(
+                op, grads, vols, w),
+            lib=None,
+            nbytes=_nbytes(op.cells, op.pos, grads, vols, w) + op.nnz * es,
+            nbytes_slots=_nbytes(op.cells, op.pos, op.slot_ptr, grads, vols, w)
+            + op.slots * es,
+            ops=nc * k * (2 * dim + 1 + k),
+            shape=dict(nc=nc, slots=op.slots)))
     return cases
 
 
@@ -642,8 +711,11 @@ def check_cases(cases, dtype, time_them: bool):
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=c["nbytes"], ops=c["ops"],
             )
-            if "bytes_dense_slab" in c:
-                row["dense_slab_bound_ms"] = c["bytes_dense_slab"] / HBM_BYTES_PER_S * 1e3
+            for key, out in (("bytes_dense_slab", "dense_slab_bound_ms"),
+                             ("nbytes_slots", "bound_slots_ms"),
+                             ("bytes_cell_loop", "cell_loop_bound_ms")):
+                if key in c:
+                    row[out] = c[key] / HBM_BYTES_PER_S * 1e3
             for route, fn in c.get("routes", {}).items():
                 row[f"ms_{route}"] = dev_ms(fn)
             for key, fn in c.get("also_time", {}).items():
@@ -668,7 +740,7 @@ def check_k11(sim, dtype, time_them: bool, phi_scale: float):
 
 def check_all_operators(sim, dtype, time_them: bool):
     """Every kernel of the batched step at every shape ``sim`` gives it:
-    the cell kernels K1, K3, K4 on each subdomain, the facet kernels K2,
+    the cell kernels K1, K1f, K3, K4 on each subdomain, the facet kernels K2,
     K9, K10 on each membrane and, with mg_banded, the multigrid kernels
     on the layouts the EMI hierarchy and each subdomain's KNP hierarchy
     took (those layouts only; the kernels they cover must be the ones
@@ -687,7 +759,7 @@ def check_all_operators(sim, dtype, time_them: bool):
             cases += mg_kernel_cases(sim, dtype, knp_tag=t, emi=i == 0,
                                      as_built_only=True, all_bands=i == 0)
         covered = {c["name"].split()[0] for c in cases}
-        missed = {k for k in reachable_kernels(sim) if k != "K11"} - covered
+        missed = {k for k in reachable_kernels(sim) if k not in PER_ION} - covered
         if missed:
             raise AssertionError(f"no phase-1 case for {sorted(missed)}")
     return check_cases(cases, dtype, time_them)
@@ -871,6 +943,7 @@ def profile_steps(sim, state, n_steps: int, ms_per_step: float):
 # K-number -> (source file, file:line of the TPU kernel it replaces)
 KERNEL_SOURCES = {
     "K1": ("cells", "knpemi_tpu/ops/pallas_assembly.py:364"),
+    "K1f": ("cells", "knpemi_tpu/ops/pallas_assembly.py:364"),
     "K2": ("facets", "knpemi_tpu/ops/pallas_assembly.py:653"),
     "K3": ("cells", "knpemi_tpu/ops/pallas_assembly.py:444"),
     "K4": ("cells", "knpemi_tpu/ops/pallas_ell.py:330"),
@@ -882,21 +955,23 @@ KERNEL_SOURCES = {
     "K9": ("facets", "knpemi_tpu/ops/pallas_assembly.py:742"),
     "K10": ("facets", "knpemi_tpu/ops/pallas_assembly.py:758"),
     "K11": ("cells", "knpemi_tpu/ops/pallas_assembly.py:397"),
+    "K11f": ("cells", "knpemi_tpu/ops/pallas_assembly.py:397"),
 }
-ASSEMBLY = ("K1", "K2", "K3", "K4", "K9", "K10")
-# the kernels of the ion-batched step; K11 belongs to the per-ion one
-BATCHED_PATH = tuple(k for k in KERNEL_SOURCES if k != "K11")
+ASSEMBLY = ("K1", "K1f", "K2", "K3", "K4", "K9", "K10")
+# the kernels of the per-ion KNP solve, and those of the ion-batched step
+PER_ION = ("K11", "K11f")
+BATCHED_PATH = tuple(k for k in KERNEL_SOURCES if k not in PER_ION)
 
 
 def reachable_kernels(sim):
-    """K-numbers the step of ``sim`` can launch: the six assembly kernels,
-    K11 on the per-ion KNP branch and, from the layouts its hierarchies
+    """K-numbers the step of ``sim`` can launch: the seven assembly kernels,
+    K11 and K11f on the per-ion KNP branch and, from the layouts its hierarchies
     took, the multigrid ones (the per-ion branch runs the KNP V-cycles
     on single vectors: K5/K7 in place of K6a/K6b/K8)."""
     out = set(ASSEMBLY)
     batched = sim.opts.knp_batched
     if not batched:
-        out.add("K11")
+        out.update(PER_ION)
     emi = sim.emi_solver.mg.layout()
     knp = [lv for mg in sim.knp_solver.mg.values() for lv in mg.layout()]
     forms = lambda lay, roles: {lv[w] for lv in lay for w in roles}
@@ -986,6 +1061,8 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
         reachable=sorted(reach), knp_batched=sim.opts.knp_batched,
         peak_device_bytes=torch.cuda.max_memory_allocated() - other_bytes,
         host_setup_seconds=setup_s,
+        # the Simulation's own parts of it (the rest: mesh and geometry)
+        host_setup_parts=sim.setup_seconds,
         emi_layout=sim.emi_solver.mg.layout(),
         knp_layout={t: mg.layout() for t, mg in sim.knp_solver.mg.items()},
         # in the scenario's unit: V (idealized), mV (astrocyte)
@@ -1066,8 +1143,9 @@ def flagship(build_astrocyte, baseline, SolverOptions):
     runs) and float64: every kernel
     of the batched step on each of the three subdomains and two
     membranes (and, banded, on the layouts of the four hierarchies), K11
-    on the three subdomains; then phases 3 and 4.  Returns K11's float32
-    rows and the launch counts of the three runs."""
+    and K11f on the three subdomains; then phases 3 and 4.  Returns the
+    float32 rows of K11 and K11f and the launch counts of the three
+    runs."""
     import torch
 
     from knpemi_tpu_torch.sim.scenarios import K_E_INIT_A  # initial ECS K+, mM
@@ -1120,8 +1198,18 @@ def flagship(build_astrocyte, baseline, SolverOptions):
     if per_ion["K3 knp_apply_batch"] != 3 * 10:
         raise AssertionError("flagship per-ion: K3 must launch once per subdomain and "
                              f"step (the rhs mass term), got {per_ion['K3 knp_apply_batch']}")
-    if launches["flagship batched"]["K11 knp_apply"]:
-        raise AssertionError("flagship batched: K11 launched on the batched branch")
+    for label in ("flagship batched", "flagship banded"):
+        if launches[label]["K11 knp_apply"] or launches[label]["K11f drift_fill"]:
+            raise AssertionError(f"{label}: K11 or K11f launched on the batched branch")
+    # the fills: once per solve and subdomain, i.e. per step and subdomain
+    if per_ion["K11f drift_fill"] != 3 * 10:
+        raise AssertionError("flagship per-ion: K11f must launch once per subdomain and "
+                             f"step, got {per_ion['K11f drift_fill']}")
+    for label, steps in (("flagship batched", 20), ("flagship per-ion", 10),
+                         ("flagship banded", 5)):
+        if launches[label]["K1f emi_fill"] != 3 * steps:
+            raise AssertionError(f"{label}: K1f must launch once per subdomain and step, "
+                                 f"got {launches[label]['K1f emi_fill']}")
     # both runs' states at step 22
     a, b = runs["flagship batched"]["kept"], runs["flagship per-ion"]["state"]
     if int(a.step) != 22 or int(b.step) != 22:
@@ -1133,7 +1221,8 @@ def flagship(build_astrocyte, baseline, SolverOptions):
     emit(dict(phase=3, path="flagship batched vs per-ion", step=22,
               phi_M_rel_l2=rel, gate=1e-3,
               ms_per_step={k: r["ms_per_step"] for k, r in runs.items()},
-              k11_launches_per_step=per_ion["K11 knp_apply"] / 10))
+              k11_launches_per_step=per_ion["K11 knp_apply"] / 10,
+              k11f_launches_per_step=per_ion["K11f drift_fill"] / 10))
     return k11_rows, launches
 
 
@@ -1194,18 +1283,27 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     # -- phases 1 and 3 once more: the box of twice the length, where all
-    # eleven kernels are on the path; each is held against its plain version
-    # at THIS path's shapes before the path is driven --------------------------
+    # twelve kernels of the batched step are on the path; each is held
+    # against its plain version at THIS path's shapes before the path is
+    # driven, the P1 operator's kernels (K1, K1f, K11, K11f) on every
+    # subdomain -----------------------------------------------------------------
     t0 = time.perf_counter()
     sim = build_idealized(dim=3, resolution=2, l=4, g_syn_bar=10.0,
                           dtype=torch.float32, device="cuda",
                           solver_options=SolverOptions(mg_banded=True))
     setup_s = time.perf_counter() - t0
     t1 = time.perf_counter()
+    p1_elsewhere = lambda dtype: check_cases(
+        [c for t in sorted(sim.knp_sys.sub)[1:] for c in kernel_cases(sim, dtype, tag=t)
+         if c["name"].split()[0] in P1_KERNELS], dtype, time_them=False)
     rows32 = (check_kernels(sim, torch.float32, time_them=True)
-              + check_mg_kernels(sim, torch.float32, time_them=True, all_bands=True))
+              + check_mg_kernels(sim, torch.float32, time_them=True, all_bands=True)
+              + p1_elsewhere(torch.float32)
+              + check_k11(sim, torch.float32, False, phi_scale=1e-3))
     r64 = (check_kernels(sim, torch.float64, time_them=False)
-           + check_mg_kernels(sim, torch.float64, time_them=False, all_bands=True))
+           + check_mg_kernels(sim, torch.float64, time_them=False, all_bands=True)
+           + p1_elsewhere(torch.float64)
+           + check_k11(sim, torch.float64, False, phi_scale=1e-3))
     emit(dict(phase=1, path="mg_banded=True l=4", setup_seconds=setup_s,
               float32=rows32, float64=r64, seconds=time.perf_counter() - t1))
     torch.cuda.empty_cache()
@@ -1233,21 +1331,37 @@ def main() -> int:
               **parity_astrocyte(build_astrocyte, ASTROCYTE_BASELINE, SolverOptions),
               seconds=time.perf_counter() - t0))
 
-    # one row per kernel.  The eleven of the batched step: all from the path
-    # on which all eleven lie (the long box): launches of its 5 timed steps,
-    # and error, times and bound of the kernel's first variant (K6a/K6b/K8
-    # at B = 2, the values in the run dtype) at that path's shapes.  K11:
-    # from the per-ion flagship run, launches of its 10 timed steps, error,
-    # times and bound on the flagship's ECS subdomain with the first ion's
-    # scalars.  ms, plain_ms, library_ms: device times with L2 flushed;
-    # call_ms: per call, back to back, host included.  Beside them every other
-    # path's launch counts (res 2: 10 steps; flagship batched 20, per-ion
-    # 10, banded 5).
+    # one row per kernel.  The twelve of the batched step: all from the path
+    # on which all twelve lie (the long box): launches of its 5 timed steps,
+    # and error, times and bound of the kernel's first variant (tag 0;
+    # K6a/K6b/K8 at B = 2, the values in the run dtype) at that path's
+    # shapes.  K11 and K11f: from the per-ion flagship run, launches of its
+    # 10 timed steps, error, times and bound on the flagship's ECS subdomain
+    # (K11 with the first ion's scalars).  ms, plain_ms, library_ms: device
+    # times with L2 flushed; call_ms: per call, back to back, host included.
+    # Beside them every other path's launch counts (res 2: 10 steps;
+    # flagship batched 20, per-ion 10, banded 5).
     first = {}
-    for r in rows32 + k11_rows:
+    for r in k11_rows + rows32:
         first.setdefault(r["name"], r)
-    main_path = lambda name: ("flagship per-ion" if name.startswith("K11 ")
+    main_path = lambda name: ("flagship per-ion" if name.split()[0] in PER_ION
                               else "long box")
+    # the P1 operator per solve: one fill and the applies that follow it
+    # (launches of the apply per launch of the fill on the main path),
+    # against as many launches of the cell-loop kernel it replaced
+    by_k = {name.split()[0]: (name, r) for name, r in first.items()}
+    per_solve = {}
+    for k, kf in (("K1", "K1f"), ("K11", "K11f")):
+        (name, r), (fname, rf) = by_k[k], by_k[kf]
+        runs = launches[main_path(name)]
+        applies = runs[name] / runs[fname]
+        per_solve[k] = dict(
+            path=main_path(name), applies_per_fill=applies, fill_ms=rf["ms"],
+            apply_ms=r["ms"], ms=rf["ms"] + applies * r["ms"],
+            recorded_cell_loop_ms=applies * CELL_LOOP_MS[k],
+            recorded_cell_loop_source=CELL_LOOP_SOURCE,
+            bound_ms=rf["bound_ms"] + applies * r["bound_ms"])
+    emit(dict(phase=1, case="P1 operator per solve: fill + applies", per_solve=per_solve))
     emit({"kernels": [
         dict(name=name, route="cuda",
              source=f"knpemi_tpu_torch/ops/csrc/{KERNEL_SOURCES[name.split()[0]][0]}.cu",
@@ -1263,8 +1377,10 @@ def main() -> int:
              library_ms=r["library_ms"], variant=r.get("variant"),
              shape=r.get("shape"), bytes_padded=r.get("bytes_padded"),
              **{k: r[k] for k in ("call_ms", "library_call_ms", "ms_staged", "ms_l2",
-                                  "dense_slab_bound_ms", "k3_b1_ms") if k in r})
-        for name, r in first.items()
+                                  "dense_slab_bound_ms", "bound_slots_ms",
+                                  "cell_loop_bound_ms", "k3_b1_ms") if k in r})
+        for name, r in sorted(first.items(),
+                              key=lambda kv: list(KERNEL_SOURCES).index(kv[0].split()[0]))
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,13 +1,13 @@
 """Operators of the port: host geometry and quadrature, the plain element
 kernels, and the hand-written CUDA kernels with their wrappers
-(``assembly``, ``ell``, ``banded``; sources in ``csrc/``)."""
+(``assembly``, ``p1op``, ``ell``, ``banded``; sources in ``csrc/``)."""
 
 
 def kernel_table():
     """{name: (wrapper, plain version)} of every hand-written kernel."""
-    from . import assembly, banded, ell
+    from . import assembly, banded, ell, p1op
 
-    return {**assembly.KERNELS, **ell.KERNELS, **banded.KERNELS}
+    return {**assembly.KERNELS, **p1op.KERNELS, **ell.KERNELS, **banded.KERNELS}
 
 
 def reset_launch_counts():

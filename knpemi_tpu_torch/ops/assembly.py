@@ -1,4 +1,5 @@
-"""The seven Hopper assembly kernels of the coupled step, with plain twins.
+"""The cell and facet assembly kernels of the coupled step, with plain twins,
+and the launch helpers every kernel module of the port shares.
 
 Each wrapper below launches a hand-written CUDA kernel (``ops/csrc``,
 built by :mod:`._build`) for CUDA tensors and uses its plain PyTorch
@@ -7,15 +8,22 @@ On a CUDA tensor it launches or raises; there is no fallback.  Every
 wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``) and checks device, dtype, shape and contiguity.
 
+Here: K3 (the batched KNP operator), K4 (ELL SpMV of the frozen dof ->
+cell coefficient maps), K2, K9, K10 (membrane facets).  K1 and K11, the
+EMI and single-ion KNP operators, are applied as an assembled P1
+operator by :mod:`.p1op`; the multigrid kernels are in :mod:`.ell` and
+:mod:`.banded`.
+
 The JAX package's TPU kernels compute the same operators through one-hot
 MXU products, bf16 split passes, 128-lane alignment, Morton windows and
 an XLA tail of outlier cells (``knpemi_tpu/ops/pallas_assembly.py:1-36``,
 ``pallas_ell.py:1-42``) — all of it a way around slow random gathers on
-the TPU.  On Hopper a gather is a load: every cell or facet goes through
-one kernel that reads its k vertex values, does a few dozen flops in
-registers and atomically adds k results.  None of the kernels does
-enough arithmetic per byte to be compute-bound; the least time each can
-take is the bytes it must move over the card's 3.35 TB/s.
+the TPU.  On Hopper a gather is a load: K3 and the facet kernels take one
+thread per cell or facet, which reads its k vertex values, does a few
+dozen flops in registers and atomically adds k results; K4 takes one
+thread per row.  None of the kernels does enough arithmetic per byte to
+be compute-bound; the least time each can take is the bytes it must
+move over the card's 3.35 TB/s.
 
 Sums taken with ``atomicAdd`` are order-dependent: a kernel agrees with
 its plain version to ~1e-5 max|y| in float32 and ~1e-12 max|y| in
@@ -39,13 +47,8 @@ _c_ptr = ctypes.c_void_p
 
 # C signatures of ops/csrc/*.cu: (library, entry point, argument types)
 _SIGS = {
-    "emi_stiffness": ("cells", "knp_emi_stiffness",
-                      [_c_int] + [_c_ptr] * 5 + [_c_int] * 3 + [_c_ptr]),
     "knp_apply_batch": ("cells", "knp_knp_apply_batch",
                         [_c_int] + [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]),
-    "knp_apply": ("cells", "knp_knp_apply",
-                  [_c_int] + [_c_ptr] * 6 + [ctypes.c_double] * 3
-                  + [_c_int] * 3 + [_c_ptr]),
     "ell_matvec": ("cells", "knp_ell_matvec",
                    [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
     "facet_mass": ("facets", "knp_facet_mass",
@@ -54,6 +57,13 @@ _SIGS = {
                      [_c_int] + [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr]),
     "facet_scatter": ("facets", "knp_facet_scatter",
                       [_c_int] + [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr]),
+    # ops/p1op.py
+    "p1_apply": ("cells", "knp_p1_apply",
+                 [_c_int] + [_c_ptr] * 6 + [ctypes.c_double] * 2 + [_c_int, _c_ptr]),
+    "emi_fill": ("cells", "knp_emi_fill",
+                 [_c_int] + [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr]),
+    "drift_fill": ("cells", "knp_drift_fill",
+                   [_c_int] + [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr]),
     # ops/ell.py and ops/banded.py
     "ell_rmatvec": ("mg", "knp_ell_rmatvec",
                     [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
@@ -125,43 +135,6 @@ def _check_mesh(k: int, dim: int):
 
 
 # ---------------------------------------------------------------------------
-# K1: EMI weighted stiffness
-# ---------------------------------------------------------------------------
-def emi_stiffness_plain(x, cells, grads, wv):
-    return K.stiffness_apply(x.shape[0], x, cells.long(), grads, wv)
-
-
-def emi_stiffness(x, cells, grads, wv):
-    """K1.  y = sum_cells wv_c (g_i . grad x) over the P1 basis gradients
-    g of each cell, with wv_c = vol_c * mean-vertex kappa (see
-    :func:`ell_matvec`); unit wv gives the plain stiffness.
-
-    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_emi_kernel``
-    (via ``emi_stiffness_blocked``).  Bound on the H100: bytes —
-    x, cells, grads, wv read once, y written once (``csrc/cells.cu``).
-    Design: one thread per cell, k exact gathers, k atomic adds.
-
-    x (n,), cells (nc, k), grads (nc, k, dim), wv (nc,) -> y (n,)."""
-    _check_value(x, "x")
-    nc, k = cells.shape
-    dim = grads.shape[-1]
-    _check_mesh(k, dim)
-    _check(cells, "cells", x, index=True)
-    _check(grads, "grads", x, (nc, k, dim))
-    _check(wv, "wv", x, (nc,))
-    if not x.is_cuda:
-        return emi_stiffness_plain(x, cells, grads, wv)
-    y = torch.zeros_like(x)
-    _launch("emi_stiffness", x, x.data_ptr(), cells.data_ptr(),
-            grads.data_ptr(), wv.data_ptr(), y.data_ptr(), nc, k, dim)
-    emi_stiffness.launches += 1
-    return y
-
-
-emi_stiffness.launches = 0
-
-
-# ---------------------------------------------------------------------------
 # K3: batched KNP operator
 # ---------------------------------------------------------------------------
 def knp_apply_batch_plain(X, cells, grads, vols, w, coef):
@@ -211,56 +184,6 @@ def knp_apply_batch(X, cells, grads, vols, w, coef):
 
 
 knp_apply_batch.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# K11: KNP operator of one ion
-# ---------------------------------------------------------------------------
-def knp_apply_plain(x, cells, grads, vols, w, dt_inv, D, zpsiD):
-    c = cells.long()
-    n = x.shape[0]
-    return (dt_inv * K.mass_apply(n, x, c, vols)
-            + D * K.stiffness_apply(n, x, c, grads, vols)
-            + zpsiD * K.drift_apply(n, x, c, grads, vols, w))
-
-
-def knp_apply(x, cells, grads, vols, w, dt_inv: float, D: float, zpsiD: float):
-    """K11.  y = dt_inv M x + D K x + zpsiD Drift(w) x for ONE ion: the
-    operator of :func:`knp_apply_batch` on a single vector, its three
-    scalars passed to the kernel by value (Python floats: no coefficient
-    tensor, no upload per ion).  The per-ion KNP solve applies it once
-    per GMRES iteration of every (subdomain, ion) block.
-
-    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_knp_kernel`` (via
-    ``knp_apply_blocked``, whose scalars sit in SMEM).  Bound on the H100:
-    bytes — x, cells, grads, vols, w read once, y written once
-    (``csrc/cells.cu``).  Design: one thread per cell, k exact gathers,
-    the three terms summed in registers, k atomic adds.
-
-    x (n,), cells (nc, k), grads (nc, k, dim), vols (nc,), w (nc, dim)
-    -> y (n,)."""
-    _check_value(x, "x")
-    if x.dim() != 1:
-        raise ValueError(f"x must be a vector, got shape {tuple(x.shape)}")
-    nc, k = cells.shape
-    dim = grads.shape[-1]
-    _check_mesh(k, dim)
-    _check(cells, "cells", x, index=True)
-    _check(grads, "grads", x, (nc, k, dim))
-    _check(vols, "vols", x, (nc,))
-    _check(w, "w", x, (nc, dim))
-    dt_inv, D, zpsiD = float(dt_inv), float(D), float(zpsiD)
-    if not x.is_cuda:
-        return knp_apply_plain(x, cells, grads, vols, w, dt_inv, D, zpsiD)
-    y = torch.zeros_like(x)
-    _launch("knp_apply", x, x.data_ptr(), cells.data_ptr(), grads.data_ptr(),
-            vols.data_ptr(), w.data_ptr(), y.data_ptr(), dt_inv, D, zpsiD,
-            nc, k, dim)
-    knp_apply.launches += 1
-    return y
-
-
-knp_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -452,11 +375,9 @@ facet_scatter.launches = 0
 # (wrapper, plain version) of this module's kernels; ops.kernel_table() merges
 # every module's table
 KERNELS = {
-    "K1 emi_stiffness": (emi_stiffness, emi_stiffness_plain),
     "K2 facet_mass": (facet_mass, facet_mass_plain),
     "K3 knp_apply_batch": (knp_apply_batch, knp_apply_batch_plain),
     "K4 ell_matvec": (ell_matvec, ell_matvec_plain),
     "K9 facet_gather": (facet_gather, facet_gather_plain),
     "K10 facet_scatter": (facet_scatter, facet_scatter_plain),
-    "K11 knp_apply": (knp_apply, knp_apply_plain),
 }

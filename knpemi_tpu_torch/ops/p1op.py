@@ -1,0 +1,414 @@
+"""The assembled P1 operator of a subdomain: K1 and K11 as one row-parallel
+apply of values filled once per solve (K1f, K11f).
+
+Every cell operator of one subdomain -- the EMI weighted stiffness, the
+unit stiffness of the EMI right-hand side and each solved ion's KNP
+operator (1/dt) M + D_b K + z_b psi D_b Drift(grad phi) -- lives on one
+sparsity pattern, the P1 graph of the cells.  :class:`P1Operator` holds
+that pattern once per subdomain (``EMISystem`` and ``KNPSystem`` share
+it), built on the host in numpy:
+
+* ``slot_ptr``, ``col``: a sliced ELL.  The rows are cut into slices of
+  32; slice s stores K[s] slots per row (its longest row), ordered slot,
+  then row, so that a warp reads slot k of its 32 rows as 32 consecutive
+  words: row r's slot k is ``slot_ptr[r // 32] + 32 k + r % 32``.  A
+  row's columns are ascending; padding slots hold column = the row
+  (n - 1 for the rows past n of the last slice) and carry value 0.
+* ``pos`` (nc, k, k) uint8: for every cell c and vertex pair (i, j), the
+  slot k of column v_j within row v_i -- with ``cells`` and ``slot_ptr``
+  it locates the pair's slot, in 16 bytes a tetrahedron.
+* values, one per slot: constant ones summed once on the host in
+  float64 from per-pair values (:meth:`P1Operator.assemble`; the systems
+  that own the physics give it the COO helpers' element matrices), and
+  per-solve ones filled on the device by K1f (:func:`emi_fill`) and
+  K11f (:func:`drift_fill`).
+
+**The row-sum form.**  A row's diagonal slot holds the row's SUM, not
+the diagonal entry, and the apply computes
+
+    y_i = V_ii x_i + sum_{j != i} V_ij (x_j - x_i),
+
+which equals sum_j A_ij x_j.  A stiffness has zero row sums, so its
+diagonal slots hold an exact 0 and a constant x gives y = 0 exactly,
+whatever the rounding of the stored entries; the differences x_j - x_i
+of a nearly uniform field (concentrations, potentials at rest) are
+exact in floating point.  Summing A_ij x_j instead leaves
+eps * sum_j |A_ij| |x| of noise, which in float32 moved the resting
+EMI solve off equilibrium and the per-ion KNP solution by ~1e-3 from
+the batched one.  :meth:`P1Operator.scipy_csr` turns the form back into
+the matrix.
+
+The JAX package applies these operators element by element inside its
+Pallas kernels, and prepares per-solve cell coefficients outside them
+(``knpemi_tpu/ops/pallas_assembly.py:prepare_emi_weight``,
+``prepare_knp_drift``).  On the H100 the element-by-element form reads
+68-80 bytes of geometry a cell (3.3-3.8x the bytes of the assembled
+operator: a dof has 5-6 cells) and adds k results atomically; the
+assembled form reads each slot once, four bytes of column and one value
+per stream, and writes each row once without atomics.  The geometry is
+read once per solve, by the fills.
+
+On a CUDA tensor a wrapper launches its kernel (``csrc/cells.cu``) or
+raises; the plain twin runs only for CPU tensors.  The fills sum with
+atomics, so filled values agree with the plain fills to a few ulps, not
+bit for bit; the apply sums each row's slots in slot order with fused
+multiply-adds, the plain version with ``index_add_``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+from . import assembly as A
+
+SLICE = 32  # rows per slice: one warp
+
+
+class P1Operator:
+    """The P1-graph pattern of one subdomain's cells as a sliced ELL, and
+    the slot of every cell's vertex pair.
+
+    Device tensors: ``slot_ptr`` (NS + 1,) int32, NS = ceil(n / 32);
+    ``col`` (slots,) index; ``cells`` (nc, k) index; ``pos`` (nc, k, k)
+    uint8.  Host: ``diag_slot`` (n,) int64, the slot of every row's
+    diagonal, and the arrays :meth:`assemble` and :meth:`scipy_csr` need."""
+
+    def __init__(self, cells, n: int, device):
+        cells = np.asarray(cells)
+        nc, k = cells.shape
+        self.n, self.k, self.device = int(n), int(k), torch.device(device)
+        # every (v_i, v_j) pair of every cell as one int64 key, row-major
+        r = np.repeat(cells, k, axis=1).reshape(-1).astype(np.int64)
+        c = np.tile(cells, (1, k)).reshape(-1).astype(np.int64)
+        keys, inverse = np.unique(r * n + c, return_inverse=True)
+        rows, cols = keys // n, keys % n
+        count = np.bincount(rows, minlength=n)
+        indptr = np.zeros(n + 1, np.int64)
+        np.cumsum(count, out=indptr[1:])
+        pos = inverse.reshape(-1) - indptr[r]
+        if pos.size and pos.max() > 255:
+            raise ValueError(f"a row has {count.max()} columns: more than a "
+                             "uint8 position addresses")
+        NS = -(-n // SLICE)
+        K = np.zeros(NS * SLICE, np.int64)
+        K[:n] = count
+        K = K.reshape(NS, SLICE).max(axis=1)
+        slot_ptr = np.zeros(NS + 1, np.int64)
+        np.cumsum(SLICE * K, out=slot_ptr[1:])
+        if slot_ptr[-1] >= 1 << 31:
+            raise ValueError(f"{slot_ptr[-1]} slots: more than an int32 can address")
+        self.nnz, self.slots = int(keys.shape[0]), int(slot_ptr[-1])
+        self._csr_cols, self._indptr = cols.astype(np.int32), indptr
+        self._count, self._slot_ptr = count, slot_ptr
+        self._cells, self._pos = cells, pos.astype(np.uint8).reshape(nc, k, k)
+        sl = self.csr_slots()
+        # the diagonal slot of every row, rows ascending
+        on_diag = rows == cols
+        if int(on_diag.sum()) != n:
+            raise ValueError("a dof lies in no cell")
+        self.diag_slot = sl[on_diag]
+        # padding slots: column = the row, clipped to the last dof
+        col = np.minimum(self._slot_rows_host(), n - 1)
+        col[sl] = cols
+        idt = A.index_dtype(device)
+        self.slot_ptr = torch.as_tensor(slot_ptr.astype(np.int32), device=device)
+        self.col = torch.as_tensor(col, dtype=idt, device=device)
+        self.cells = torch.as_tensor(cells, dtype=idt, device=device)
+        self.pos = torch.as_tensor(self._pos, device=device)
+        self._plain_cache = {}
+
+    # -- host side ------------------------------------------------------
+    def _slot_rows_host(self) -> np.ndarray:
+        """The row (0 .. 32 NS) of every slot."""
+        width = np.diff(self._slot_ptr)
+        start = np.repeat(self._slot_ptr[:-1], width)
+        base = np.repeat(np.arange(width.shape[0]) * SLICE, width)
+        return base + (np.arange(self.slots) - start) % SLICE
+
+    def csr_slots(self) -> np.ndarray:
+        """The slot of every nonzero of the operator in CSR order (rows
+        ascending, columns ascending within a row): (nnz,) int64."""
+        r = np.repeat(np.arange(self.n), self._count)
+        p = np.arange(self.nnz) - np.repeat(self._indptr[:-1], self._count)
+        return self._slot_ptr[r // SLICE] + SLICE * p + r % SLICE
+
+    def pair_slots_host(self, off_diagonal: bool = False) -> np.ndarray:
+        """The slot of every cell's vertex pair (i, j): (nc, k, k) int64,
+        or (nc, k (k - 1)) for the pairs i != j in row-major order."""
+        k = self.k
+        ii, jj = np.nonzero(~np.eye(k, dtype=bool) if off_diagonal else np.ones((k, k), bool))
+        v = self._cells[:, ii].astype(np.int64)
+        s = self._slot_ptr[v // SLICE] + SLICE * self._pos[:, ii, jj].astype(np.int64) + v % SLICE
+        return s if off_diagonal else s.reshape(-1, k, k)
+
+    def assemble(self, *pair_vals) -> np.ndarray:
+        """Constant slot values in the row-sum form, on the host in float64:
+        for each per-pair array (nc, k, k) -- row v_i, column v_j, the order
+        of the COO helpers of ``solvers/direct.py`` -- its off-diagonal
+        values summed into their slots, (len(pair_vals), slots).  The
+        diagonal slots hold 0, a stiffness's row sums; the caller writes
+        any other row sums at :attr:`diag_slot`."""
+        off = ~np.eye(self.k, dtype=bool)  # the order of pair_slots_host's pairs
+        slots = self.pair_slots_host(off_diagonal=True).reshape(-1)
+        return np.stack([np.bincount(slots, minlength=self.slots,
+                                     weights=np.asarray(pv, np.float64)[:, off].reshape(-1))
+                         for pv in pair_vals])
+
+    def scipy_csr(self, vals) -> sp.csr_matrix:
+        """The matrix whose row-sum form is ``vals`` (slots,), in float64 on
+        the host (explicit zeros of the pattern kept): each diagonal entry
+        is the row's sum less its off-diagonal entries."""
+        v = np.asarray(torch.as_tensor(vals).detach().cpu(), np.float64)
+        rows = np.repeat(np.arange(self.n), self._count)
+        data = v[self.csr_slots()]
+        diag = self._csr_cols == rows
+        off_sum = np.bincount(rows[~diag], weights=data[~diag], minlength=self.n)
+        data[diag] = v[self.diag_slot] - off_sum  # one diagonal per row, rows ascending
+        return sp.csr_matrix((data, self._csr_cols, self._indptr), shape=(self.n, self.n))
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the pattern (slot_ptr, col, cells, pos)."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.slot_ptr, self.col, self.cells, self.pos))
+
+    # -- for the plain versions -------------------------------------------
+    def _plain(self, key: str):
+        """``slot_rows`` (slots,) or ``pair_slots`` (nc, k, k) as int64,
+        from the device tensors; kept only for a CPU operator (on the card
+        the kernels need neither)."""
+        t = self._plain_cache.get(key)
+        if t is None:
+            ptr = self.slot_ptr.long()
+            if key == "slot_rows":
+                slice_of = torch.repeat_interleave(
+                    torch.arange(ptr.shape[0] - 1, device=ptr.device), ptr[1:] - ptr[:-1])
+                t = slice_of * SLICE + torch.arange(self.slots, device=ptr.device) % SLICE
+            else:
+                v = self.cells.long()[:, :, None]
+                t = ptr[v // SLICE] + SLICE * self.pos.long() + v % SLICE
+            if self.device.type == "cpu":
+                self._plain_cache[key] = t
+        return t
+
+
+def p1_operators(geom, device) -> Dict[int, P1Operator]:
+    """{subdomain tag: P1Operator} of a geometry."""
+    return {t: P1Operator(s.cells, s.n_dofs, device)
+            for t, s in geom.subdomains.items()}
+
+
+# ---------------------------------------------------------------------------
+# checks
+# ---------------------------------------------------------------------------
+def _check_op(op: P1Operator, like: torch.Tensor):
+    if op.col.device != like.device:
+        raise ValueError(f"the operator is on {op.col.device}, the vector on {like.device}")
+    if op.slot_ptr.dtype != torch.int32 or op.pos.dtype != torch.uint8:
+        raise TypeError("slot_ptr must be int32 and pos uint8")
+    A._check(op.col, "col", like, (op.slots,), index=True)
+    A._check(op.cells, "cells", like, index=True)
+
+
+def _check_apply(op: P1Operator, x, vals, name="vals"):
+    A._check_value(x, "x")
+    if x.dim() != 1 or x.shape[0] != op.n:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected ({op.n},)")
+    _check_op(op, x)
+    A._check(vals, name, x, (op.slots,))
+
+
+def _check_fill(op: P1Operator, grads, *cellwise):
+    A._check_value(grads, "grads")
+    nc, k = op.cells.shape
+    dim = grads.shape[-1]
+    A._check_mesh(k, dim)
+    _check_op(op, grads)
+    A._check(grads, "grads", grads, (nc, k, dim))
+    for name, t, shape in cellwise:
+        A._check(t, name, grads, shape)
+    return nc, k, dim
+
+
+# ---------------------------------------------------------------------------
+# K1 / K11: the apply
+# ---------------------------------------------------------------------------
+def _apply_plain(op: P1Operator, x, V1, a: float, V2=None, b: float = 0.0):
+    """a (V1 x) + b (V2 x) in the row-sum form: each slot's value times
+    x_i (the diagonal slot) or x_j - x_i (the others), summed per row."""
+    rows, col = op._plain("slot_rows"), op.col.long()
+    xr = x[rows.clamp(max=op.n - 1)]  # the padding rows past n hold zeros
+    xg = torch.where(col == rows, xr, x[col] - xr)
+    n_pad = (op.slot_ptr.shape[0] - 1) * SLICE
+    y = a * torch.zeros(n_pad, dtype=x.dtype, device=x.device).index_add_(0, rows, V1 * xg)
+    if V2 is not None:
+        y = y + b * torch.zeros_like(y).index_add_(0, rows, V2 * xg)
+    return y[: op.n]
+
+
+def _launch_apply(x, op, V1, a, V2, b):
+    y = torch.empty_like(x)
+    A._launch("p1_apply", x, op.slot_ptr.data_ptr(), op.col.data_ptr(),
+              V1.data_ptr(), None if V2 is None else V2.data_ptr(), x.data_ptr(),
+              y.data_ptr(), float(a), float(b), op.n)
+    return y
+
+
+def emi_stiffness_plain(x, op: P1Operator, vals, scale: float = 1.0):
+    return _apply_plain(op, x, vals, float(scale))
+
+
+def emi_stiffness(x, op: P1Operator, vals, scale: float = 1.0):
+    """K1.  y = scale * (V x) for the P1 operator ``op`` with slot values
+    ``vals`` in the row-sum form: the EMI weighted stiffness with the
+    values :func:`emi_fill` made for this solve, and (``scale`` -1) the
+    right-hand side's unit-weight stiffness (``EMISystem``'s ``kst``).
+
+    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_emi_kernel`` (via
+    ``emi_stiffness_blocked``) together with :func:`emi_fill`.
+    Bound on the H100: bytes — each slot's column and value read once, x
+    read once, y written once (``csrc/cells.cu``).  Design: one thread
+    per row; a warp streams slot k of its 32 rows in one coalesced load,
+    eight slots in flight per thread, x gathered through the read-only
+    path (it lives in L2), no atomics.
+
+    x (n,), op, vals (slots,) -> y (n,)."""
+    _check_apply(op, x, vals)
+    if not x.is_cuda:
+        return emi_stiffness_plain(x, op, vals, scale)
+    y = _launch_apply(x, op, vals, scale, None, 0.0)
+    emi_stiffness.launches += 1
+    return y
+
+
+emi_stiffness.launches = 0
+
+
+def knp_apply_plain(x, op: P1Operator, P, Dr, zpsiD: float):
+    return _apply_plain(op, x, P, 1.0, Dr, float(zpsiD))
+
+
+def knp_apply(x, op: P1Operator, P, Dr, zpsiD: float):
+    """K11.  y = P x + zpsiD (Dr x) for ONE ion: P = dt_inv M + D K, the
+    ion's constant values (``systems/knp.py::ion_operator_values``), and
+    Dr the drift values along grad(phi) of this solve (:func:`drift_fill`),
+    which the ions of a subdomain share; ``zpsiD`` = z psi D arrives by
+    value (a Python float: no coefficient tensor, no upload per ion).  The
+    per-ion KNP solve applies it once per GMRES iteration of every
+    (subdomain, ion) block.
+
+    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_knp_kernel`` (via
+    ``knp_apply_blocked``, whose scalars sit in SMEM) together with
+    :func:`drift_fill`.  Bound on the H100: bytes — each slot's column
+    and two values read once, x read once, y written once
+    (``csrc/cells.cu``).  Design: :func:`emi_stiffness`'s kernel with a
+    second value stream and two accumulators, four slots in flight per
+    thread (32 registers: the whole grid stays resident).
+
+    x (n,), op, P (slots,), Dr (slots,) -> y (n,)."""
+    _check_apply(op, x, P, "P")
+    A._check(Dr, "Dr", x, (op.slots,))
+    if not x.is_cuda:
+        return knp_apply_plain(x, op, P, Dr, zpsiD)
+    y = _launch_apply(x, op, P, 1.0, Dr, zpsiD)
+    knp_apply.launches += 1
+    return y
+
+
+knp_apply.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K1f / K11f: the fills
+# ---------------------------------------------------------------------------
+def _fill_plain(op: P1Operator, pair_vals):
+    out = torch.zeros(op.slots, dtype=pair_vals.dtype, device=pair_vals.device)
+    return out.index_add_(0, op._plain("pair_slots").reshape(-1), pair_vals.reshape(-1))
+
+
+def emi_fill_plain(op: P1Operator, grads, wv):
+    g = grads
+    off = 1.0 - torch.eye(op.k, dtype=g.dtype, device=g.device)  # row sums 0
+    return _fill_plain(op, wv[:, None, None] * (g[:, :, None, :] * g[:, None, :, :]).sum(-1)
+                       * off)
+
+
+def emi_fill(op: P1Operator, grads, wv):
+    """K1f.  The slot values of the EMI weighted stiffness for one solve,
+    in the row-sum form: wv_c (g_ci . g_cj) added into the slot of every
+    vertex pair i != j of every cell, with wv_c = vol_c * mean-vertex
+    kappa (K4); the diagonal slots keep the row sums' exact 0.
+
+    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_emi_kernel``
+    together with :func:`emi_stiffness`: the geometry the TPU kernel
+    reads on every apply is read here once per solve.
+    Bound on the H100: bytes — cells, pos, grads, wv read once, the
+    values written once (``csrc/cells.cu``).
+    Design: one thread per cell, k (k - 1) atomic adds into a values
+    array that L2 holds; zeroed first.
+
+    op, grads (nc, k, dim), wv (nc,) -> vals (slots,)."""
+    nc, k, dim = _check_fill(op, grads, ("wv", wv, (op.cells.shape[0],)))
+    if not grads.is_cuda:
+        return emi_fill_plain(op, grads, wv)
+    vals = torch.zeros(op.slots, dtype=grads.dtype, device=grads.device)
+    A._launch("emi_fill", grads, op.cells.data_ptr(), op.pos.data_ptr(),
+              op.slot_ptr.data_ptr(), grads.data_ptr(), wv.data_ptr(),
+              vals.data_ptr(), nc, k, dim)
+    emi_fill.launches += 1
+    return vals
+
+
+emi_fill.launches = 0
+
+
+def drift_fill_plain(op: P1Operator, grads, vols, w):
+    k = grads.shape[1]
+    q = (vols / k)[:, None] * (w[:, None, :] * grads).sum(-1)  # (nc, k)
+    # q into the k - 1 off-diagonal slots of row v_i, k q (the row's sum) into its diagonal
+    scale = 1.0 + (k - 1) * torch.eye(k, dtype=q.dtype, device=q.device)
+    return _fill_plain(op, q[:, :, None] * scale)
+
+
+def drift_fill(op: P1Operator, grads, vols, w):
+    """K11f.  The slot values of the P1 drift along the per-cell vector w
+    = grad(phi), in the row-sum form: q_ci = vol_c (w_c . g_ci) / k added
+    into the slots (i, j != i) and k q_ci into the diagonal slot (i, i) of
+    every cell.  Once per KNP solve and subdomain; every solved ion's K11
+    shares it.
+
+    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_knp_kernel``
+    together with :func:`knp_apply`: the drift part of the geometry the
+    TPU kernel reads on every apply.
+    Bound on the H100: bytes — cells, pos, grads, vols, w read once, the
+    values written once (``csrc/cells.cu``).
+    Design: one thread per cell, k^2 atomic adds into a values array that
+    L2 holds; zeroed first.
+
+    op, grads (nc, k, dim), vols (nc,), w (nc, dim) -> Dr (slots,)."""
+    nc, k, dim = _check_fill(op, grads, ("vols", vols, (op.cells.shape[0],)),
+                             ("w", w, (op.cells.shape[0], grads.shape[-1])))
+    if not grads.is_cuda:
+        return drift_fill_plain(op, grads, vols, w)
+    vals = torch.zeros(op.slots, dtype=grads.dtype, device=grads.device)
+    A._launch("drift_fill", grads, op.cells.data_ptr(), op.pos.data_ptr(),
+              op.slot_ptr.data_ptr(), grads.data_ptr(), vols.data_ptr(),
+              w.data_ptr(), vals.data_ptr(), nc, k, dim)
+    drift_fill.launches += 1
+    return vals
+
+
+drift_fill.launches = 0
+
+
+# (wrapper, plain version)
+KERNELS = {
+    "K1 emi_stiffness": (emi_stiffness, emi_stiffness_plain),
+    "K1f emi_fill": (emi_fill, emi_fill_plain),
+    "K11 knp_apply": (knp_apply, knp_apply_plain),
+    "K11f drift_fill": (drift_fill, drift_fill_plain),
+}

@@ -24,6 +24,7 @@ Krylov iteration reads its stopping test back to the host.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -33,6 +34,7 @@ from scipy.sparse.csgraph import reverse_cuthill_mckee
 
 from ..models.engine import MembraneModel, update_ode_variables
 from ..ops.geometry import DiscreteGeometry
+from ..ops.p1op import p1_operators
 from ..solvers import direct
 from ..solvers.api import EMISolver, KNPSolver
 from ..solvers.mg import build_hierarchy_cached
@@ -99,10 +101,19 @@ class Simulation:
         self.mem_models = {mm.tag: mm for mm in mem_models}
         opts = solver_options or SolverOptions()
         self.opts = opts
+        # host seconds of each part of the set-up, in the order it runs
+        self.setup_seconds = {}
+        t0 = time.perf_counter()
+        # one P1 operator pattern per subdomain, for both systems
+        p1ops = p1_operators(geom, self.device)
+        t0 = self._lap("p1_operators", t0)
         self.emi_sys = EMISystem(geom, ions, params, splitting_scheme,
-                                 dtype=dtype, device=self.device)
+                                 dtype=dtype, device=self.device, p1ops=p1ops)
+        t0 = self._lap("emi_system", t0)
         self.knp_sys = KNPSystem(geom, ions, params, splitting_scheme,
-                                 dtype=dtype, device=self.device)
+                                 dtype=dtype, device=self.device, p1ops=p1ops,
+                                 per_ion=not opts.knp_batched)
+        t0 = self._lap("knp_system", t0)
         # compensated Krylov inner products in float32
         comp = dtype == torch.float32
         self.emi_solver = EMISolver(
@@ -115,8 +126,16 @@ class Simulation:
         )
         self.source_gate = source_gate or (lambda t: 1.0)
         self._maps = membrane_maps(geom, self.device)
+        t0 = self._lap("solvers_and_maps", t0)
         self._setup_emi_mg()
+        t0 = self._lap("emi_multigrid", t0)
         self._setup_knp_mg()
+        self._lap("knp_multigrid", t0)
+
+    def _lap(self, part: str, t0: float) -> float:
+        t1 = time.perf_counter()
+        self.setup_seconds[part] = t1 - t0
+        return t1
 
     # ------------------------------------------------------------------
     def _hierarchy(self, A_hat, s):

@@ -8,7 +8,8 @@ package's two branches: batched over the solved ions of each subdomain
 (one K3 pass and one batched V-cycle per iteration, the branch the JAX
 package takes with ``use_pallas``) and per ion (one GMRES per
 (subdomain, ion) block on the single-ion operator K11 with the
-single-vector V-cycle, the branch it takes without).  Only the
+single-vector V-cycle, the branch it takes without; the drift values
+K11 reads are filled once per subdomain and solve).  Only the
 iterative multigrid path is ported; the JAX package's direct LU path
 and its deflated-Jacobi EMI fallback are not.
 """
@@ -112,15 +113,16 @@ class KNPSolver:
 
     def _solve_per_ion(self, t, rhs_t, diag, x0_t, gradphi_t, mg_t) -> KrylovResult:
         """One GMRES per solved ion of subdomain ``t`` on K11's operator
-        with the single-vector V-cycle; iters is the max over the ions,
-        converged their conjunction.  The loop takes the place of the JAX
-        package's vmap: each ion stops at its own iteration."""
+        with the single-vector V-cycle, the drift values filled once for
+        all ions (K11f); iters is the max over the ions, converged their
+        conjunction.  The loop takes the place of the JAX package's vmap:
+        each ion stops at its own iteration."""
         sys_ = self.system
+        Dr = sys_.drift_values(t, gradphi_t)
         results = []
-        for k, ion in enumerate(sys_.ions[:-1]):
-            D_k, z_k = ion.D[t], ion.z
+        for k in range(sys_.n_solved):
             A_hat, b_hat, x0_hat, s = _equilibrate(
-                lambda v, D_k=D_k, z_k=z_k: sys_.matvec_one(t, v, gradphi_t, D_k, z_k),
+                lambda v, k=k: sys_.matvec_one(t, k, v, Dr),
                 rhs_t[k], diag[k], x0_t[k],
             )
             M = None if mg_t is None else (lambda v, A_hat=A_hat: mg_t.apply(A_hat, v))

@@ -8,11 +8,15 @@ all subdomains, coupled through the membrane facet terms,
   = sum_s sum_k -F z_k int D_k grad(c_k).grad(v_s) + sum_m C_phi int g (v_i - v_e)
 
 with kappa_s = F psi sum_k z_k^2 D_k c_k a P1 field of the previous
-concentrations.  Per solve, K4 (:func:`ops.assembly.ell_matvec`) forms
-the per-cell mean-vertex kappa; per matvec, K1 applies the weighted
-stiffness and K2 the membrane surface mass in membrane-dof space, with
-one gather and one scatter through ``flat_idx`` (``emi.py:321-326``).
-The system is pure Neumann with the constant null vector.
+concentrations.  Each subdomain's stiffness is an assembled P1 operator
+(:class:`ops.p1op.P1Operator`, shared with the KNP system).  Per solve,
+K4 (:func:`ops.assembly.ell_matvec`) forms the per-cell mean-vertex
+kappa and K1f (:func:`ops.p1op.emi_fill`) fills the operator's values;
+per matvec, K1 (:func:`ops.p1op.emi_stiffness`) applies them and K2 the
+membrane surface mass in membrane-dof space, with one gather and one
+scatter through ``flat_idx`` (``emi.py:321-326``).  The right-hand
+side's unit-weight stiffness is assembled once.  The system is pure
+Neumann with the constant null vector.
 """
 
 from __future__ import annotations
@@ -23,14 +27,18 @@ import numpy as np
 import torch
 
 from ..ops import assembly as A
+from ..ops import p1op as P
 from ..ops.geometry import DiscreteGeometry
+from ..solvers import direct
 from .types import Ion, PhysicalParams, resolve_device
 
 
 class EMISystem:
     def __init__(self, geom: DiscreteGeometry, ions: List[Ion],
                  params: PhysicalParams, splitting_scheme: bool = True,
-                 dtype=torch.float64, device=None):
+                 dtype=torch.float64, device=None, *, p1ops):
+        """``p1ops``: {tag: P1Operator} of ``geom`` on ``device``
+        (:func:`ops.p1op.p1_operators`), shared with the KNP system."""
         device = resolve_device(device)
         self.geom = geom
         self.ions = ions
@@ -48,10 +56,13 @@ class EMISystem:
         self.sub = {}
         for t, s in geom.subdomains.items():
             kc, kv = A.cell_mean_ell(s.cells, s.n_dofs)
+            op = p1ops[t]
             self.sub[t] = dict(
-                n_dofs=s.n_dofs, cells=as_i(s.cells), grads=as_f(s.grads),
+                n_dofs=s.n_dofs, op=op, grads=as_f(s.grads),
                 vols=as_f(s.vols), kbar_cols=as_i(kc),
                 kbar_vals=as_f(kv),
+                # the right-hand side's unit-weight stiffness on the pattern
+                kst=as_f(op.assemble(direct._stiffness_coo(s.cells, s.grads, s.vols)[2])[0]),
             )
         self.mem = {}
         for m, sp in geom.membranes.items():
@@ -92,22 +103,22 @@ class EMISystem:
         return out
 
     def prepare(self, kappa: Dict[int, torch.Tensor]) -> dict:
-        """Per-solve coefficient: wv = vol * mean-vertex kappa per cell,
-        the mean by K4 on the frozen dof -> cell map."""
-        wv = {}
+        """Per-solve operator: the weighted stiffness's values on each
+        subdomain's P1 operator, filled by K1f from wv = vol * mean-vertex
+        kappa per cell (the mean by K4 on the frozen dof -> cell map)."""
+        vals = {}
         for t in self.tags:
             s = self.sub[t]
             kbar = A.ell_matvec(s["kbar_cols"], s["kbar_vals"], kappa[t].contiguous())
-            wv[t] = s["vols"] * kbar
-        return {"kappa": kappa, "wv": wv}
+            vals[t] = P.emi_fill(s["op"], s["grads"], s["vols"] * kbar)
+        return {"kappa": kappa, "vals": vals}
 
     def matvec(self, x: torch.Tensor, ctx: dict) -> torch.Tensor:
         """A @ x: K1 per subdomain, then the membrane coupling
         C_phi M_Gamma (u_i - u_e) by K2 in membrane-dof space."""
         xs = self.split(x)
         y = self.flatten({
-            t: A.emi_stiffness(xs[t], self.sub[t]["cells"], self.sub[t]["grads"],
-                               ctx["wv"][t])
+            t: P.emi_stiffness(xs[t], self.sub[t]["op"], ctx["vals"][t])
             for t in self.tags
         })
         C_phi = self.params.C_phi
@@ -120,8 +131,9 @@ class EMISystem:
 
     def rhs(self, c, phi_M, I_ch=None) -> torch.Tensor:
         """Right-hand side: the diffusive driving -sum_k F z_k D_k K c_k
-        as ONE unit-weight K1 action of the centered combined field, plus
-        the membrane Robin data C_phi M_Gamma g by K2."""
+        as ONE K1 action of the unit-weight stiffness on the centered
+        combined field, plus the membrane Robin data C_phi M_Gamma g by
+        K2."""
         F, C_phi = self.params.F, self.params.C_phi
         rs = {}
         for t in self.tags:
@@ -133,7 +145,7 @@ class EMISystem:
             # stiffness acts on the variation, not on f32 roundoff of the
             # large mean
             u_star = u_star - u_star.mean()
-            rs[t] = -A.emi_stiffness(u_star, s["cells"], s["grads"], s["vols"])
+            rs[t] = P.emi_stiffness(u_star, s["op"], s["kst"], -1.0)
         b = self.flatten(rs)
         for m, mb in self.mem.items():
             g = phi_M[m]

@@ -9,10 +9,15 @@ is eliminated) one implicit-Euler advection-diffusion equation
 
 The left-hand side has no interface terms, so the solved ions of one
 subdomain form a batch: K3 (:func:`ops.assembly.knp_apply_batch`)
-applies all of them in one pass, with grad(phi) per cell from K4; K11
-(:func:`ops.assembly.knp_apply`) applies one ion's operator for the
-per-ion solve.  The ECS source f_k has a static spatial profile (only
-its scalar gate varies in time), so its load vector is assembled once.
+applies all of them in one pass, with grad(phi) per cell from K4.  The
+per-ion solve applies one ion's operator as an assembled P1 operator
+(:class:`ops.p1op.P1Operator`, shared with the EMI system): its constant
+part P_b = (1/dt) M + D_b K is assembled once per ion at setup
+(:func:`ion_operator_values`), its drift part filled once per solve
+and subdomain by K11f (:func:`ops.p1op.drift_fill`) for all ions, and K11
+(:func:`ops.p1op.knp_apply`) applies P_b + z_b psi D_b Dr.  The ECS
+source f_k has a static spatial profile (only its scalar gate varies in
+time), so its load vector is assembled once.
 The membrane Robin right-hand side runs in membrane-dof space: K9 gathers
 the stacked fields to the facet vertex slots, the quadrature algebra of
 ``_robin_facet_values`` (``knp.py:359``) runs in PyTorch, and K10
@@ -21,22 +26,42 @@ scatters the result back.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
 
 from ..ops import assembly as A
 from ..ops import kernels as K
+from ..ops import p1op as P
 from ..ops import quadrature as quad
 from ..ops.geometry import DiscreteGeometry
+from ..solvers import direct
 from .types import Ion, PhysicalParams, resolve_device
+
+
+def ion_operator_values(op: P.P1Operator, cells, grads, vols, dt_inv: float,
+                        Ds: Sequence[float], dtype) -> List[torch.Tensor]:
+    """P_b = dt_inv M + D_b K on ``op`` for every diffusion coefficient in
+    ``Ds`` (one per solved ion), in the row-sum form: the constant part of
+    K11's operator, summed in float64 from the host COO helpers' element
+    matrices of (``cells``, ``grads``, ``vols``) and cast to ``dtype``.
+    Its row sums are those of dt_inv M alone (the stiffness's vanish)."""
+    Me = direct._mass_coo(cells, vols, dt_inv)[2]
+    Mv, Kv = op.assemble(Me, direct._stiffness_coo(cells, grads, vols)[2])
+    Mv[op.diag_slot] = np.bincount(np.asarray(cells).reshape(-1),
+                                   weights=Me.sum(axis=2).reshape(-1), minlength=op.n)
+    return [torch.as_tensor(Mv + Dc * Kv, dtype=dtype, device=op.device) for Dc in Ds]
 
 
 class KNPSystem:
     def __init__(self, geom: DiscreteGeometry, ions: List[Ion],
                  params: PhysicalParams, splitting_scheme: bool = True,
-                 dtype=torch.float64, device=None):
+                 dtype=torch.float64, device=None, *, p1ops, per_ion: bool = False):
+        """``p1ops``: {tag: P1Operator} of ``geom`` on ``device``
+        (:func:`ops.p1op.p1_operators`), shared with the EMI system;
+        ``per_ion``: assemble each solved ion's operator values for the
+        per-ion solve (K11), which the batched one (K3) never reads."""
         device = resolve_device(device)
         self.geom = geom
         self.ions = ions
@@ -61,7 +86,7 @@ class KNPSystem:
             gc, gv = A.cell_gradient_ell(s.cells, s.grads, s.n_dofs)
             D_t = [ion.D[t] for ion in ions[:-1]]
             self.sub[t] = dict(
-                n_dofs=s.n_dofs, n_cells=s.n_cells, cells=as_i(s.cells),
+                n_dofs=s.n_dofs, n_cells=s.n_cells, op=p1ops[t], cells=p1ops[t].cells,
                 grads=as_f(s.grads), vols=as_f(s.vols),
                 grad_cols=as_i(gc), grad_vals=as_f(gv),
                 # K3 rows [1/dt, D, z psi D]: the solve's operator, and the
@@ -79,6 +104,11 @@ class KNPSystem:
                 mem_to_ecs=as_i(sp.mem_to_ecs, torch.int64),
                 mem_to_ics=as_i(sp.mem_to_ics, torch.int64),
             )
+        # {tag: [P_b per solved ion]} on the subdomain's P1 operator
+        self.ion_vals = {
+            t: ion_operator_values(p1ops[t], s.cells, s.grads, s.vols, 1.0 / dt,
+                                   [ion.D[t] for ion in ions[:-1]], dtype)
+            for t, s in geom.subdomains.items()} if per_ion else {}
         fb, fw = quad.facet_rule(self.dim)
         self.fb, self.fw = as_f(fb), as_f(fw)
         self._src_vec = self._source_vectors(ions, as_f)
@@ -123,14 +153,18 @@ class KNPSystem:
         return A.knp_apply_batch(X.contiguous(), s["cells"], s["grads"], s["vols"],
                                  gradphi, s["coef"])
 
-    def matvec_one(self, tag: int, x: torch.Tensor, gradphi: torch.Tensor,
-                   D: float, z: float):
-        """One solved ion's system of one subdomain by K11: x (n,) -> (n,);
-        ``D`` and ``z`` are the ion's Python floats."""
+    def drift_values(self, tag: int, gradphi: torch.Tensor) -> torch.Tensor:
+        """The drift along grad(phi) on the subdomain's P1 operator, by
+        K11f: once per solve, shared by every solved ion."""
         s = self.sub[tag]
-        return A.knp_apply(x.contiguous(), s["cells"], s["grads"], s["vols"],
-                           gradphi, 1.0 / self.params.dt, D,
-                           z * self.params.psi * D)
+        return P.drift_fill(s["op"], s["grads"], s["vols"], gradphi)
+
+    def matvec_one(self, tag: int, k: int, x: torch.Tensor, Dr: torch.Tensor):
+        """Solved ion ``k``'s system of one subdomain by K11: x (n,) ->
+        (n,), with ``Dr`` from :meth:`drift_values`."""
+        ion = self.ions[k]
+        return P.knp_apply(x.contiguous(), self.sub[tag]["op"], self.ion_vals[tag][k],
+                           Dr, ion.z * self.params.psi * ion.D[tag])
 
     def diag(self, tag: int, gradphi: torch.Tensor) -> torch.Tensor:
         """Batched Jacobi diagonal (N_solved, n) (plain; the coupled step

@@ -4,7 +4,9 @@ Skipped where there is no CUDA device (the CPU test machines); on the
 GPU run ``python -m pytest tests/test_torch_cuda.py -q --noconftest``.  Tolerances:
 the kernels sum with atomics or with fused multiply-adds, in another
 order than the plain versions: 1e-5 max|y| in float32, 1e-12 max|y| in
-float64.  K7/K8 run on the packed band windows (``ops/banded.py``).
+float64.  K7/K8 run on the packed band windows (``ops/banded.py``); K1
+and K11 apply a subdomain's assembled P1 operator (``ops/p1op.py``),
+whose values K1f and K11f fill.
 """
 
 import pytest
@@ -52,24 +54,26 @@ def sim_astro():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_kernels_match_plain_on_cuda(sim, sim_banded, sim_astro, dtype):
-    """All twelve: the six assembly kernels of the batched step at the
+    """All fourteen: the seven assembly kernels of the batched step at the
     mesh's shapes and on every subdomain and membrane of the tissue mesh,
     the multigrid kernels at the shapes of the banded hierarchies'
     level 0 (float32 and float64 vectors, and a bfloat16 slab for
-    K7/K8), and K11 on the idealized mesh (phi in V) and on the three
-    subdomains of the tissue mesh (phi in mV), also against K3 row by row."""
+    K7/K8), and K11 and K11f on the two subdomains of the idealized mesh
+    (phi in V) and on the three of the tissue mesh (phi in mV), K11 also
+    against K3 row by row."""
     import chip_smoke
 
     rows = chip_smoke.check_kernels(sim, dtype, time_them=False)
-    assert len(rows) == 6
+    assert len(rows) == 7
     rows = chip_smoke.check_k11(sim, dtype, time_them=False, phi_scale=1e-3)
     rows += chip_smoke.check_k11(sim_astro, dtype, time_them=False, phi_scale=1.0)
-    assert {r["name"] for r in rows} == {"K11 knp_apply"} and len(rows) == 3 + 4
+    names = [r["name"] for r in rows]
+    assert names.count("K11 knp_apply") == 3 + 4 and names.count("K11f drift_fill") == 2 + 3
     rows = chip_smoke.check_mg_kernels(sim_banded, dtype, time_them=False)
     assert {r["name"].split()[0] for r in rows} == {"K4", "K5", "K6a", "K6b", "K7", "K8"}
     # every kernel of the batched step on each subdomain and membrane
     rows = chip_smoke.check_all_operators(sim_astro, dtype, time_them=False)
-    assert len(rows) == 3 * 3 + 3 * 2
+    assert len(rows) == 3 * 4 + 3 * 2
 
 
 def test_step_launches_every_kernel(sim):
@@ -80,7 +84,8 @@ def test_step_launches_every_kernel(sim):
     assert ok.all()
     counts = ops.launch_counts()
     assert all(counts[k] for k in counts if k.split()[0] in
-               ("K1", "K2", "K3", "K4", "K9", "K10"))
+               ("K1", "K1f", "K2", "K3", "K4", "K9", "K10"))
+    assert counts["K1f emi_fill"] == 2  # once per subdomain and EMI solve
 
 
 def test_per_ion_step_launches_k11_and_k3_only_for_the_mass_term(sim_astro):
@@ -91,25 +96,82 @@ def test_per_ion_step_launches_k11_and_k3_only_for_the_mass_term(sim_astro):
     assert ok.all()
     counts = ops.launch_counts()
     assert counts["K11 knp_apply"] > 0
-    assert counts["K3 knp_apply_batch"] == 2 * 3  # steps x subdomains
+    # steps x subdomains: K3 for the rhs mass term, K11f once per solve
+    assert counts["K3 knp_apply_batch"] == counts["K11f drift_fill"] == 2 * 3
     assert all(bool(torch.isfinite(v).all()) for v in state.c.values())
 
 
 def test_k11_raises_on_a_cuda_tensor_it_does_not_take(sim_astro):
     """On the card the wrapper launches or raises: no path to K3 or to the
     plain version."""
-    from knpemi_tpu_torch.ops import assembly as A
+    from knpemi_tpu_torch.ops import p1op as P
 
     s = sim_astro.knp_sys.sub[1]
+    op = s["op"]
     x = torch.ones(s["n_dofs"], device="cuda")
-    w = torch.zeros(s["n_cells"], 3, device="cuda")
+    Pb = sim_astro.knp_sys.ion_vals[1][0]
+    Dr = torch.zeros(op.slots, device="cuda")
     with pytest.raises(TypeError):
-        A.knp_apply(x, s["cells"].long(), s["grads"], s["vols"], w, 10.0, 1.0, 0.0)
+        P.knp_apply(x, op, Pb, Dr.double(), 0.5)
     with pytest.raises(ValueError):
-        A.knp_apply(x, s["cells"], s["grads"], s["vols"], w.cpu(), 10.0, 1.0, 0.0)
-    before = A.knp_apply.launches
-    A.knp_apply(x, s["cells"], s["grads"], s["vols"], w, 10.0, 1.0, 0.0)
-    assert A.knp_apply.launches == before + 1
+        P.knp_apply(x, op, Pb, Dr.cpu(), 0.5)
+    with pytest.raises(ValueError):
+        P.knp_apply(x[:-1], op, Pb, Dr, 0.5)
+    before = P.knp_apply.launches
+    P.knp_apply(x, op, Pb, Dr, 0.5)
+    assert P.knp_apply.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_p1_apply_and_fills_match_plain_on_cuda(sim_astro, dtype):
+    """K1, K11 and both fills on every subdomain of the tissue mesh, at
+    the operator's own values: the fills against their plain versions
+    (atomics: 1e-5 / 1e-12 of max|value|), the applies on the kernel
+    fills' values against the plain applies on the same values."""
+    from knpemi_tpu_torch.ops import p1op as P
+
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for t, s in sim_astro.knp_sys.sub.items():
+        op = s["op"]
+        grads, vols = s["grads"].to(dtype), s["vols"].to(dtype)
+        wv = vols * (1.0 + torch.rand(vols.shape, generator=g, device="cuda", dtype=dtype))
+        w = torch.randn(s["n_cells"], 3, generator=g, device="cuda", dtype=dtype)
+        x = torch.randn(s["n_dofs"], generator=g, device="cuda", dtype=dtype)
+        for fill, plain, args in ((P.emi_fill, P.emi_fill_plain, (grads, wv)),
+                                  (P.drift_fill, P.drift_fill_plain, (grads, vols, w))):
+            v, v_ref = fill(op, *args), plain(op, *args)
+            assert float((v - v_ref).abs().max()) <= tol * float(v_ref.abs().max())
+        V, Dr = P.emi_fill(op, grads, wv), P.drift_fill(op, grads, vols, w)
+        for y, y_ref in ((P.emi_stiffness(x, op, V, -1.0), P.emi_stiffness_plain(x, op, V, -1.0)),
+                         (P.knp_apply(x, op, V, Dr, 0.3), P.knp_apply_plain(x, op, V, Dr, 0.3))):
+            torch.cuda.synchronize()
+            assert float((y - y_ref).abs().max()) <= tol * float(y_ref.abs().max())
+
+
+def test_p1_wrappers_raise_rather_than_fall_back(sim_astro):
+    """The P1 operator's wrappers refuse on the card what their kernels do
+    not take: int64 cells or columns, a CPU operand, a wrong shape."""
+    import copy
+
+    from knpemi_tpu_torch.ops import p1op as P
+
+    s = sim_astro.emi_sys.sub[0]
+    op = s["op"]
+    x = torch.ones(s["n_dofs"], device="cuda")
+    V = P.emi_fill(op, s["grads"], s["vols"])
+    bad = copy.copy(op)
+    bad.col = op.col.long()
+    before = P.emi_stiffness.launches, P.emi_fill.launches
+    with pytest.raises(TypeError):
+        P.emi_stiffness(x, bad, V)
+    with pytest.raises(ValueError):
+        P.emi_stiffness(x, op, V.cpu())
+    with pytest.raises(ValueError):
+        P.emi_fill(op, s["grads"], s["vols"][:-1])
+    with pytest.raises(TypeError):
+        P.emi_fill(op, s["grads"], s["vols"].double())
+    assert (P.emi_stiffness.launches, P.emi_fill.launches) == before
 
 
 def test_per_ion_banded_step_runs_the_knp_vcycle_on_single_vectors():

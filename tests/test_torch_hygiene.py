@@ -75,6 +75,7 @@ def test_code_names_knpemi_tpu_only_as_the_port():
 def test_simulation_without_device_needs_cuda(monkeypatch):
     from knpemi_tpu_torch.mesh import idealized_2d_mesh
     from knpemi_tpu_torch.ops.geometry import build_geometry
+    from knpemi_tpu_torch.ops.p1op import p1_operators
     from knpemi_tpu_torch.sim import build_idealized
     from knpemi_tpu_torch.systems.coupling import set_initial_conditions
     from knpemi_tpu_torch.systems.emi import EMISystem
@@ -102,12 +103,13 @@ def test_simulation_without_device_needs_cuda(monkeypatch):
     params = PhysicalParams(dt=1e-4, rho={0: 0.0, 1: 0.0})
     with pytest.raises(RuntimeError, match="CUDA"):
         set_initial_conditions(geom, ions)
+    p1ops = p1_operators(geom, "cpu")
     for cls in (EMISystem, KNPSystem):
         with pytest.raises(RuntimeError, match="CUDA"):
-            cls(geom, ions, params)
+            cls(geom, ions, params, p1ops=p1ops)
     c = set_initial_conditions(geom, ions, device="cpu")
     assert all(v.device.type == "cpu" for v in c.values())
-    assert EMISystem(geom, ions, params, device="cpu").device == torch.device("cpu")
+    assert EMISystem(geom, ions, params, device="cpu", p1ops=p1ops).device == torch.device("cpu")
 
 
 def test_kernel_sources_present():
@@ -123,14 +125,16 @@ def test_kernel_sources_present():
         assert re.search(rf"\bint {symbol}\(", src), f"{symbol} not in {lib}.cu"
 
 
-TWELVE = ["K1", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7", "K8", "K9", "K10", "K11"]
+# the twelve TPU kernels' counterparts, and the fills of K1 and K11
+KERNELS = ["K1", "K1f", "K2", "K3", "K4", "K5", "K6a", "K6b", "K7", "K8", "K9", "K10",
+           "K11", "K11f"]
 
 
 def test_every_wrapper_has_a_plain_twin_and_a_launch_counter():
     import knpemi_tpu_torch.ops as ops
 
     table = ops.kernel_table()
-    assert sorted(n.split()[0] for n in table) == sorted(TWELVE)
+    assert sorted(n.split()[0] for n in table) == sorted(KERNELS)
     for name, (wrapper, plain) in table.items():
         assert plain.__name__ == wrapper.__name__ + "_plain", name
         assert sys.modules[plain.__module__] is sys.modules[wrapper.__module__]
@@ -140,35 +144,39 @@ def test_every_wrapper_has_a_plain_twin_and_a_launch_counter():
 
 
 def test_k11_is_its_own_kernel_with_its_own_launch():
-    """K11's wrapper launches its own C entry point, whose source has its
-    own __global__ function; it reaches neither K3 nor, on a CUDA tensor,
-    the plain version; the scalars travel by value."""
+    """K11's wrapper launches the P1 operator's apply with two value
+    streams, its scalar by value; the apply's source has its own
+    __global__ function, and K3's kernel is not on its way; on a CUDA
+    tensor it reaches neither K3 nor the plain version."""
     from knpemi_tpu_torch.ops import assembly
 
-    lib, symbol, argtypes = assembly._SIGS["knp_apply"]
-    assert (lib, symbol) == ("cells", "knp_knp_apply")
-    assert sum(a is assembly.ctypes.c_double for a in argtypes) == 3
+    lib, symbol, argtypes = assembly._SIGS["p1_apply"]
+    assert (lib, symbol) == ("cells", "knp_p1_apply")
+    assert sum(a is assembly.ctypes.c_double for a in argtypes) == 2
     src = (PORT / "ops" / "csrc" / "cells.cu").read_text()
-    assert re.search(r"__global__ void knp_apply_kernel\(", src)
-    body = src[src.index("int knp_apply_t("):src.index("}  // namespace")]
-    assert "knp_apply_kernel<T, 4, 3><<<" in body and "knp_apply_kernel<T, 3, 2><<<" in body
+    assert re.search(r"__global__ void p1_apply_kernel\(", src)
+    body = src[src.index("int p1_apply_t("):src.index("}  // namespace")]
+    body = body[:body.index("template <typename T>")]
+    assert "p1_apply_kernel<T, true><<<" in body and "p1_apply_kernel<T, false><<<" in body
     assert "knp_apply_batch_kernel" not in body
-    tree = ast.parse((PORT / "ops" / "assembly.py").read_text())
+    tree = ast.parse((PORT / "ops" / "p1op.py").read_text())
     fn = next(n for n in ast.walk(tree)
               if isinstance(n, ast.FunctionDef) and n.name == "knp_apply")
     called = [c.func.id for c in ast.walk(fn)
               if isinstance(c, ast.Call) and isinstance(c.func, ast.Name)]
     assert "knp_apply_batch" not in called and called.count("knp_apply_plain") == 1
-    assert called.count("_launch") == 1
+    assert called.count("_launch_apply") == 1
     assert not any(isinstance(n, ast.Try) for n in ast.walk(fn))
     # the one call of the plain version sits under `if not x.is_cuda:`
     guard = next(n for n in ast.walk(fn) if isinstance(n, ast.If)
                  and any(isinstance(c, ast.Call) and getattr(c.func, "id", "") ==
                          "knp_apply_plain" for c in ast.walk(n)))
     assert ast.unparse(guard.test) == "not x.is_cuda"
+    # the matrix-free cell kernels of K1 and K11 are gone
+    assert "emi_stiffness_kernel" not in src and "knp_apply_kernel" not in src
 
 
-@pytest.mark.parametrize("module", ["ell", "banded", "assembly"])
+@pytest.mark.parametrize("module", ["ell", "banded", "assembly", "p1op"])
 def test_kernel_wrappers_call_no_library_product_and_never_fall_back(module):
     """On CUDA a wrapper launches or raises: outside its ``_plain`` twins a
     module of wrappers calls no PyTorch product or scatter, is not

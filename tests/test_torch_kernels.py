@@ -1,7 +1,9 @@
-"""The port's six kernel functions against the JAX package's.
+"""The port's assembly kernel functions against the JAX package's.
 
-For each kernel of ``knpemi_tpu_torch/ops/assembly.py`` the plain
-PyTorch version (what the wrapper runs on CPU tensors) is held
+For each kernel of ``knpemi_tpu_torch/ops/assembly.py``, and K1 of
+``ops/p1op.py`` (the EMI stiffness as an assembled P1 operator: the
+values K1f fills, then the apply), the plain PyTorch version (what the
+wrapper runs on CPU tensors) is held
 
 * in float32 against the JAX Pallas wrapper in interpret mode, at
   5e-6 max|y| — the JAX kernels gather through bf16 split passes and
@@ -27,6 +29,7 @@ from knpemi_tpu.ops.pallas_ell import ellw_matvec
 
 from knpemi_tpu_torch import ops
 from knpemi_tpu_torch.ops import assembly as A
+from knpemi_tpu_torch.ops import p1op as P
 
 MESHES = {
     "square12": lambda: unit_square_mms_mesh(12),
@@ -50,6 +53,13 @@ def t(a, dtype=torch.float32):
 
 def ti(a):
     return torch.as_tensor(np.asarray(a), dtype=torch.int32)
+
+
+def k1(x, sub, wv):
+    """K1 as the EMI system applies it: K1f fills the subdomain's P1
+    operator from wv, K1 applies it."""
+    op = P.P1Operator(sub.cells, sub.n_dofs, "cpu")
+    return P.emi_stiffness(x, op, P.emi_fill(op, t(sub.grads, x.dtype), wv))
 
 
 def close(y, y_ref, tol):
@@ -87,8 +97,7 @@ def test_k1_emi_stiffness_vs_pallas(mesh):
                                          g32, interpret=True)
         kc, kv = A.cell_mean_ell(sub.cells, sub.n_dofs)
         wv = t(sub.vols) * A.ell_matvec(ti(kc), t(kv), t(kap))
-        y = A.emi_stiffness(t(x), ti(sub.cells), t(sub.grads), wv)
-        close(y, y_jax, TOL32)
+        close(k1(t(x), sub, wv), y_jax, TOL32)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -209,7 +218,7 @@ def _f64_case(kernel, geom):
         if kernel == "K1":
             kc, kv = A.cell_mean_ell(cells, n)
             wv = f64(sub.vols) * A.ell_matvec(ti(kc), f64(kv), f64(kap))
-            y = A.emi_stiffness(f64(x), ti(cells), f64(sub.grads), wv)
+            y = k1(f64(x), sub, wv)
             y_ref = JK.stiffness_apply(n, J(x), Ji(cells), J(sub.grads), J(sub.vols),
                                        coef_vertex=J(kap))
             return [(y, y_ref)]
@@ -260,16 +269,22 @@ def test_wrappers_take_plain_path_on_cpu_and_check_inputs():
     raise before anything runs."""
     geom = geometry("square12")
     sub = geom.subdomains[0]
+    op = P.P1Operator(sub.cells, sub.n_dofs, "cpu")
     ops.reset_launch_counts()
     x = t(np.ones(sub.n_dofs))
-    y = A.emi_stiffness(x, ti(sub.cells), t(sub.grads), t(sub.vols))
-    assert torch.allclose(y, A.emi_stiffness_plain(x, ti(sub.cells), t(sub.grads),
-                                                   t(sub.vols)))
+    vals = P.emi_fill(op, t(sub.grads), t(sub.vols))
+    assert torch.equal(vals, P.emi_fill_plain(op, t(sub.grads), t(sub.vols)))
+    y = P.emi_stiffness(x, op, vals)
+    assert torch.allclose(y, P.emi_stiffness_plain(x, op, vals))
     assert all(v == 0 for v in ops.launch_counts().values())
     with pytest.raises(TypeError):
-        A.emi_stiffness(x, ti(sub.cells), t(sub.grads, torch.float64), t(sub.vols))
+        P.emi_fill(op, t(sub.grads, torch.float64), t(sub.vols))
     with pytest.raises(ValueError):
-        A.emi_stiffness(x, ti(sub.cells), t(sub.grads), t(sub.vols)[:-1])
+        P.emi_fill(op, t(sub.grads), t(sub.vols)[:-1])
+    with pytest.raises(TypeError):
+        P.emi_stiffness(x, op, vals.double())
+    with pytest.raises(ValueError):
+        P.emi_stiffness(x, op, vals[:-1])
     with pytest.raises(ValueError):
         A.facet_mass(x[::2], ti(geom.membranes[1].facet_dofs),
                      t(geom.membranes[1].areas))

@@ -348,7 +348,7 @@ def test_new_wrappers_take_plain_path_on_cpu_and_check_inputs():
     TE.ellw_matvec(e, x), TE.ellw_rmatvec(e, x)
     TE.ellw_matvec_batch(e, x[None]), TE.ellw_rmatvec_batch(e, x[None])
     TB.banded_matvec(win, x, n), TB.banded_matvec_batch(win, x[None], n)
-    assert len(ops.launch_counts()) == 12
+    assert len(ops.launch_counts()) == 14
     assert all(v == 0 for v in ops.launch_counts().values())
     with pytest.raises(ValueError):
         TE.ellw_matvec(e, x[:-1])

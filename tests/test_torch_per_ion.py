@@ -1,11 +1,14 @@
 """The per-ion KNP solve of the port against the JAX package's.
 
-* K11 ``knp_apply``: its plain version (what the wrapper runs on CPU
-  tensors) in float32 against JAX ``knp_apply_blocked`` in interpret
-  mode at 1e-5 max|y| (the JAX kernel gathers through bf16 split passes
-  and sums in another order), and in float64 against the JAX XLA
-  single-ion operator ``KNPSystem._one_matvec`` at 1e-12 max|y|; 2-D and
-  3-D; and equal, row by row, to K3 ``knp_apply_batch``.
+* K11 ``knp_apply`` (``ops/p1op.py``: the ion's constant values P_b =
+  dt_inv M + D K on the subdomain's P1 operator, the drift values K11f
+  fills from grad(phi), and the apply): its plain version (what the
+  wrapper runs on CPU tensors) in float32 against JAX
+  ``knp_apply_blocked`` in interpret mode at 1e-5 max|y| (the JAX kernel
+  gathers through bf16 split passes and sums in another order), and in
+  float64 against the JAX XLA single-ion operator
+  ``KNPSystem._one_matvec`` at 1e-12 max|y|; 2-D and 3-D; and equal, row
+  by row, to K3 ``knp_apply_batch``.
 * ``gmres`` against JAX ``gmres`` on a seeded nonsymmetric system, with
   and without a preconditioner, through restarts: equal iteration
   counts, x within 1e-10.
@@ -30,8 +33,10 @@ from knpemi_tpu.solvers.gmres import gmres as jgmres
 
 from knpemi_tpu_torch import ops
 from knpemi_tpu_torch.ops import assembly as A
+from knpemi_tpu_torch.ops import p1op as P
 from knpemi_tpu_torch.sim import SolverOptions, build_idealized
 from knpemi_tpu_torch.solvers.gmres import gmres as tgmres
+from knpemi_tpu_torch.systems.knp import ion_operator_values
 
 from test_torch_slice import jax_simulation
 
@@ -54,6 +59,16 @@ def t(a, dtype=torch.float32):
 
 def ti(a):
     return torch.as_tensor(np.asarray(a), dtype=torch.int32)
+
+
+def k11(x, sub, w, dt_inv, D, zpsiD):
+    """K11 as the per-ion solve applies it: P_b assembled on the
+    subdomain's P1 operator, the drift values filled by K11f from w."""
+    op = P.P1Operator(sub.cells, sub.n_dofs, "cpu")
+    dtype = x.dtype
+    Pb, = ion_operator_values(op, sub.cells, sub.grads, sub.vols, dt_inv, [D], dtype)
+    Dr = P.drift_fill(op, t(sub.grads, dtype), t(sub.vols, dtype), w)
+    return P.knp_apply(x, op, Pb, Dr, zpsiD)
 
 
 def close(y, y_ref, tol):
@@ -86,9 +101,7 @@ def test_k11_knp_apply_vs_pallas(mesh):
         for dt_inv, D, zpsiD in SCALARS:
             y_jax = PA.knp_apply_blocked(jnp.asarray(x, jnp.float32), bk, g32, v32,
                                          drift, dt_inv, D, zpsiD, interpret=True)
-            y = A.knp_apply(t(x), ti(sub.cells), t(sub.grads), t(sub.vols), w,
-                            dt_inv, D, zpsiD)
-            close(y, y_jax, 1e-5)
+            close(k11(t(x), sub, w, dt_inv, D, zpsiD), y_jax, 1e-5)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -106,8 +119,7 @@ def test_k11_knp_apply_f64_vs_xla_one_matvec(mesh):
         w = A.ell_matvec(ti(gc), f64(gv), f64(phi)).reshape(sub.n_cells, -1)
         w_ref = JK.cell_gradients(J(phi), cells, J(sub.grads))
         for dt_inv, D, zpsiD in SCALARS:
-            y = A.knp_apply(f64(x), ti(sub.cells), f64(sub.grads), f64(sub.vols), w,
-                            dt_inv, D, zpsiD)
+            y = k11(f64(x), sub, w, dt_inv, D, zpsiD)
             y_ref = (JK.mass_apply(n, J(x), cells, J(sub.vols), dt_inv)
                      + JK.stiffness_apply(n, J(x), cells, J(sub.grads), J(sub.vols),
                                           coef_cell=D)
@@ -126,23 +138,30 @@ def test_k11_equals_k3_row_by_row(mesh, dtype, tol):
     geo = (ti(sub.cells), t(sub.grads, dtype), t(sub.vols, dtype), w)
     Y = A.knp_apply_batch(X, *geo, t(SCALARS, dtype))
     for b, scal in enumerate(SCALARS):
-        close(A.knp_apply(X[b].contiguous(), *geo, *scal), Y[b], tol)
+        close(k11(X[b].contiguous(), sub, w, *scal), Y[b], tol)
 
 
 def test_k11_wrapper_checks_inputs_and_counts_no_cpu_launch():
     sub = geometry("square12").subdomains[0]
+    op = P.P1Operator(sub.cells, sub.n_dofs, "cpu")
     x = t(np.ones(sub.n_dofs))
-    geo = (ti(sub.cells), t(sub.grads), t(sub.vols), t(np.zeros((sub.n_cells, 2))))
+    Pb, = ion_operator_values(op, sub.cells, sub.grads, sub.vols, 10.0, [1.0], torch.float32)
+    w = t(np.zeros((sub.n_cells, 2)))
     ops.reset_launch_counts()
-    y = A.knp_apply(x, *geo, 10.0, 1.0, 0.5)
-    assert torch.equal(y, A.knp_apply_plain(x, *geo, 10.0, 1.0, 0.5))
+    Dr = P.drift_fill(op, t(sub.grads), t(sub.vols), w)
+    assert torch.equal(Dr, P.drift_fill_plain(op, t(sub.grads), t(sub.vols), w))
+    y = P.knp_apply(x, op, Pb, Dr, 0.5)
+    assert torch.equal(y, P.knp_apply_plain(x, op, Pb, Dr, 0.5))
     assert ops.launch_counts()["K11 knp_apply"] == 0
+    assert ops.launch_counts()["K11f drift_fill"] == 0
     with pytest.raises(ValueError):
-        A.knp_apply(torch.stack([x, x]), *geo, 10.0, 1.0, 0.5)
+        P.knp_apply(torch.stack([x, x]), op, Pb, Dr, 0.5)
     with pytest.raises(ValueError):
-        A.knp_apply(x, geo[0], geo[1], geo[2], geo[3][:-1], 10.0, 1.0, 0.5)
+        P.knp_apply(x, op, Pb, Dr[:-1], 0.5)
+    with pytest.raises(ValueError):
+        P.drift_fill(op, t(sub.grads), t(sub.vols), w[:-1])
     with pytest.raises(TypeError):
-        A.knp_apply(x.double(), *geo, 10.0, 1.0, 0.5)
+        P.knp_apply(x.double(), op, Pb, Dr, 0.5)
 
 
 # ---------------------------------------------------------------------------

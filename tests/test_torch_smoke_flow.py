@@ -19,8 +19,8 @@ def test_flagship_is_fixed_at_full_width():
 
 
 def test_every_kernel_has_a_source_and_a_tpu_origin():
-    assert len(chip_smoke.KERNEL_SOURCES) == 12
-    assert set(chip_smoke.BATCHED_PATH) == set(chip_smoke.KERNEL_SOURCES) - {"K11"}
+    assert len(chip_smoke.KERNEL_SOURCES) == 14
+    assert set(chip_smoke.BATCHED_PATH) == set(chip_smoke.KERNEL_SOURCES) - {"K11", "K11f"}
     assert set(chip_smoke.CELL_KERNELS) < set(chip_smoke.ASSEMBLY)
 
 
