@@ -2,6 +2,13 @@
 """Smoke run of the PyTorch/CUDA port (knpemi_tpu_torch) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --step-profile ROOT   # the port's kernels in the
+                                                # flagship's step, for the
+                                                # package under ROOT
+
+The second form compares two trees in one call when run for each in
+turns (parent, change, change, parent): ``step_profile``'s device ms per
+step and per kernel of the port.  The rest of this text is the first.
 
 Phases, each printing JSON lines tagged with its number (the two
 multigrid paths run one after the other, so the lines of phases 1, 3
@@ -12,28 +19,34 @@ and 4 come in two groups):
 1. kernels: each of the fourteen hand-written kernels against its plain
    PyTorch version on the card, in float32 and float64 (K7/K8 on the
    packed windows, also with bfloat16 values) — the seven assembly
-   kernels of the batched step (K1 is the apply of a subdomain's
-   assembled P1 operator, K1f the fill of its values once per EMI
+   kernels of the batched step (K1 and K3 are applies of a subdomain's
+   assembled P1 operator, K1f the fill of K1's values once per EMI
    solve) at the shapes of the 3-D res-2 mesh, the five multigrid
    kernels at the shapes of the res-2 banded hierarchies' own operators
-   (EMI for K4/K5/K7, KNP tag 0 at B = 2 and once at B = 8 for
-   K6a/K6b/K8), and the single-ion KNP operator K11 (the same apply with
-   two value streams) and its drift fill K11f on every subdomain of the
-   astrocyte flagship and of the l = 4 box, K11 also row by row against
-   K3; before each of the three flagship runs, every kernel of the
-   batched step once more on that simulation's own operators:
-   K1/K1f/K3/K4 on each of its three subdomains (per-tag diffusion
-   coefficients), K2/K9/K10 on both membranes and, with mg_banded, K4-K8
-   on the layouts its four hierarchies took (K7/K8 on every banded
-   window of the EMI and first KNP hierarchies, by both routes of
-   reading x); device times (L2 flushed, by torch.profiler) of kernel,
-   plain version and the PyTorch call that computes the same function
-   (torch.mv / torch.sparse.mm on its CSR; for K1 and K11 the CSR of
-   the same P1 operator, for K2, K3 assembled from the port's host COO
-   helpers), beside the bound, and each call's time with the host's; K1
-   and K11 also with the bound of their nonzeros and that of the
-   earlier cell-loop formulation's bytes, and after phase 3 the cost
-   per solve (fill + applies) against the cell-loop kernels';
+   (EMI for K4/K5/K7, KNP tag 0 at B = 2 and once at B = 1 and 8 for
+   K6a/K6b/K8; K6a on the sliced form of a layout the batched cycle
+   applies), and the single-ion KNP
+   operator K11 (the same apply with two value streams) and its drift
+   fill K11f on every subdomain of the astrocyte flagship and of the
+   l = 4 box, K11 also row by row against K3; K3 on every subdomain of
+   both at B = 1, 2, 3, full and mass-only; K6a on every sliced layout of
+   the l = 4 box's KNP hierarchies; before each of the three flagship
+   runs, every kernel of the batched step once more on that
+   simulation's own operators: K1/K1f/K3/K4 on each of its three
+   subdomains (per-tag diffusion coefficients), K2/K9/K10 on both
+   membranes and, with mg_banded, K4-K8 on the layouts its four
+   hierarchies took (K7/K8 on every banded window of the EMI and first
+   KNP hierarchies, by both routes of reading x); device times (L2
+   flushed, by torch.profiler) of kernel, plain version and the PyTorch
+   call that computes the same function (torch.mv / torch.sparse.mm on
+   its CSR; for K1 and K11 the CSR of the same P1 operator, for K2, K3
+   assembled from the port's host COO helpers), the kernel's time from
+   100 calls replayed as one CUDA graph, beside the bound, and each
+   call's time with the host's; K1, K3 and K11 also with the bound of
+   their slots and that of the earlier cell-loop formulation's bytes;
+   after phase 3 the cost per solve (fill + applies) against the
+   cell-loop kernels' recorded times, with the recorded times of the
+   designs K3 and K6a replaced beside it (not measured in the run);
 2. parity: 2 float64 steps of the 3-D res-1 scenario on the GPU and on
    the CPU, with ELL and with banded multigrid — equal Krylov iteration
    counts on all four, phi_M within 1e-9 V and concentrations within
@@ -44,6 +57,13 @@ and 4 come in two groups):
    and 2 float64 steps of the astrocyte tissue scenario at mesh_n 20 on
    the GPU and on the CPU, ion-batched and per-ion — equal iteration
    counts GPU against CPU, phi_M within 1e-9 mV, c within 1e-9 relative;
+   and 6 float64 res-1 steps in chunks of 2 with the EMI hierarchy
+   refreshed every 2 steps (mg_refresh_every=2, synchronous), per
+   multigrid layout, GPU against CPU: iterations equal, the same gates,
+   2 refreshes installed and none skipped; and once more on the GPU with
+   the refresh on its worker thread (mg_refresh_async): at least one
+   installed, none skipped, no worker left, the same gates against the
+   synchronous GPU run;
 3. slice: the 3-D res-2 scenario (float32, g_syn_bar 10), 2 warm-up and
    10 timed steps, once per multigrid path (mg_banded=False, then
    mg_banded=True with the layout build_hierarchy chose per level);
@@ -68,7 +88,11 @@ and 4 come in two groups):
    per-ion run must launch K11 and K11f and launch K3 only for the
    right-hand side's mass term, and
    phi_M of the two runs at step 22 must agree within 1e-3 relative L2;
-   last the batched flagship with mg_banded=True for 12 + 5 steps;
+   last the batched flagship with mg_banded=True for 12 + 5 steps; the
+   timed legs keep mg_refresh_every off, and after the timed steps of
+   each batched run one refresh of the EMI hierarchy, its host payload
+   and its install timed, with one step's EMI iterations before and
+   after;
 4. profile, per res-2 path and per flagship run: the
    step's four phases timed by host clock over 2 steps, their kernel
    counts in one step, then 2 steps under
@@ -78,7 +102,7 @@ and 4 come in two groups):
 Then the kernel table as one JSON line of fourteen entries (the twelve
 kernels of the batched step from the long box, K11 and K11f from the
 per-ion flagship run), the cost per solve of the P1 operator's fill and
-applies, the card's name and power limit, and the last line
+applies (K1, K11, and K3 with its drift fill and mass term), the card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and the script exits non-zero without that line; it
 also exits non-zero when CUDA is unavailable or when the package is not
@@ -107,6 +131,13 @@ CELL_LOOP_MS = {"K1": 0.0601, "K11": 0.0592}
 CELL_LOOP_SOURCE = ("recorded, not measured in this run: PERF.md's kernel table, "
                     "the cell-loop kernels' device ms on an NVIDIA H100 80GB HBM3 "
                     "at 700 W")
+# device ms (L2 flushed) of the designs that K3 and K6a replaced, on the
+# kernel table's shapes (l = 4 box: K3 on tag 0 at B = 2, K6a on KNP tag 0
+# level 0's a_ellw at B = 2), as recorded in PERF.md's kernel table: K3's
+# cell loop read 0.0930 in one call and 0.0464 in the next, code unchanged
+EARLIER_MS = {"K3": [0.0464, 0.0930], "K6a": [0.0514]}
+EARLIER_SOURCE = ("recorded, not measured in this run: PERF.md's kernel table, the "
+                  "replaced designs' device ms on an NVIDIA H100 80GB HBM3 at 700 W")
 
 
 def emit(obj):
@@ -135,6 +166,38 @@ def cuda_ms(fn, reps: int = 100, warm: int = 5) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def graph_ms(fn, reps: int = 100) -> float:
+    """Device time per call of fn() from ``reps`` calls captured in one CUDA
+    graph and replayed (mean of 3 replays, by CUDA events): the kernels
+    back to back without the host's time between launches, the inputs in
+    whatever state the previous call leaves L2."""
+    import torch
+
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(stop) / (3 * reps)
 
 
 _FLUSH = {}  # the 256 MB buffer and the profiler keys of its kernel
@@ -303,6 +366,7 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
     gcols, gvals, phi = ks["grad_cols"], f(ks["grad_vals"]), 1e-3 * rnd(n)
     X, coef = rnd(Ns, n), f(ks["coef"])
     w = A.ell_matvec_plain(gcols, gvals, phi).reshape(nc, dim)
+    Dr = P.drift_fill_plain(op, grads, vols, w)  # K3's drift values for this w
     xm, fwv = rnd(n_mem), f(mb_e["wv"])
     Xm, V = rnd(F, n_mem), rnd(2 * Ns, nf, kf)
     csr = torch.sparse_csr_tensor(
@@ -329,7 +393,7 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
                    lambda csr: torch.mv(csr, xm))
     lib_k3 = _lazy(lambda: _knp_csr(cells, grads, vols, w, host(coef.double()), n, dtype),
                    lambda csr: torch.mv(csr, X.reshape(-1)).reshape(Ns, n))
-    k3_in = (X, cells, grads, vols, w, coef)
+    k3_in = (X, op, coef, f(ks["M"]), f(ks["kst"]), Dr)
     return [
         case("K1 emi_stiffness", P.emi_stiffness, P.emi_stiffness_plain, lib_k1,
              (x, op, vals), n, 2 * op.nnz,
@@ -345,12 +409,12 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
              shape=dict(nc=nc, slots=op.slots)),
         case("K2 facet_mass", A.facet_mass, A.facet_mass_plain, lib_k2,
              (xm, fd, fwv), n_mem, nf * 4 * kf),
-        case("K3 knp_apply_batch", A.knp_apply_batch, A.knp_apply_batch_plain, lib_k3,
-             k3_in, Ns * n,
-             nc * (2 * k * dim + Ns * (k + 2 * k * dim + k * (2 * dim + 10))),
+        case("K3 knp_apply_batch", P.knp_apply_batch, P.knp_apply_batch_plain, lib_k3,
+             k3_in, Ns * n, 2 * Ns * op.nnz * 4, **_k3_bytes(op, Ns, n, es, False),
              # K3 without its drift term, for the share the term carries
-             no_drift=lambda: A.knp_apply_batch_plain(
-                 *k3_in[:4], torch.zeros_like(w), coef)),
+             no_drift=lambda: P.knp_apply_batch_plain(*k3_in[:5], torch.zeros_like(Dr)),
+             # the drift fill (K11f) that precedes a solve's applies
+             also_time={"fill_ms": lambda: P.drift_fill(op, grads, vols, w)}),
         case("K4 ell_matvec", A.ell_matvec, A.ell_matvec_plain,
              lambda: torch.mv(csr, phi), (gcols, gvals, phi), gcols.shape[0],
              2 * gcols.numel()),
@@ -360,6 +424,74 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
              lambda *a: A.facet_scatter_plain(*a, n_mem), scat, (V, fd),
              2 * Ns * n_mem, 2 * Ns * nf * kf),
     ]
+
+
+def _k3_bytes(op, B: int, n: int, es: int, mass_only: bool) -> dict:
+    """K3's bytes: a column and three values (the mass-only apply: one)
+    per nonzero, X read and Y written once, coef; beside it the same by
+    the sliced ELL's slots with their padding, and the bytes of the
+    cell-loop formulation it replaced (cells, grads, vols, w; X, Y)."""
+    streams = 1 if mass_only else 3
+    vec = 2 * B * n * es + 3 * B * es
+    nc, k = op.cells.shape
+    dim = 2 if k == 3 else 3
+    return dict(nbytes=op.nnz * (4 + streams * es) + vec,
+                nbytes_slots=op.slots * (4 + streams * es) + _nbytes(op.slot_ptr) + vec,
+                bytes_cell_loop=nc * (4 * k + es * (k * dim + 1 + dim)) + vec,
+                shape=dict(n=n, nc=nc, B=B, nnz=op.nnz, slots=op.slots,
+                           slots_per_nonzero=op.slots / op.nnz, mass_only=mass_only))
+
+
+def k3_cases(sim, dtype, phi_scale: float, Bs=(1, 2, 3), timed=()):
+    """K3 on every subdomain of ``sim`` at B = ``Bs`` ions, the full apply
+    (the unit mass, the unit stiffness and the drift of a w = grad(phi)
+    formed by K4's plain version from a random phi of ``phi_scale``, 1 mV
+    in the scenario's unit) and the right-hand side's mass-only apply, each against its
+    plain version; ``timed``: the (tag, B, mass_only) to time.  Library:
+    torch.mv on the block-diagonal CSR of the same operator from the
+    port's host COO helpers."""
+    import torch
+
+    from knpemi_tpu_torch.ops import assembly as A
+    from knpemi_tpu_torch.ops import p1op as P
+
+    dev = sim.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+    es = torch.empty((), dtype=dtype).element_size()
+    host = lambda t: t.detach().cpu().numpy()
+    cases = []
+    for t, s in sim.knp_sys.sub.items():
+        op, grads, vols = s["op"], s["grads"].to(dtype), s["vols"].to(dtype)
+        nc, dim, n = op.cells.shape[0], grads.shape[-1], s["n_dofs"]
+        phi = phi_scale * rnd(n)
+        w = A.ell_matvec_plain(s["grad_cols"], s["grad_vals"].to(dtype), phi).reshape(nc, dim)
+        Dr = P.drift_fill_plain(op, grads, vols, w)
+        M, Kst = s["M"].to(dtype), s["kst"].to(dtype)
+        for B in Bs:
+            X = rnd(B, n)
+            coef = s["coef"].to(dtype)[torch.arange(B, device=dev) % s["coef"].shape[0]]
+            for mass_only in (False, True):
+                c = coef * torch.tensor([1.0, 0.0, 0.0], dtype=dtype, device=dev) \
+                    if mass_only else coef
+                args = (X, op, c, M) if mass_only else (X, op, c, M, Kst, Dr)
+                w_lib = torch.zeros_like(w) if mass_only else w
+                lib = _lazy(lambda op=op, grads=grads, vols=vols, w=w_lib, c=c, n=n: _knp_csr(
+                                op.cells, grads, vols, w, host(c.double()), n, dtype),
+                            lambda csr, X=X, n=n, B=B: torch.mv(csr, X.reshape(-1)).reshape(B, n))
+                case = dict(
+                    name="K3 knp_apply_batch",
+                    variant=f"tag {t} B={B}" + (" mass-only" if mass_only else ""),
+                    kern=lambda args=args: P.knp_apply_batch(*args),
+                    plain=lambda args=args: P.knp_apply_batch_plain(*args),
+                    lib=lib, ops=2 * B * op.nnz * (1 if mass_only else 4),
+                    time=(t, B, mass_only) in timed,
+                    **_k3_bytes(op, B, n, es, mass_only))
+                if not mass_only:
+                    case["no_drift"] = lambda args=args: P.knp_apply_batch_plain(
+                        *args[:5], torch.zeros_like(args[5]))
+                cases.append(case)
+    return cases
 
 
 def k11_cases(sim, dtype, phi_scale: float):
@@ -380,6 +512,7 @@ def k11_cases(sim, dtype, phi_scale: float):
 
     from knpemi_tpu_torch.ops import assembly as A
     from knpemi_tpu_torch.ops import p1op as P
+    from knpemi_tpu_torch.solvers import direct
     from knpemi_tpu_torch.systems.knp import ion_operator_values
 
     dev = sim.device
@@ -397,16 +530,23 @@ def k11_cases(sim, dtype, phi_scale: float):
         phi = phi_scale * rnd(n)
         w = A.ell_matvec_plain(s["grad_cols"], s["grad_vals"].to(dtype), phi).reshape(nc, dim)
         scal = [(1.0 / p.dt, ion.D[t], ion.z * p.psi * ion.D[t]) for ion in sim.ions[:-1]]
-        # from the geometry as the device holds it (in the run dtype), as K3 reads it
-        Pv = ion_operator_values(op, sim.geom.subdomains[t].cells,
-                                 grads.double().cpu().numpy(), vols.double().cpu().numpy(),
-                                 1.0 / p.dt, [sc[1] for sc in scal], dtype)
+        # from the geometry as the device holds it (in the run dtype), and
+        # K3's mass and stiffness streams from the same: the row-by-row
+        # check then compares the two applies, not two roundings of it
+        cells_h, gh, vh = (sim.geom.subdomains[t].cells, grads.double().cpu().numpy(),
+                           vols.double().cpu().numpy())
+        Pv = ion_operator_values(op, cells_h, gh, vh, 1.0 / p.dt, [sc[1] for sc in scal],
+                                 dtype)
+        M3 = P.mass_values(op, cells_h, vh, dtype)
+        K3s = torch.as_tensor(op.assemble(direct._stiffness_coo(cells_h, gh, vh)[2])[0],
+                              dtype=dtype, device=dev)
         Dr = P.drift_fill_plain(op, grads, vols, w)
         X = rnd(len(scal), n)
         geo = (cells, grads, vols, w)
         # K11 against K3, row by row
         coef_all = torch.tensor(scal, dtype=dtype, device=dev)
-        Y3 = A.knp_apply_batch(X, *geo, coef_all)
+        k3 = lambda X, c, op=op, M=M3, Kst=K3s, Dr=Dr: P.knp_apply_batch(X, op, c, M, Kst, Dr)
+        Y3 = k3(X, coef_all)
         for b, sc in enumerate(scal):
             y11 = P.knp_apply(X[b].contiguous(), op, Pv[b], Dr, sc[2])
             err, scale = float((y11 - Y3[b]).abs().max()), float(Y3[b].abs().max())
@@ -431,10 +571,8 @@ def k11_cases(sim, dtype, phi_scale: float):
                 # launch for all solved ions: what the batched solve pays
                 # where the per-ion solve pays one K11 launch per ion
                 also_time={
-                    "k3_b1_ms": lambda x=x, geo=geo, c=coef1:
-                        A.knp_apply_batch(x[None], *geo, c)[0],
-                    "k3_all_ions_ms": lambda X=X, geo=geo, c=coef_all:
-                        A.knp_apply_batch(X, *geo, c)},
+                    "k3_b1_ms": lambda x=x, k3=k3, c=coef1: k3(x[None], c)[0],
+                    "k3_all_ions_ms": lambda X=X, k3=k3, c=coef_all: k3(X, c)},
                 nbytes=op.nnz * (4 + 2 * es) + 2 * n * es,
                 nbytes_slots=op.slots * (4 + 2 * es) + _nbytes(op.slot_ptr) + 2 * n * es,
                 bytes_cell_loop=_nbytes(x, *geo) + n * es,
@@ -506,6 +644,34 @@ def _csr_of_ell(e, transpose: bool):
     A = torch.sparse_coo_tensor(idx[:, keep], e.vals.reshape(-1)[keep],
                                 (e.n_rows, e.n_cols)).coalesce()
     return (A.t().coalesce() if transpose else A).to_sparse_csr()
+
+
+def _csr_of_sliced(e):
+    """The sparse matrix a sliced-ELL device form stores, from its nonzero
+    slots, as a CSR on its device."""
+    import torch
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    keep = e.sval != 0
+    rows = TE._sliced_rows(e)[keep]
+    return torch.sparse_coo_tensor(torch.stack([rows, e.scol.long()[keep]]), e.sval[keep],
+                                   (e.n_rows, e.n_cols)).coalesce().to_sparse_csr()
+
+
+def _sliced_layouts(mgs, roles=("a", "p", "ap")):
+    """[(label, device ELLW)] of every layout with a sliced form (what K6a
+    reads) in the hierarchies ``mgs`` ({name: DeviceMG}), fine level and
+    roles a, p, ap first; a layout shared by two roles once."""
+    out, seen = [], set()
+    for name, mg in mgs.items():
+        for i, lv in enumerate(mg.levels):
+            for w in roles:
+                e = lv[f"{w}_ellw"]
+                if e is not None and e.slot_ptr is not None and id(e) not in seen:
+                    seen.add(id(e))
+                    out.append((f"{name} level {i} {w}_ellw", e))
+    return out
 
 
 def _csr_of_window(win, n, m, dtype):
@@ -639,12 +805,57 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
                                    packed_bytes=win.nbytes,
                                    source=f"{hname} level {i} {w}_band window {j}")))
 
+    def k6a_cases(mgs, Bs):
+        """K6a on the sliced form of the first batched windowed-ELL layout
+        of ``mgs`` or, with ``all_bands``, of every one."""
+        import numpy as np
+
+        layouts = _sliced_layouts(mgs)
+        if not layouts:
+            if as_built_only:
+                return
+            first = next(iter(mgs))
+            e, src = _ellw_case_source(mgs[first], dtype, ("a", "p", "ap"))
+            host = e.vals.cpu().numpy()
+            ptr, scol, sval, nnz = TE.sliced_ell(e.cols.cpu().numpy(), host, e.n_cols)
+            e = dataclasses.replace(
+                e, slot_ptr=torch.as_tensor(ptr.astype(np.int32), device=dev),
+                scol=torch.as_tensor(scol, dtype=e.cols.dtype, device=dev),
+                sval=torch.as_tensor(sval, device=dev), nnz=nnz, slot_ptr_host=ptr)
+            layouts = [(f"{first} {src}", e)]
+        for k, (src, e) in enumerate(layouts if all_bands else layouts[:1]):
+            e = dataclasses.replace(e, sval=e.sval.to(dtype))
+            csr = _csr_of_sliced(e)
+            rows = TE._sliced_rows(e)[e.sval != 0]
+            count = torch.bincount(rows, minlength=e.n_rows)[: e.n_rows].double()
+            slots = e.scol.numel()
+            for B in Bs:
+                X = rnd(B, e.n_cols)
+                vec = B * (e.n_cols + e.n_rows) * es
+                cases.append(dict(
+                    name="K6a ellw_matvec_batch", variant=f"B={B}",
+                    kern=lambda e=e, X=X: TE.ellw_matvec_batch(e, X),
+                    plain=lambda e=e, X=X: TE.ellw_matvec_batch_plain(e, X),
+                    lib=lambda X=X, csr=csr: torch.sparse.mm(csr, X.T),
+                    time=k == 0 and B == 2,
+                    nbytes=e.nnz * (4 + es) + vec, ops=2 * e.nnz * B,
+                    nbytes_slots=slots * (4 + es) + _nbytes(e.slot_ptr) + vec,
+                    bytes_padded=e.n_rows * e.K * (4 + es) + vec,
+                    shape=dict(rows=e.n_rows, cols=e.n_cols, K=e.K, nnz=e.nnz, slots=slots,
+                               mean_row=float(count.mean()), max_row=int(count.max()),
+                               slots_per_nonzero_row_major=e.n_rows * e.K / max(e.nnz, 1),
+                               slots_per_nonzero_sliced=slots / max(e.nnz, 1),
+                               row_major_kept=e.cols is not None, source=src)))
+
     kname = f"KNP tag {knp_tag}"
     if emi:
         ell_cases("K5 ellw_rmatvec", emi_mg, "EMI", ("pt",), TE.ellw_rmatvec,
                   TE.ellw_rmatvec_plain, True, (None,))
-    ell_cases("K6a ellw_matvec_batch", knp, kname, ("a", "p", "ap"),
-              TE.ellw_matvec_batch, TE.ellw_matvec_batch_plain, False, (2, 8))
+    knp_mgs = {kname: knp}
+    if all_bands:
+        knp_mgs.update({f"KNP tag {t}": mg for t, mg in sorted(sim.knp_solver.mg.items())
+                        if t != knp_tag})
+    k6a_cases(knp_mgs, (2, 1, 8))  # B = 2 first: the kernel table's row
     ell_cases("K6b ellw_rmatvec_batch", knp, kname, ("pt",), TE.ellw_rmatvec_batch,
               TE.ellw_rmatvec_batch_plain, True, (2, 8))
     if emi:
@@ -664,9 +875,11 @@ def check_cases(cases, dtype, time_them: bool):
     ``time=False``, kernel, routes, plain version and library call and
     compute the bound.  Times: ``ms``, ``plain_ms``, ``library_ms`` are
     device times with L2 flushed (:func:`device_ms`; the time per call by
-    CUDA events where the profiler sees no device time); ``call_ms`` and
-    ``library_call_ms`` the time per call of back-to-back calls by CUDA
-    events, the host's time between launches included."""
+    CUDA events where the profiler sees no device time); ``graph_ms`` the
+    kernel's time per call from 100 calls replayed as one CUDA graph
+    (:func:`graph_ms`); ``call_ms`` and ``library_call_ms`` the time per
+    call of back-to-back calls by CUDA events, the host's time between
+    launches included."""
     import torch
 
     dname = str(dtype).replace("torch.", "")
@@ -703,7 +916,7 @@ def check_cases(cases, dtype, time_them: bool):
             t_bytes = c["nbytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = c["ops"] / PEAK_FLOPS[dname] * 1e3
             row.update(
-                ms=dev_ms(c["kern"]), call_ms=cuda_ms(c["kern"]),
+                ms=dev_ms(c["kern"]), graph_ms=graph_ms(c["kern"]), call_ms=cuda_ms(c["kern"]),
                 plain_ms=dev_ms(c["plain"]),
                 library_ms=None if c["lib"] is None else dev_ms(c["lib"]),
                 library_call_ms=None if c["lib"] is None else cuda_ms(c["lib"], reps=20),
@@ -759,7 +972,7 @@ def check_all_operators(sim, dtype, time_them: bool):
             cases += mg_kernel_cases(sim, dtype, knp_tag=t, emi=i == 0,
                                      as_built_only=True, all_bands=i == 0)
         covered = {c["name"].split()[0] for c in cases}
-        missed = {k for k in reachable_kernels(sim) if k not in PER_ION} - covered
+        missed = {k for k in reachable_kernels(sim) if k not in K11_CASES} - covered
         if missed:
             raise AssertionError(f"no phase-1 case for {sorted(missed)}")
     return check_cases(cases, dtype, time_them)
@@ -957,16 +1170,19 @@ KERNEL_SOURCES = {
     "K11": ("cells", "knpemi_tpu/ops/pallas_assembly.py:397"),
     "K11f": ("cells", "knpemi_tpu/ops/pallas_assembly.py:397"),
 }
-ASSEMBLY = ("K1", "K1f", "K2", "K3", "K4", "K9", "K10")
-# the kernels of the per-ion KNP solve, and those of the ion-batched step
-PER_ION = ("K11", "K11f")
+# the assembly kernels of every step (K11f fills the drift of both KNP
+# branches), the per-ion KNP solve's own, and the ion-batched step's
+ASSEMBLY = ("K1", "K1f", "K2", "K3", "K4", "K9", "K10", "K11f")
+PER_ION = ("K11",)
 BATCHED_PATH = tuple(k for k in KERNEL_SOURCES if k not in PER_ION)
+# held by check_k11 on every subdomain, not by check_all_operators
+K11_CASES = ("K11", "K11f")
 
 
 def reachable_kernels(sim):
-    """K-numbers the step of ``sim`` can launch: the seven assembly kernels,
-    K11 and K11f on the per-ion KNP branch and, from the layouts its hierarchies
-    took, the multigrid ones (the per-ion branch runs the KNP V-cycles
+    """K-numbers the step of ``sim`` can launch: the eight assembly kernels
+    (K11f on both KNP branches), K11 on the per-ion branch and, from the
+    layouts its hierarchies took, the multigrid ones (the per-ion branch runs the KNP V-cycles
     on single vectors: K5/K7 in place of K6a/K6b/K8)."""
     out = set(ASSEMBLY)
     batched = sim.opts.knp_batched
@@ -1133,6 +1349,8 @@ def bf16_slab_steps(build_idealized, SolverOptions, n_steps: int = 5):
 
 
 MESH_N, FLAGSHIP_DOFS = 64, 840_015  # the flagship's width, dofs per step
+# the flagship's tuned solver options
+TUNED = dict(min_iter_knp=2, restart=8, rtol_knp=3e-6, rtol_emi=1e-5)
 
 
 def flagship(build_astrocyte, baseline, SolverOptions):
@@ -1150,7 +1368,6 @@ def flagship(build_astrocyte, baseline, SolverOptions):
 
     from knpemi_tpu_torch.sim.scenarios import K_E_INIT_A  # initial ECS K+, mM
 
-    tuned = dict(min_iter_knp=2, restart=8, rtol_knp=3e-6, rtol_emi=1e-5)
     config = {**baseline, "mesh_n": MESH_N}
     case = f"astrocyte tissue mesh_n {MESH_N} float32 tuned options"
     runs = {}
@@ -1165,7 +1382,7 @@ def flagship(build_astrocyte, baseline, SolverOptions):
         t0 = time.perf_counter()
         sim = build_astrocyte(
             config, dtype=torch.float32, device="cuda",
-            solver_options=SolverOptions(mg_banded=banded, knp_batched=batched, **tuned))
+            solver_options=SolverOptions(mg_banded=banded, knp_batched=batched, **TUNED))
         setup_s = time.perf_counter() - t0
         if (len(sim.geom.subdomains), len(sim.geom.membranes)) != (3, 2):
             raise AssertionError(f"{label}: expected 3 subdomains and 2 membranes")
@@ -1177,12 +1394,21 @@ def flagship(build_astrocyte, baseline, SolverOptions):
             k11_rows = check_k11(sim, torch.float32, True, phi_scale=1.0)
             rows["float32"] = rows["float32"] + k11_rows
             rows["float64"] += check_k11(sim, torch.float64, False, phi_scale=1.0)
+            # K3 on every subdomain at B = 1, 2, 3, full and mass-only
+            for dt, key in ((torch.float32, "float32"), (torch.float64, "float64")):
+                rows[key] += check_cases(k3_cases(sim, dt, 1.0), dt, time_them=False)
         emit(dict(phase=1, path=label, setup_seconds=setup_s, **rows,
                   seconds=time.perf_counter() - t1))
         del rows
         torch.cuda.empty_cache()
         rec = runs[label] = run_slice(sim, label, case, n_steps, setup_s, warm=warm,
                                       keep_at=10 if label == "flagship batched" else 0)
+        if batched:
+            # the timed legs ran without refreshes (mg_refresh_every 0, as
+            # the earlier flagship numbers did); now one, as the astrocyte
+            # script's cadence would make every 100 steps
+            emit(dict(phase=3, path=label, case="one EMI hierarchy refresh after the "
+                      "timed steps", **refresh_once(sim, rec["state"])))
         if rec["dofs_per_step"] != FLAGSHIP_DOFS:
             raise AssertionError(f"{label}: {rec['dofs_per_step']} dofs/step, "
                                  f"not {FLAGSHIP_DOFS}")
@@ -1199,17 +1425,15 @@ def flagship(build_astrocyte, baseline, SolverOptions):
         raise AssertionError("flagship per-ion: K3 must launch once per subdomain and "
                              f"step (the rhs mass term), got {per_ion['K3 knp_apply_batch']}")
     for label in ("flagship batched", "flagship banded"):
-        if launches[label]["K11 knp_apply"] or launches[label]["K11f drift_fill"]:
-            raise AssertionError(f"{label}: K11 or K11f launched on the batched branch")
+        if launches[label]["K11 knp_apply"]:
+            raise AssertionError(f"{label}: K11 launched on the batched branch")
     # the fills: once per solve and subdomain, i.e. per step and subdomain
-    if per_ion["K11f drift_fill"] != 3 * 10:
-        raise AssertionError("flagship per-ion: K11f must launch once per subdomain and "
-                             f"step, got {per_ion['K11f drift_fill']}")
     for label, steps in (("flagship batched", 20), ("flagship per-ion", 10),
                          ("flagship banded", 5)):
-        if launches[label]["K1f emi_fill"] != 3 * steps:
-            raise AssertionError(f"{label}: K1f must launch once per subdomain and step, "
-                                 f"got {launches[label]['K1f emi_fill']}")
+        for fill in ("K1f emi_fill", "K11f drift_fill"):
+            if launches[label][fill] != 3 * steps:
+                raise AssertionError(f"{label}: {fill} must launch once per subdomain and "
+                                     f"step, got {launches[label][fill]}")
     # both runs' states at step 22
     a, b = runs["flagship batched"]["kept"], runs["flagship per-ion"]["state"]
     if int(a.step) != 22 or int(b.step) != 22:
@@ -1226,7 +1450,158 @@ def flagship(build_astrocyte, baseline, SolverOptions):
     return k11_rows, launches
 
 
-def main() -> int:
+def refresh_once(sim, state):
+    """Simulation.refresh_mg split in its two halves on the flagship: the
+    host payload (assembly, refresh_hierarchy, refill arrays; what the
+    worker thread does) and the install (the copies into the device
+    tensors), each timed; the EMI iterations of one step from ``state``
+    before and after, and the peak device memory of the refresh.  Every
+    tensor of the EMI cycle must keep its storage."""
+    import torch
+
+    ptrs = [t.data_ptr() for t in sim.emi_solver.mg.tensors()]
+    before = sim.step(state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res, err = sim._refresh_payload({t: c.cpu().numpy() for t, c in state.c.items()})
+    t1 = time.perf_counter()
+    if res is None:
+        sim._skip_refresh(err)
+    else:
+        sim._install_refreshed(*res)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    if [t.data_ptr() for t in sim.emi_solver.mg.tensors()] != ptrs:
+        raise AssertionError("the refresh reallocated a tensor of the EMI cycle")
+    after = sim.step(state)
+    if not (bool(after.emi_ok) and bool(after.knp_ok)):
+        raise AssertionError("the step after the refresh did not converge")
+    return dict(payload_seconds=t1 - t0, install_seconds=t2 - t1,
+                refresh_counts=dict(sim.refresh_counts), skipped_reason=err,
+                refill_stats=sim.refresh_stats,
+                emi_iters_before=int(before.emi_iters), emi_iters_after=int(after.emi_iters),
+                knp_iters_before=int(before.knp_iters), knp_iters_after=int(after.knp_iters),
+                peak_device_bytes=peak)
+
+
+def parity_refresh(build_idealized, SolverOptions):
+    """6 float64 steps of the 3-D res-1 scenario in chunks of 2 with the EMI
+    hierarchy refreshed every 2 steps (synchronously), on the GPU and the
+    CPU, per multigrid layout: equal iteration counts, phi_M within 1e-9
+    V, c within 1e-9 relative, two refreshes installed and none skipped
+    on each."""
+    import torch
+
+    out = {}
+    for path, banded in (("ell", False), ("banded", True)):
+        states = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            sim = build_idealized(dim=3, resolution=1, g_syn_bar=10.0, dtype=torch.float64,
+                                  device=dev, solver_options=SolverOptions(
+                                      mg_banded=banded, mg_refresh_every=2,
+                                      mg_refresh_async=False))
+            s, it_e, it_k, ok = sim.run(sim.init_state(), 6, save_every=2)
+            out[f"{path}_{dev}"] = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
+                                        refresh_counts=dict(sim.refresh_counts),
+                                        seconds=time.perf_counter() - t0)
+            states[dev] = s
+            if (path, dev) == ("ell", "cuda"):
+                sync_state = s
+            if sim.refresh_counts != {"installed": 2, "skipped": 0} or not ok.all():
+                raise AssertionError(f"refresh {path}_{dev}: {out[f'{path}_{dev}']}")
+        g, c = out[f"{path}_cuda"], out[f"{path}_cpu"]
+        if g["emi_iters"] != c["emi_iters"] or g["knp_iters"] != c["knp_iters"]:
+            raise AssertionError(f"refresh {path}: iteration counts differ: {out}")
+        g, c = states["cuda"], states["cpu"]
+        dphi = max(float((g.phi_M[m].cpu() - c.phi_M[m]).abs().max()) for m in c.phi_M)
+        dc = max(max_rel(g.c[t].cpu(), c.c[t]) for t in c.c)
+        if not (dphi <= 1e-9 and dc <= 1e-9):
+            raise AssertionError(f"refresh {path}: GPU vs CPU: max|d phi_M| {dphi:.3e} V, "
+                                 f"max rel d c {dc:.3e} (gates 1e-9)")
+        out[f"{path}_max_abs_dphi_M_V"] = dphi
+        out[f"{path}_max_rel_dc"] = dc
+    out["ell_cuda_async"] = _async_refresh(build_idealized, SolverOptions, sync_state)
+    return out
+
+
+def _async_refresh(build_idealized, SolverOptions, sync_state):
+    """The same 6 steps on the GPU, ELL multigrid, with the refresh built on
+    the worker thread while the next chunk runs on the card and installed
+    at a chunk boundary: at least one refresh installed, none skipped,
+    every step converged, no worker thread left after ``run``; phi_M within
+    1e-9 V and c within 1e-9 relative of the synchronous GPU run (the
+    refreshed preconditioner may come a chunk later; the solves meet the
+    same tolerance)."""
+    import threading
+
+    import torch
+
+    t0 = time.perf_counter()
+    sim = build_idealized(dim=3, resolution=1, g_syn_bar=10.0, dtype=torch.float64,
+                          device="cuda", solver_options=SolverOptions(
+                              mg_refresh_every=2, mg_refresh_async=True))
+    s, it_e, it_k, ok = sim.run(sim.init_state(), 6, save_every=2)
+    workers = [t.name for t in threading.enumerate() if t.name.startswith("mg-refresh")]
+    counts = dict(sim.refresh_counts)
+    dphi = max(float((s.phi_M[m] - sync_state.phi_M[m]).abs().max()) for m in s.phi_M)
+    dc = max(max_rel(s.c[t], sync_state.c[t]) for t in s.c)
+    rec = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(), refresh_counts=counts,
+               workers_left=workers, max_abs_dphi_M_V_vs_sync=dphi, max_rel_dc_vs_sync=dc,
+               seconds=time.perf_counter() - t0)
+    if counts["installed"] < 1 or counts["skipped"] or workers or not ok.all():
+        raise AssertionError(f"async refresh: {rec}")
+    if not (dphi <= 1e-9 and dc <= 1e-9):
+        raise AssertionError(f"async refresh vs synchronous: {rec} (gates 1e-9)")
+    return rec
+
+
+def step_profile(warm: int = 12, steps: int = 2):
+    """The port's kernels inside the flagship's step, for the
+    ``knpemi_tpu_torch`` on ``sys.path``: batched and banded (float32, the
+    tuned options), ``warm`` steps, then ``steps`` under torch.profiler;
+    device ms per step, the iterations of the last step and, for every
+    kernel of the port (those in ``ops/csrc``), device ms and launches per
+    step.  Yields one record per run."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import knpemi_tpu_torch as kt
+
+    dev_t = lambda e: getattr(e, "self_device_time_total", 0) or 0
+    for banded in (False, True):
+        t0 = time.perf_counter()
+        sim = kt.build_astrocyte({**kt.ASTROCYTE_BASELINE, "mesh_n": MESH_N},
+                                 dtype=torch.float32,
+                                 solver_options=kt.SolverOptions(mg_banded=banded, **TUNED))
+        state, *_ = sim.run(sim.init_state(), warm)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                state = sim.step(state)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and not e.key.startswith("step/")]
+        yield dict(package=str(Path(kt.__file__).parent), mg_banded=banded,
+                   steps=[warm + 1, warm + steps],
+                   device_kernel_ms_per_step=sum(dev_t(e) for e in events) / 1e3 / steps,
+                   emi_iters=int(state.emi_iters), knp_iters=int(state.knp_iters),
+                   port_kernels={e.key[:90]: [dev_t(e) / 1e3 / steps, e.count / steps]
+                                 for e in events
+                                 if e.key.startswith("void (anonymous namespace)::")},
+                   seconds=time.perf_counter() - t0)
+        del sim, state
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    """No arguments: the smoke run.  ``--step-profile ROOT``: only
+    :func:`step_profile` for the package under ROOT (a checkout of this
+    or another commit); run it for two trees in turns to compare them in
+    one call."""
     try:
         import torch
     except ImportError:
@@ -1235,18 +1610,31 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
+    argv = sys.argv[1:] if argv is None else argv
     repo = Path(__file__).resolve().parent
-    if not (repo / "knpemi_tpu_torch").is_dir():
-        print("chip_smoke: knpemi_tpu_torch/ is not beside this script",
-              file=sys.stderr)
+    profile_root = None
+    if argv[:1] == ["--step-profile"]:
+        if len(argv) != 2:
+            print("usage: chip_smoke.py [--step-profile ROOT]", file=sys.stderr)
+            return 2
+        profile_root = Path(argv[1]).resolve()
+    root = profile_root or repo
+    if not (root / "knpemi_tpu_torch").is_dir():
+        print(f"chip_smoke: knpemi_tpu_torch/ is not in {root}", file=sys.stderr)
         return 1
-    sys.path.insert(0, str(repo))
+    sys.path.insert(0, str(root))
     from knpemi_tpu_torch.ops import _build
     from knpemi_tpu_torch.sim import (
         ASTROCYTE_BASELINE, SolverOptions, build_astrocyte, build_idealized,
     )
 
     smi = smi_line()
+    if profile_root is not None:
+        _build.build()
+        for rec in step_profile():
+            emit(dict(phase="step_profile", **rec))
+        print(smi, flush=True)
+        return 0
     kind = torch.cuda.get_device_name(0)
     # -- phase 0: device and build ------------------------------------------
     t0 = time.perf_counter()
@@ -1299,11 +1687,15 @@ def main() -> int:
     rows32 = (check_kernels(sim, torch.float32, time_them=True)
               + check_mg_kernels(sim, torch.float32, time_them=True, all_bands=True)
               + p1_elsewhere(torch.float32)
-              + check_k11(sim, torch.float32, False, phi_scale=1e-3))
+              + check_k11(sim, torch.float32, False, phi_scale=1e-3)
+              + check_cases(k3_cases(sim, torch.float32, 1e-3, timed={(0, 2, True)}),
+                            torch.float32, time_them=True))
     r64 = (check_kernels(sim, torch.float64, time_them=False)
            + check_mg_kernels(sim, torch.float64, time_them=False, all_bands=True)
            + p1_elsewhere(torch.float64)
-           + check_k11(sim, torch.float64, False, phi_scale=1e-3))
+           + check_k11(sim, torch.float64, False, phi_scale=1e-3)
+           + check_cases(k3_cases(sim, torch.float64, 1e-3), torch.float64,
+                         time_them=False))
     emit(dict(phase=1, path="mg_banded=True l=4", setup_seconds=setup_s,
               float32=rows32, float64=r64, seconds=time.perf_counter() - t1))
     torch.cuda.empty_cache()
@@ -1321,6 +1713,10 @@ def main() -> int:
     t0 = time.perf_counter()
     par = parity(build_idealized, SolverOptions)
     emit(dict(phase=2, case="3-D res 1 float64", **par,
+              seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    emit(dict(phase=2, case="3-D res 1 float64, EMI hierarchy refreshed every 2 steps",
+              **parity_refresh(build_idealized, SolverOptions),
               seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     emit(dict(phase=2, case="3-D res 1 float32 mg_banded=True, fine slab dtype",
@@ -1361,7 +1757,22 @@ def main() -> int:
             recorded_cell_loop_ms=applies * CELL_LOOP_MS[k],
             recorded_cell_loop_source=CELL_LOOP_SOURCE,
             bound_ms=rf["bound_ms"] + applies * r["bound_ms"])
-    emit(dict(phase=1, case="P1 operator per solve: fill + applies", per_solve=per_solve))
+    # the batched KNP solve of one subdomain: one drift fill (K11f, timed on
+    # the K3 row's subdomain), the GMRES applies of K3 and the right-hand
+    # side's mass-only K3; per step and subdomain one fill and one mass term
+    name, r = by_k["K3"]
+    mass = next(x for x in rows32 if x["name"] == name and "mass-only" in x.get("variant", "")
+                and "ms" in x)
+    runs = launches["long box"]
+    applies = runs[name] / runs["K11f drift_fill"] - 1.0
+    per_solve["K3"] = dict(
+        path="long box", applies_per_fill=applies, fill_ms=r["fill_ms"], apply_ms=r["ms"],
+        mass_only_ms=mass["ms"], ms=r["fill_ms"] + applies * r["ms"] + mass["ms"],
+        recorded_cell_loop_ms=[(applies + 1.0) * e for e in EARLIER_MS["K3"]],
+        recorded_cell_loop_source=EARLIER_SOURCE,
+        bound_ms_applies=applies * r["bound_ms"] + mass["bound_ms"])
+    emit(dict(phase=1, case="P1 operator per solve: fill + applies", per_solve=per_solve,
+              recorded_earlier_ms=EARLIER_MS, recorded_earlier_source=EARLIER_SOURCE))
     emit({"kernels": [
         dict(name=name, route="cuda",
              source=f"knpemi_tpu_torch/ops/csrc/{KERNEL_SOURCES[name.split()[0]][0]}.cu",
@@ -1376,9 +1787,9 @@ def main() -> int:
              bound_ms=r["bound_ms"], bound_by=r["bound_by"],
              library_ms=r["library_ms"], variant=r.get("variant"),
              shape=r.get("shape"), bytes_padded=r.get("bytes_padded"),
-             **{k: r[k] for k in ("call_ms", "library_call_ms", "ms_staged", "ms_l2",
-                                  "dense_slab_bound_ms", "bound_slots_ms",
-                                  "cell_loop_bound_ms", "k3_b1_ms") if k in r})
+             **{k: r[k] for k in ("graph_ms", "call_ms", "library_call_ms", "ms_staged",
+                                  "ms_l2", "dense_slab_bound_ms", "bound_slots_ms",
+                                  "cell_loop_bound_ms", "k3_b1_ms", "fill_ms") if k in r})
         for name, r in sorted(first.items(),
                               key=lambda kv: list(KERNEL_SOURCES).index(kv[0].split()[0]))
     ]})

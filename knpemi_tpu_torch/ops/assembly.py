@@ -8,20 +8,19 @@ On a CUDA tensor it launches or raises; there is no fallback.  Every
 wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``) and checks device, dtype, shape and contiguity.
 
-Here: K3 (the batched KNP operator), K4 (ELL SpMV of the frozen dof ->
-cell coefficient maps), K2, K9, K10 (membrane facets).  K1 and K11, the
-EMI and single-ion KNP operators, are applied as an assembled P1
-operator by :mod:`.p1op`; the multigrid kernels are in :mod:`.ell` and
+Here: K4 (ELL SpMV of the frozen dof -> cell coefficient maps), K2, K9,
+K10 (membrane facets).  K1, K3 and K11, the EMI, ion-batched KNP and
+single-ion KNP operators, are applied as an assembled P1 operator by
+:mod:`.p1op`; the multigrid kernels are in :mod:`.ell` and
 :mod:`.banded`.
 
 The JAX package's TPU kernels compute the same operators through one-hot
 MXU products, bf16 split passes, 128-lane alignment, Morton windows and
 an XLA tail of outlier cells (``knpemi_tpu/ops/pallas_assembly.py:1-36``,
 ``pallas_ell.py:1-42``) — all of it a way around slow random gathers on
-the TPU.  On Hopper a gather is a load: K3 and the facet kernels take one
-thread per cell or facet, which reads its k vertex values, does a few
-dozen flops in registers and atomically adds k results; K4 takes one
-thread per row.  None of the kernels does enough arithmetic per byte to
+the TPU.  On Hopper a gather is a load: the facet kernels take one
+thread per facet, which reads its k vertex values, does a few flops in
+registers and atomically adds k results; K4 takes one thread per row.  None of the kernels does enough arithmetic per byte to
 be compute-bound; the least time each can take is the bytes it must
 move over the card's 3.35 TB/s.
 
@@ -47,8 +46,6 @@ _c_ptr = ctypes.c_void_p
 
 # C signatures of ops/csrc/*.cu: (library, entry point, argument types)
 _SIGS = {
-    "knp_apply_batch": ("cells", "knp_knp_apply_batch",
-                        [_c_int] + [_c_ptr] * 7 + [_c_int] * 5 + [_c_ptr]),
     "ell_matvec": ("cells", "knp_ell_matvec",
                    [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
     "facet_mass": ("facets", "knp_facet_mass",
@@ -60,6 +57,8 @@ _SIGS = {
     # ops/p1op.py
     "p1_apply": ("cells", "knp_p1_apply",
                  [_c_int] + [_c_ptr] * 6 + [ctypes.c_double] * 2 + [_c_int, _c_ptr]),
+    "p1_apply_batch": ("cells", "knp_p1_apply_batch",
+                       [_c_int] + [_c_ptr] * 8 + [_c_int] * 2 + [_c_ptr]),
     "emi_fill": ("cells", "knp_emi_fill",
                  [_c_int] + [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr]),
     "drift_fill": ("cells", "knp_drift_fill",
@@ -67,8 +66,8 @@ _SIGS = {
     # ops/ell.py and ops/banded.py
     "ell_rmatvec": ("mg", "knp_ell_rmatvec",
                     [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
-    "ell_matvec_batch": ("mg", "knp_ell_matvec_batch",
-                         [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]),
+    "sliced_matvec_batch": ("mg", "knp_sliced_matvec_batch",
+                            [_c_int] + [_c_ptr] * 5 + [_c_int] * 3 + [_c_ptr]),
     "ell_rmatvec_batch": ("mg", "knp_ell_rmatvec_batch",
                           [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]),
     "banded_matvec": ("mg", "knp_banded_matvec",
@@ -132,58 +131,6 @@ def _check_value(x: torch.Tensor, name: str):
 def _check_mesh(k: int, dim: int):
     if (k, dim) not in ((4, 3), (3, 2)):
         raise ValueError(f"cells must be triangles or tetrahedra, got k={k}, dim={dim}")
-
-
-# ---------------------------------------------------------------------------
-# K3: batched KNP operator
-# ---------------------------------------------------------------------------
-def knp_apply_batch_plain(X, cells, grads, vols, w, coef):
-    c = cells.long()
-    n = X.shape[1]
-    return torch.stack([
-        coef[b, 0] * K.mass_apply(n, x, c, vols)
-        + coef[b, 1] * K.stiffness_apply(n, x, c, grads, vols)
-        + coef[b, 2] * K.drift_apply(n, x, c, grads, vols, w)
-        for b, x in enumerate(X)
-    ])
-
-
-def knp_apply_batch(X, cells, grads, vols, w, coef):
-    """K3.  For every row b of X (one solved ion),
-    y_b = dt_inv_b M x_b + D_b K x_b + zpsiD_b Drift(w) x_b with M the P1
-    mass, K the P1 stiffness and Drift the P1 drift along the per-cell
-    vector w = grad(phi).  ``coef`` rows are [dt_inv, D, z psi D]; the
-    KNP right-hand side's mass term is the call with D = z = 0.
-
-    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_knp_kernel_batch``
-    (via ``knp_apply_blocked_batch``).  Bound on the H100: bytes — X,
-    cells, grads, vols, w, coef read once, Y written once
-    (``csrc/cells.cu``).  Design: one thread per cell reads the cell's
-    geometry and w once and loops over the B rows inside the thread.
-
-    X (B, n), cells (nc, k), grads (nc, k, dim), vols (nc,), w (nc, dim),
-    coef (B, 3) -> Y (B, n)."""
-    _check_value(X, "X")
-    B, n = X.shape
-    nc, k = cells.shape
-    dim = grads.shape[-1]
-    _check_mesh(k, dim)
-    _check(cells, "cells", X, index=True)
-    _check(grads, "grads", X, (nc, k, dim))
-    _check(vols, "vols", X, (nc,))
-    _check(w, "w", X, (nc, dim))
-    _check(coef, "coef", X, (B, 3))
-    if not X.is_cuda:
-        return knp_apply_batch_plain(X, cells, grads, vols, w, coef)
-    Y = torch.zeros_like(X)
-    _launch("knp_apply_batch", X, X.data_ptr(), cells.data_ptr(),
-            grads.data_ptr(), vols.data_ptr(), w.data_ptr(),
-            coef.data_ptr(), Y.data_ptr(), nc, n, B, k, dim)
-    knp_apply_batch.launches += 1
-    return Y
-
-
-knp_apply_batch.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -376,7 +323,6 @@ facet_scatter.launches = 0
 # every module's table
 KERNELS = {
     "K2 facet_mass": (facet_mass, facet_mass_plain),
-    "K3 knp_apply_batch": (knp_apply_batch, knp_apply_batch_plain),
     "K4 ell_matvec": (ell_matvec, ell_matvec_plain),
     "K9 facet_gather": (facet_gather, facet_gather_plain),
     "K10 facet_scatter": (facet_scatter, facet_scatter_plain),

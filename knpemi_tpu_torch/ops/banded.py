@@ -37,6 +37,7 @@ in float64.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -63,7 +64,8 @@ class PackedWindow:
     the bits of the uint16 column offset in the block's window; val
     (slots,) storage type; w0 (NB,) index: the window starts; W, R: the
     window width and the rows per block; nnz: the slab's nonzeros (the
-    other slots are padding)."""
+    other slots are padding); slot_ptr_host: slot_ptr in numpy, the
+    frozen shape a value refill keeps (:func:`repack_window`)."""
 
     slot_ptr: torch.Tensor
     off: torch.Tensor
@@ -72,6 +74,7 @@ class PackedWindow:
     W: int
     R: int
     nnz: int
+    slot_ptr_host: Optional[np.ndarray] = None
 
     @property
     def NB(self) -> int:
@@ -83,11 +86,12 @@ class PackedWindow:
                    for t in (self.slot_ptr, self.off, self.val, self.w0))
 
 
-def pack_window(slabT, w0, W: int, slab_dtype, device) -> PackedWindow:
-    """The packed form of one host window ``(slabT (NB*W, R), w0 (NB,),
-    W)`` of :func:`~knpemi_tpu_torch.solvers.mg._csr_to_banded`, values in
-    ``slab_dtype`` on ``device``.  Built in numpy in one pass over the
-    slab's nonzeros; the slab itself is not uploaded."""
+def _pack(slabT, W: int, slot_ptr=None):
+    """The packed arrays of a host slab (see :func:`pack_window`):
+    ``(slot_ptr int64, off uint16, val, nnz, dropped, dropped_mass)``.
+    With ``slot_ptr`` given (a frozen shape) a row with more nonzeros than
+    its slice holds keeps its largest |values| and drops the others,
+    ``dropped`` of them with ``dropped_mass`` of |value| in all."""
     slabT = np.asarray(slabT)
     rows, R = slabT.shape
     if R <= 0 or R % SLICE or R > 1024:
@@ -105,11 +109,29 @@ def pack_window(slabT, w0, W: int, slab_dtype, device) -> PackedWindow:
     order = np.argsort(row, kind="stable")
     row, w, vals = row[order], w[order], vals[order]
     count = np.bincount(row, minlength=NB * R)
-    K = count.reshape(-1, SLICE).max(axis=1)
-    slot_ptr = np.zeros(K.shape[0] + 1, np.int64)
-    np.cumsum(SLICE * K, out=slot_ptr[1:])
-    if slot_ptr[-1] >= 1 << 31:
-        raise ValueError(f"{slot_ptr[-1]} slots: more than an int32 can address")
+    dropped, dropped_mass = 0, 0.0
+    if slot_ptr is None:
+        K = count.reshape(-1, SLICE).max(axis=1)
+        slot_ptr = np.zeros(K.shape[0] + 1, np.int64)
+        np.cumsum(SLICE * K, out=slot_ptr[1:])
+        if slot_ptr[-1] >= 1 << 31:
+            raise ValueError(f"{slot_ptr[-1]} slots: more than an int32 can address")
+    else:
+        slot_ptr = np.asarray(slot_ptr, np.int64)
+        if slot_ptr.shape != (NB * R // SLICE + 1,):
+            raise ValueError("the frozen slot_ptr does not describe NB*R/32 slices")
+        cap = np.repeat(np.diff(slot_ptr) // SLICE, SLICE)
+        if (count > cap).any():
+            # each overfull row keeps its cap largest |values|, in column order
+            first = np.cumsum(count) - count
+            rank = np.empty_like(row)
+            by_mag = np.lexsort((-np.abs(vals), row))
+            rank[by_mag] = np.arange(row.shape[0]) - first[row[by_mag]]
+            keep = rank < cap[row]
+            dropped = int((~keep).sum())
+            dropped_mass = float(np.abs(vals[~keep]).sum())
+            row, w, vals = row[keep], w[keep], vals[keep]
+            count = np.bincount(row, minlength=NB * R)
     first = np.cumsum(count) - count  # each row's first nonzero in `row`
     pos = np.arange(row.shape[0]) - first[row]
     slot = slot_ptr[row // SLICE] + pos * SLICE + row % SLICE
@@ -117,14 +139,35 @@ def pack_window(slabT, w0, W: int, slab_dtype, device) -> PackedWindow:
     off[slot] = w
     val = np.zeros(slot_ptr[-1], slabT.dtype)
     val[slot] = vals
+    return slot_ptr, off, val, int(row.shape[0]), dropped, dropped_mass
+
+
+def pack_window(slabT, w0, W: int, slab_dtype, device) -> PackedWindow:
+    """The packed form of one host window ``(slabT (NB*W, R), w0 (NB,),
+    W)`` of :func:`~knpemi_tpu_torch.solvers.mg._csr_to_banded`, values in
+    ``slab_dtype`` on ``device``.  Built in numpy in one pass over the
+    slab's nonzeros; the slab itself is not uploaded."""
+    slot_ptr, off, val, nnz, _, _ = _pack(slabT, W)
     return PackedWindow(
         slot_ptr=torch.as_tensor(slot_ptr.astype(np.int32), device=device),
         off=torch.as_tensor(off.view(np.int16), device=device),
         # uploaded as built (the run dtype), cast on the device
         val=torch.as_tensor(val, device=device).to(slab_dtype),
         w0=torch.as_tensor(w0, dtype=A.index_dtype(device), device=device),
-        W=int(W), R=int(R), nnz=int(flat.shape[0]),
+        W=int(W), R=int(np.shape(slabT)[1]), nnz=nnz, slot_ptr_host=slot_ptr,
     )
+
+
+def repack_window(win: PackedWindow, slabT):
+    """A refreshed slab of the same window geometry packed into ``win``'s
+    frozen shape: ``([(win.off, off), (win.val, val)], dropped,
+    dropped_mass)``, host arrays to copy into the device tensors.  A
+    nonzero the slice has no slot for (float32 rounding creates and
+    destroys exact zeros of the slab) is dropped, the row's smallest
+    first, and counted: the caller holds the dropped |value| mass against
+    its guard."""
+    _, off, val, _, dropped, mass = _pack(slabT, win.W, win.slot_ptr_host)
+    return [(win.off, off.view(np.int16)), (win.val, val)], dropped, mass
 
 
 def _slot_rows(win: PackedWindow) -> torch.Tensor:

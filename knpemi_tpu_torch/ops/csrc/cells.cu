@@ -1,6 +1,6 @@
 // Cell kernels for Hopper (sm_90a): the P1 operator of a subdomain
-// (the K1 / K11 apply and the K1f / K11f fills), K3 (batched KNP
-// operator) and K4 (ELL SpMV of the frozen dof -> cell coefficient maps).
+// (the K1 / K11 apply, the ion-batched K3 apply and the K1f / K11f
+// fills) and K4 (ELL SpMV of the frozen dof -> cell coefficient maps).
 // Plain C interface, loaded with ctypes by knpemi_tpu_torch/ops/p1op.py
 // and ops/assembly.py, which hold the plain PyTorch version of each
 // kernel, the input checks and the launch counters.
@@ -28,71 +28,6 @@ constexpr int kThreads = 256;
 
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-}
-
-// K3: for every ion row b,
-//   y_b[v_i] += dt_inv_b vol/(K(K+1)) (sum_j x_j + x_i)
-//             + D_b vol g_i . (sum_j g_j x_j)
-//             + zpsiD_b vol (sum_j x_j / K) (w_c . g_i)
-// with the cell's geometry and grad(phi) read once for all B rows.
-template <typename T, int K, int D>
-__global__ void knp_apply_batch_kernel(const T* __restrict__ X,
-                                       const int* __restrict__ cells,
-                                       const T* __restrict__ grads,
-                                       const T* __restrict__ vols,
-                                       const T* __restrict__ w,
-                                       const T* __restrict__ coef,
-                                       T* __restrict__ Y, int nc, int n,
-                                       int B) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= nc) return;
-  int v[K];
-  T g[K][D];
-  T wg[K];
-  T wc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) wc[d] = w[static_cast<int64_t>(c) * D + d];
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    v[i] = cells[static_cast<int64_t>(c) * K + i];
-    wg[i] = T(0);
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      g[i][d] = grads[(static_cast<int64_t>(c) * K + i) * D + d];
-      wg[i] += wc[d] * g[i][d];
-    }
-  }
-  const T vol = vols[c];
-  const T mw = vol / T(K * (K + 1));
-  for (int b = 0; b < B; ++b) {
-    const T* x = X + static_cast<int64_t>(b) * n;
-    T* y = Y + static_cast<int64_t>(b) * n;
-    const T dt_inv = coef[3 * b];
-    const T Dk = coef[3 * b + 1];
-    const T zpsiD = coef[3 * b + 2];
-    T xe[K];
-    T xsum = T(0);
-    T gx[D];
-#pragma unroll
-    for (int d = 0; d < D; ++d) gx[d] = T(0);
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      xe[i] = x[v[i]];
-      xsum += xe[i];
-#pragma unroll
-      for (int d = 0; d < D; ++d) gx[d] += xe[i] * g[i][d];
-    }
-    const T xbar = xsum / T(K);
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      T s = T(0);
-#pragma unroll
-      for (int d = 0; d < D; ++d) s += gx[d] * g[i][d];
-      const T ye = dt_inv * (mw * (xsum + xe[i])) + (Dk * vol) * s +
-                   (zpsiD * vol) * (xbar * wg[i]);
-      atomicAdd(&y[v[i]], ye);
-    }
-  }
 }
 
 // The P1 operator's apply, K1 (one value stream) and K11 (two), in the
@@ -151,6 +86,68 @@ __global__ void p1_apply_kernel(const int* __restrict__ slot_ptr,
     }
   }
   y[r] = TWO ? a * acc1 + b * acc2 : a * acc1;
+}
+
+// K3: the ion-batched KNP operator on the P1 operator, three value
+// streams in the row-sum form -- the unit mass M, the unit stiffness Kst
+// and the drift Dr of this solve -- and per ion b the scalars
+// coef[3b .. 3b+2] = (1/dt, D_b, z_b psi D_b):
+//   y_b[r] = sum_s v_b[s] t_b[s],  v_b = c0 M + c1 Kst + c2 Dr,
+//   t_b[s] = x_b[r] at the diagonal slot, x_b[col[s]] - x_b[r] else.
+// MASS_ONLY (the right-hand side's (1/dt) M c) reads M alone.  One
+// thread per row as in p1_apply_kernel; each slot's column and values
+// are read once for all B ions, the value of ion b formed in registers,
+// B accumulators.  Replaces _make_knp_kernel_batch
+// (knpemi_tpu/ops/pallas_assembly.py:444), whose scalars sit in SMEM;
+// here they are loaded once per thread.  Bound by bytes: a column and
+// three values (one) per slot, X and Y.
+template <typename T, int B, bool MASS_ONLY>
+__global__ void __launch_bounds__(kThreads)
+p1_apply_batch_kernel(const int* __restrict__ slot_ptr,
+                      const int* __restrict__ col,
+                      const T* __restrict__ vm, const T* __restrict__ vk,
+                      const T* __restrict__ vd, const T* __restrict__ coef,
+                      const T* __restrict__ X, T* __restrict__ Y, int n) {
+  constexpr int IN_FLIGHT = 4;
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int end = __ldg(slot_ptr + (r >> 5) + 1);
+  T c0[B], c1[B], c2[B], xr[B], acc[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) {
+    c0[b] = __ldg(coef + 3 * b);
+    c1[b] = MASS_ONLY ? T(0) : __ldg(coef + 3 * b + 1);
+    c2[b] = MASS_ONLY ? T(0) : __ldg(coef + 3 * b + 2);
+    xr[b] = __ldg(X + static_cast<int64_t>(b) * n + r);
+    acc[b] = T(0);
+  }
+  for (int s0 = __ldg(slot_ptr + (r >> 5)) + (r & 31); s0 < end;
+       s0 += IN_FLIGHT * 32) {
+    int c[IN_FLIGHT];
+    T m[IN_FLIGHT], k[IN_FLIGHT], d[IN_FLIGHT];
+#pragma unroll
+    for (int u = 0; u < IN_FLIGHT; ++u) {
+      const int s = s0 + u * 32;
+      const bool in = s < end;
+      c[u] = in ? __ldg(col + s) : r;
+      m[u] = in ? __ldg(vm + s) : T(0);
+      k[u] = (!MASS_ONLY && in) ? __ldg(vk + s) : T(0);
+      d[u] = (!MASS_ONLY && in) ? __ldg(vd + s) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < IN_FLIGHT; ++u) {
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        const T xv = __ldg(X + static_cast<int64_t>(b) * n + c[u]);
+        const T t = c[u] == r ? xr[b] : xv - xr[b];
+        const T v = MASS_ONLY ? c0[b] * m[u]
+                              : fma_t(c0[b], m[u], fma_t(c1[b], k[u], c2[b] * d[u]));
+        acc[b] = fma_t(v, t, acc[b]);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < B; ++b) Y[static_cast<int64_t>(b) * n + r] = acc[b];
 }
 
 // The K*K slot positions of cell c (one byte each; one 16-byte load for
@@ -278,6 +275,39 @@ int p1_apply_t(const int* slot_ptr, const int* col, const void* v1,
 }
 
 template <typename T>
+int p1_apply_batch_t(const int* slot_ptr, const int* col, const void* vm,
+                     const void* vk, const void* vd, const void* coef,
+                     const void* X, void* Y, int n, int nb, cudaStream_t s) {
+  const T* m = static_cast<const T*>(vm);
+  const T* k = static_cast<const T*>(vk);
+  const T* d = static_cast<const T*>(vd);
+  const T* c = static_cast<const T*>(coef);
+  const T* x = static_cast<const T*>(X);
+  T* y = static_cast<T*>(Y);
+  const bool mass_only = vk == nullptr;
+#define CALL(BB)                                                             \
+  if (mass_only)                                                             \
+    p1_apply_batch_kernel<T, BB, true><<<blocks_for(n), kThreads, 0, s>>>(   \
+        slot_ptr, col, m, k, d, c, x, y, n);                                 \
+  else                                                                       \
+    p1_apply_batch_kernel<T, BB, false><<<blocks_for(n), kThreads, 0, s>>>(  \
+        slot_ptr, col, m, k, d, c, x, y, n)
+  switch (nb) {
+    case 1: CALL(1); break;
+    case 2: CALL(2); break;
+    case 3: CALL(3); break;
+    case 4: CALL(4); break;
+    case 5: CALL(5); break;
+    case 6: CALL(6); break;
+    case 7: CALL(7); break;
+    case 8: CALL(8); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef CALL
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
 int emi_fill_t(const int* cells, const uint8_t* pos, const int* slot_ptr,
                const void* grads, const void* wv, void* vals, int nc, int k,
                int dim, cudaStream_t s) {
@@ -314,28 +344,6 @@ int drift_fill_t(const int* cells, const uint8_t* pos, const int* slot_ptr,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int knp_apply_batch_t(const void* X, const int* cells, const void* grads,
-                      const void* vols, const void* w, const void* coef,
-                      void* Y, int nc, int n, int B, int k, int dim,
-                      cudaStream_t s) {
-  const T* Xt = static_cast<const T*>(X);
-  const T* gt = static_cast<const T*>(grads);
-  const T* vt = static_cast<const T*>(vols);
-  const T* wt = static_cast<const T*>(w);
-  const T* ct = static_cast<const T*>(coef);
-  T* Yt = static_cast<T*>(Y);
-  if (k == 4 && dim == 3)
-    knp_apply_batch_kernel<T, 4, 3><<<blocks_for(nc), kThreads, 0, s>>>(
-        Xt, cells, gt, vt, wt, ct, Yt, nc, n, B);
-  else if (k == 3 && dim == 2)
-    knp_apply_batch_kernel<T, 3, 2><<<blocks_for(nc), kThreads, 0, s>>>(
-        Xt, cells, gt, vt, wt, ct, Yt, nc, n, B);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -352,6 +360,22 @@ int knp_p1_apply(int dtype, const int* slot_ptr, const int* col,
   return dtype == 0
              ? p1_apply_t<float>(slot_ptr, col, v1, v2, x, y, a, b, n, s)
              : p1_apply_t<double>(slot_ptr, col, v1, v2, x, y, a, b, n, s);
+}
+
+// K3: Y (nb, n) for nb <= 8 ions; vk == vd == NULL is the mass-only
+// apply.
+int knp_p1_apply_batch(int dtype, const int* slot_ptr, const int* col,
+                       const void* vm, const void* vk, const void* vd,
+                       const void* coef, const void* X, void* Y, int n, int nb,
+                       void* stream) {
+  if (n == 0 || nb == 0) return 0;
+  if ((vk == nullptr) != (vd == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? p1_apply_batch_t<float>(slot_ptr, col, vm, vk, vd, coef,
+                                              X, Y, n, nb, s)
+                    : p1_apply_batch_t<double>(slot_ptr, col, vm, vk, vd, coef,
+                                               X, Y, n, nb, s);
 }
 
 // K1f into a zeroed vals.
@@ -377,18 +401,6 @@ int knp_drift_fill(int dtype, const int* cells, const uint8_t* pos,
                                           w, vals, nc, k, dim, s)
                     : drift_fill_t<double>(cells, pos, slot_ptr, grads, vols,
                                            w, vals, nc, k, dim, s);
-}
-
-int knp_knp_apply_batch(int dtype, const void* X, const int* cells,
-                        const void* grads, const void* vols, const void* w,
-                        const void* coef, void* Y, int nc, int n, int B,
-                        int k, int dim, void* stream) {
-  if (nc == 0 || B == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? knp_apply_batch_t<float>(X, cells, grads, vols, w,
-                                               coef, Y, nc, n, B, k, dim, s)
-                    : knp_apply_batch_t<double>(X, cells, grads, vols, w,
-                                                coef, Y, nc, n, B, k, dim, s);
 }
 
 int knp_ell_matvec(int dtype, const int* cols, const void* vals,

@@ -1,5 +1,6 @@
-// Multigrid V-cycle kernels for Hopper (sm_90a): K5, K6a, K6b (sparse
-// operators in ELL form, for one vector and for B vectors) and K7, K8
+// Multigrid V-cycle kernels for Hopper (sm_90a): K5, K6b (scatters from
+// a sparse operator in row-major ELL form, for one vector and for B
+// vectors), K6a (the B-vector gather from its sliced form) and K7, K8
 // (block-banded operators, read as the packed nonzeros of their slabs).
 // Plain C interface, loaded with ctypes by knpemi_tpu_torch/ops/ell.py
 // and ops/banded.py, which hold the plain PyTorch version of each
@@ -38,30 +39,8 @@ __device__ __forceinline__ float upcast(__nv_bfloat16 v) {
 // ELL: cols, vals are (R, K) row-major; padded slots carry value 0.
 // ---------------------------------------------------------------------
 
-// K6a: Y[b, r] = sum_k vals[r, k] X[b, cols[r, k]]; one thread per row,
-// its indices and values read once for all B vectors.
-template <typename T, int B>
-__global__ void ell_matvec_batch_kernel(const int* __restrict__ cols,
-                                        const T* __restrict__ vals,
-                                        const T* __restrict__ X,
-                                        T* __restrict__ Y, int R, int K,
-                                        int m) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const int64_t base = static_cast<int64_t>(r) * K;
-  T acc[B];
-#pragma unroll
-  for (int b = 0; b < B; ++b) acc[b] = T(0);
-  for (int k = 0; k < K; ++k) {
-    const T v = vals[base + k];
-    const int c = cols[base + k];
-#pragma unroll
-    for (int b = 0; b < B; ++b)
-      acc[b] += v * X[static_cast<int64_t>(b) * m + c];
-  }
-#pragma unroll
-  for (int b = 0; b < B; ++b) Y[static_cast<int64_t>(b) * R + r] = acc[b];
-}
+// K5 (B = 1) and K6b read the row-major ELL below; K6a reads the
+// sliced form (further down).
 
 // K5 (B = 1) and K6b: Y[b, cols[r, k]] += vals[r, k] Rv[b, r] into a
 // zeroed Y; one thread per row holds its B values of Rv.  Padded slots
@@ -255,6 +234,66 @@ banded_packed_kernel(const int* __restrict__ slot_ptr,
   }
 }
 
+// ---------------------------------------------------------------------
+// K6a: Y[b, r] = sum over the slots s of row r of val[s] X[b, col[s]],
+// for B <= 8 vectors that share one windowed-ELL operator, read in its
+// sliced form (ops/ell.py::sliced_ell): slice s (rows 32s .. 32s+31)
+// owns slots slot_ptr[s] .. slot_ptr[s+1], slot k of its row l at
+// slot_ptr[s] + 32k + l, each a global column (int32) and a value;
+// padding slots hold value 0 at a valid column.
+//
+// Replaces _make_gather_kernel_batch (pallas_ell.py:476).  The TPU
+// kernel gathers each chunk's window through one-hot products; a
+// row-major ELL would read slot k of 32 rows K*4 bytes apart, padded to
+// the widest row of the whole operator.  Here, as in K7/K8 and the P1
+// operator's apply:
+// * one warp per 32-row slice: slot k of its rows is one coalesced load
+//   of columns and one of values, read once for all B vectors;
+// * kEllInFlight slots' columns and values are loaded before their x,
+//   so several loads are in flight per thread;
+// * B accumulators per row, x through the read-only path (it lives in
+//   L2), fused multiply-adds in slot order.
+// Bound by bytes: a column and a value per nonzero, X and Y once.
+// ---------------------------------------------------------------------
+constexpr int kEllInFlight = 4;
+
+template <typename T, int B>
+__global__ void __launch_bounds__(kThreads)
+sliced_matvec_batch_kernel(const int* __restrict__ slot_ptr,
+                           const int* __restrict__ col,
+                           const T* __restrict__ val,
+                           const T* __restrict__ X, T* __restrict__ Y,
+                           int R, int m) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const int end = __ldg(slot_ptr + (r >> 5) + 1);
+  T acc[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) acc[b] = T(0);
+  for (int s0 = __ldg(slot_ptr + (r >> 5)) + (r & 31); s0 < end;
+       s0 += kEllInFlight * 32) {
+    int c[kEllInFlight];
+    T v[kEllInFlight];
+#pragma unroll
+    for (int u = 0; u < kEllInFlight; ++u) {
+      const int s = s0 + u * 32;
+      const bool in = s < end;
+      c[u] = in ? __ldg(col + s) : 0;
+      v[u] = in ? __ldg(val + s) : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kEllInFlight; ++u) {
+#pragma unroll
+      for (int b = 0; b < B; ++b) {
+        acc[b] = fma_t(v[u], __ldg(X + static_cast<int64_t>(b) * m + c[u]),
+                       acc[b]);
+      }
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < B; ++b) Y[static_cast<int64_t>(b) * R + r] = acc[b];
+}
+
 // Launchers: pick the instantiation for a batch of nb vectors.
 #define KNP_FOR_BATCH(nb, M)    \
   switch (nb) {                 \
@@ -270,12 +309,13 @@ banded_packed_kernel(const int* __restrict__ slot_ptr,
   }
 
 template <typename T>
-int ell_matvec_batch_t(const int* cols, const void* vals, const void* X,
-                       void* Y, int R, int K, int m, int nb, cudaStream_t s) {
+int sliced_matvec_batch_t(const int* slot_ptr, const int* col,
+                          const void* val, const void* X, void* Y, int R,
+                          int m, int nb, cudaStream_t s) {
 #define CALL(BB)                                                          \
-  ell_matvec_batch_kernel<T, BB><<<blocks_for(R), kThreads, 0, s>>>(      \
-      cols, static_cast<const T*>(vals), static_cast<const T*>(X),        \
-      static_cast<T*>(Y), R, K, m)
+  sliced_matvec_batch_kernel<T, BB><<<blocks_for(R), kThreads, 0, s>>>(   \
+      slot_ptr, col, static_cast<const T*>(val), static_cast<const T*>(X), \
+      static_cast<T*>(Y), R, m)
   KNP_FOR_BATCH(nb, CALL)
 #undef CALL
   return static_cast<int>(cudaGetLastError());
@@ -370,15 +410,16 @@ int knp_ell_rmatvec(int dtype, const int* cols, const void* vals,
              : ell_rmatvec_batch_t<double>(cols, vals, r, y, R, K, 0, 1, s);
 }
 
-// K6a: Y (nb, R) = X (nb, m) A^T, nb <= 8.
-int knp_ell_matvec_batch(int dtype, const int* cols, const void* vals,
-                         const void* X, void* Y, int R, int K, int m, int nb,
-                         void* stream) {
+// K6a: Y (nb, R) = X A^T from the sliced form, nb <= 8; X is (nb, m).
+int knp_sliced_matvec_batch(int dtype, const int* slot_ptr, const int* col,
+                            const void* val, const void* X, void* Y, int R,
+                            int m, int nb, void* stream) {
   if (R == 0 || nb == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? ell_matvec_batch_t<float>(cols, vals, X, Y, R, K, m, nb, s)
-             : ell_matvec_batch_t<double>(cols, vals, X, Y, R, K, m, nb, s);
+  return dtype == 0 ? sliced_matvec_batch_t<float>(slot_ptr, col, val, X, Y, R,
+                                                   m, nb, s)
+                    : sliced_matvec_batch_t<double>(slot_ptr, col, val, X, Y,
+                                                    R, m, nb, s);
 }
 
 // K6b: Y (nb, m) += Rv (nb, R) A, nb <= 8; Y must be zeroed by the caller.

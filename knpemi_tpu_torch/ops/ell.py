@@ -9,23 +9,36 @@ Counterpart of ``knpemi_tpu/ops/pallas_ell.py``.  Two halves:
   size ``C``, slot count ``K``, window height ``Wr`` and the far COO
   list.  ``solvers/mg.py`` reads those decisions: a refused layout falls
   back to plain ELL, and the fused post-smooth compares ``NCH*Wr*K*C``
-  of two layouts.
-* **device form** (:class:`DeviceELLW`, from :meth:`ELLW.device`): a plain
-  row-major ELL ``cols, vals`` of shape (n_rows, K) with *global* column
-  ids ``q*128 + lidx``.  The windows, the (G, 128) group layout and the
-  8-group-aligned ``q`` exist on the TPU to turn a gather into one-hot
-  matrix products over a short axis; on Hopper a gather is a load, so
-  none of it reaches the device.  The far COO entries are **folded into
-  the free slots of their rows** (a row has at most K nonzeros,
-  ``build_ellw``), so the device operator is exactly A with no second
-  pass; padded slots carry value 0.
+  of two layouts.  ``build_ellw(force_shape=...)`` refills a layout with
+  the values of a matrix of the same structure (the hierarchy refresh).
+* **device forms** (:class:`DeviceELLW`, from :meth:`ELLW.device`), with
+  *global* column ids ``q*128 + lidx`` and the far COO entries **folded
+  into the free slots of their rows** (a row has at most K nonzeros,
+  ``build_ellw``), so each is exactly A with no second pass:
+
+  - a row-major ELL ``cols, vals`` of shape (n_rows, K), padded slots
+    value 0 — what the single-vector gather K4 and the scatters K5, K6b
+    read;
+  - a *sliced* ELL of the nonzeros (``slot_ptr``, ``scol``, ``sval``;
+    :func:`sliced_ell`): rows in slices of 32, slice s holding K[s]
+    slots per row (its longest row's nonzeros), slot-major inside the
+    slice, so that slot k of the slice's 32 rows lies in 32 consecutive
+    words — the layout K6a reads, as K1/K11 (``ops/p1op.py``) and K7/K8
+    (``ops/banded.py``) do.
+
+  A layout gets the forms its applies need (``solvers/mg.py``): the
+  sliced one where the ion-batched KNP V-cycle applies it forward, the
+  row-major one where a single-vector path or a scatter reads it.  The
+  windows, the (G, 128) group layout and the 8-group-aligned ``q`` exist
+  on the TPU to turn a gather into one-hot matrix products over a short
+  axis; on Hopper a gather is a load, so none of it reaches the device.
 
 The four applies, each with a plain PyTorch twin on the same tensors:
 
 =====================  ====  ======================================
 ``ellw_matvec``        K4    y = A x        (``assembly.ell_matvec``)
 ``ellw_rmatvec``       K5    y = A^T r      scatter, ``atomicAdd``
-``ellw_matvec_batch``  K6a   Y = X A^T      B vectors, indices read once
+``ellw_matvec_batch``  K6a   Y = X A^T      B vectors, sliced form
 ``ellw_rmatvec_batch`` K6b   Y = R A        B vectors, ``atomicAdd``
 =====================  ====  ======================================
 
@@ -50,10 +63,16 @@ from . import assembly as A
 # ---------------------------------------------------------------------------
 # host layout (numpy), as in knpemi_tpu/ops/pallas_ell.py
 # ---------------------------------------------------------------------------
+SLICE = 32  # rows per slice of the sliced form: one warp
+
+
 @dataclasses.dataclass
 class DeviceELLW:
-    """Row-major ELL form of an :class:`ELLW` on a device, far entries
-    folded in.  ``C, K, NCH, Wr`` are the host layout's statics."""
+    """The device forms of an :class:`ELLW`, far entries folded in;
+    ``C, K, NCH, Wr`` are the host layout's statics.  ``cols, vals``: the
+    row-major form, None where no apply of this layout reads it;
+    ``slot_ptr, scol, sval``: the sliced form (:func:`sliced_ell`), None
+    where K6a does not apply it."""
 
     n_rows: int
     n_cols: int
@@ -61,8 +80,53 @@ class DeviceELLW:
     K: int
     NCH: int
     Wr: int
-    cols: torch.Tensor  # (n_rows, K) int32 on CUDA, int64 on the CPU
-    vals: torch.Tensor  # (n_rows, K)
+    cols: Optional[torch.Tensor]  # (n_rows, K) int32 on CUDA, int64 on the CPU
+    vals: Optional[torch.Tensor]  # (n_rows, K)
+    slot_ptr: Optional[torch.Tensor] = None  # (NS + 1,) int32
+    scol: Optional[torch.Tensor] = None      # (slots,) index
+    sval: Optional[torch.Tensor] = None      # (slots,)
+    nnz: int = 0                             # nonzeros of the sliced form
+    # host copy of slot_ptr: the frozen shape a value refill must keep
+    slot_ptr_host: Optional[np.ndarray] = None
+
+
+def sliced_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
+               slot_ptr: Optional[np.ndarray] = None):
+    """The sliced ELL of a row-major ELL's nonzeros (``vals != 0``): per
+    slice of 32 rows, K[s] slots per row, slot k of row r at
+    ``slot_ptr[r // 32] + 32 k + r % 32``, a row's nonzeros in its slot
+    order; padding slots hold value 0 at column min(r, n_cols - 1).
+    Returns ``(slot_ptr int64, col int32, val, nnz)``.  With ``slot_ptr``
+    given (a refill of a frozen shape) raises ``ValueError`` where a row
+    has more nonzeros than its slice holds."""
+    n, K = cols.shape
+    NS = -(-n // SLICE)
+    nz = vals != 0
+    count = np.zeros(NS * SLICE, np.int64)
+    count[:n] = nz.sum(axis=1)
+    width = count.reshape(NS, SLICE).max(axis=1)
+    if slot_ptr is None:
+        slot_ptr = np.zeros(NS + 1, np.int64)
+        np.cumsum(SLICE * width, out=slot_ptr[1:])
+        if slot_ptr[-1] >= 1 << 31:
+            raise ValueError(f"{slot_ptr[-1]} slots: more than an int32 can address")
+    else:
+        slot_ptr = np.asarray(slot_ptr, np.int64)
+        if slot_ptr.shape != (NS + 1,) or (width > np.diff(slot_ptr) // SLICE).any():
+            raise ValueError("sliced ELL refill: a row has more nonzeros than its "
+                             "slice holds: sparsity pattern drifted")
+    rows, ks = np.nonzero(nz)
+    pos = np.cumsum(nz, axis=1)[rows, ks] - 1  # rank of the slot among the row's nonzeros
+    slot = slot_ptr[rows // SLICE] + SLICE * pos + rows % SLICE
+    total = int(slot_ptr[-1])
+    width_of = np.diff(slot_ptr) // SLICE
+    pad_row = (np.repeat(np.arange(NS) * SLICE, SLICE * width_of)
+               + (np.arange(total) - np.repeat(slot_ptr[:-1], SLICE * width_of)) % SLICE)
+    col = np.minimum(pad_row, n_cols - 1).astype(np.int32)
+    col[slot] = cols[rows, ks]
+    val = np.zeros(total, vals.dtype)
+    val[slot] = vals[rows, ks]
+    return slot_ptr, col, val, int(rows.shape[0])
 
 
 @dataclasses.dataclass
@@ -108,13 +172,38 @@ class ELLW:
             cols[rows, slot] = self.far_cols[far]
         return cols.astype(np.int32), vals
 
-    def device(self, dtype, device) -> DeviceELLW:
+    def device(self, dtype, device, row_major: bool = True,
+               sliced: bool = False) -> DeviceELLW:
+        """Upload the forms asked for: the row-major ELL and/or the sliced
+        ELL (:func:`sliced_ell`)."""
         cols, vals = self.to_ell()
-        return DeviceELLW(
-            self.n_rows, self.n_cols, self.C, self.K, self.NCH, self.Wr,
-            cols=torch.as_tensor(cols, dtype=A.index_dtype(device), device=device),
-            vals=torch.as_tensor(vals, dtype=dtype, device=device),
-        )
+        idt = A.index_dtype(device)
+        out = DeviceELLW(self.n_rows, self.n_cols, self.C, self.K, self.NCH, self.Wr,
+                         cols=None, vals=None)
+        if row_major:
+            out.cols = torch.as_tensor(cols, dtype=idt, device=device)
+            out.vals = torch.as_tensor(vals, dtype=dtype, device=device)
+        if sliced:
+            ptr, scol, sval, out.nnz = sliced_ell(cols, vals, self.n_cols)
+            out.slot_ptr_host = ptr
+            out.slot_ptr = torch.as_tensor(ptr.astype(np.int32), device=device)
+            out.scol = torch.as_tensor(scol, dtype=idt, device=device)
+            out.sval = torch.as_tensor(sval, dtype=dtype, device=device)
+        return out
+
+    def refill_arrays(self, dev: DeviceELLW):
+        """[(device tensor, host array)] that carry this layout's values
+        into ``dev``, a device form of a layout of the same shape (a
+        refreshed hierarchy).  Host numpy only; raises ``ValueError``
+        where the sliced form's frozen slices cannot hold a row."""
+        cols, vals = self.to_ell()
+        out = []
+        if dev.cols is not None:
+            out += [(dev.cols, cols), (dev.vals, vals)]
+        if dev.slot_ptr is not None:
+            _, scol, sval, _ = sliced_ell(cols, vals, self.n_cols, dev.slot_ptr_host)
+            out += [(dev.scol, scol), (dev.sval, sval)]
+        return out
 
 
 def _pad_pow2(k: int) -> int:
@@ -124,22 +213,32 @@ def _pad_pow2(k: int) -> int:
     return p
 
 
-def build_ellw(A, Wr_cap: int = 128, far_frac_max: float = 0.10) -> Optional[ELLW]:
+def build_ellw(A, Wr_cap: int = 128, far_frac_max: float = 0.10,
+               force_shape: Optional[tuple] = None) -> Optional[ELLW]:
     """Build the windowed-ELL layout of a scipy CSR matrix.
 
     Returns None when a row needs more than 256 slots or more than
     ``far_frac_max`` of the entries would spill outside every chunk's
     window (the matrix is not bandwidth-ordered enough for this layout).
-    The JAX package's ``force_shape`` refill belongs to its hierarchy
-    refresh and is not ported."""
+    ``force_shape`` = (C, K, Wr, G, far_cap) reuses an earlier layout's
+    shape, so that a refreshed hierarchy keeps every array's shape; it
+    raises ``ValueError`` where the new matrix does not fit (structural
+    drift), as the JAX package's does."""
     A = A.tocsr()
     n, m = A.shape
     indptr, indices, data = A.indptr, A.indices, A.data
     row_nnz = np.diff(indptr)
-    K = _pad_pow2(max(1, int(row_nnz.max())))
-    if K > 256:
-        return None
-    C = max(8, 2048 // K)
+    if force_shape is None:
+        K = _pad_pow2(max(1, int(row_nnz.max())))
+        if K > 256:
+            return None
+        C = max(8, 2048 // K)
+    else:
+        C, K, Wr_f, G_f, far_cap_f = force_shape
+        if int(row_nnz.max()) > K:
+            raise ValueError(
+                f"ellw refill: row nnz {int(row_nnz.max())} exceeds the "
+                f"frozen K={K}: sparsity pattern drifted")
     NCH = -(-n // C)
 
     # per-chunk window CENTER from the mean column group — robust to a
@@ -159,31 +258,34 @@ def build_ellw(A, Wr_cap: int = 128, far_frac_max: float = 0.10) -> Optional[ELL
         q = np.rint(mean_g - Wr_try / 2.0 + 4.0).astype(np.int64)
         return np.clip((q // 8) * 8, 0, None)
 
-    # smallest 8-multiple window covering enough entries — but keep
-    # widening (up to 2x that width) if a spill-free window exists
-    first = zero = None
-    for Wc in range(8, Wr_cap + 1, 8):
-        q_try = starts(Wc)
-        off = col_grp - q_try[chunk]
-        frac_out = np.mean((off < 0) | (off >= Wc))
-        if first is None and frac_out <= 0.5 * far_frac_max:
-            first = Wc
-        if frac_out == 0.0:
-            zero = Wc
-            break
-        if first is not None and Wc >= 2 * first:
-            break
-    if first is None and zero is None:
-        Wr = -(-Wr_cap // 8) * 8
-    elif zero is not None and (first is None or zero <= 2 * first):
-        Wr = zero
+    if force_shape is None:
+        # smallest 8-multiple window covering enough entries — but keep
+        # widening (up to 2x that width) if a spill-free window exists
+        first = zero = None
+        for Wc in range(8, Wr_cap + 1, 8):
+            q_try = starts(Wc)
+            off = col_grp - q_try[chunk]
+            frac_out = np.mean((off < 0) | (off >= Wc))
+            if first is None and frac_out <= 0.5 * far_frac_max:
+                first = Wc
+            if frac_out == 0.0:
+                zero = Wc
+                break
+            if first is not None and Wc >= 2 * first:
+                break
+        if first is None and zero is None:
+            Wr = -(-Wr_cap // 8) * 8
+        elif zero is not None and (first is None or zero <= 2 * first):
+            Wr = zero
+        else:
+            Wr = first
     else:
-        Wr = first
+        Wr = Wr_f
     qc = starts(Wr)
 
     inside = (col_grp - qc[chunk] >= 0) & (col_grp - qc[chunk] < Wr)
     n_far = int((~inside).sum())
-    if n_far > far_frac_max * max(1, A.nnz):
+    if force_shape is None and n_far > far_frac_max * max(1, A.nnz):
         return None
 
     # compact inside entries per row into slots 0..k-1 (stable per row)
@@ -193,6 +295,8 @@ def build_ellw(A, Wr_cap: int = 128, far_frac_max: float = 0.10) -> Optional[ELL
     csum = np.cumsum(inside)
     row_start_csum = np.concatenate([[0], csum])[indptr[:-1]]
     slot[ins_idx] = csum[ins_idx] - 1 - row_start_csum[r_ins]
+    if force_shape is not None and len(ins_idx) and int(slot[ins_idx].max()) >= K:
+        raise ValueError("ellw refill: slots exceed frozen K")
 
     KC = K * C
     lidx = np.zeros((NCH, 1, KC), np.int32)
@@ -204,9 +308,16 @@ def build_ellw(A, Wr_cap: int = 128, far_frac_max: float = 0.10) -> Optional[ELL
     vals[ch, 0, lane] = data[ins_idx]
 
     far_idx = np.flatnonzero(~inside)
-    far_cap = 0
-    while far_cap < n_far:
-        far_cap = max(64, far_cap * 2)
+    if force_shape is None:
+        far_cap = 0
+        while far_cap < n_far:
+            far_cap = max(64, far_cap * 2)
+    else:
+        far_cap = far_cap_f
+        if n_far > far_cap:
+            raise ValueError(
+                f"ellw refill: {n_far} far entries exceed the frozen "
+                f"capacity {far_cap}: sparsity pattern drifted")
     far_rows = np.zeros(far_cap, np.int32)
     far_cols = np.zeros(far_cap, np.int32)
     far_vals = np.zeros(far_cap, data.dtype)
@@ -218,6 +329,10 @@ def build_ellw(A, Wr_cap: int = 128, far_frac_max: float = 0.10) -> Optional[ELL
     # padded source groups of the JAX package's (G, 128) table
     G = int(max(qc.max() + Wr, -(-m // 128)))
     G = -(-G // 8) * 8
+    if force_shape is not None:
+        if G > G_f:
+            raise ValueError("ellw refill: source padding grew")
+        G = G_f
     return ELLW(
         n_rows=n, n_cols=m, C=C, K=K, NCH=NCH, Wr=Wr, G=G,
         q=qc.astype(np.int32), lidx=lidx, vals=vals,
@@ -235,8 +350,26 @@ def _check_layout(e: DeviceELLW, v: torch.Tensor, name: str, length: int,
     if v.dim() != (2 if batch else 1) or v.shape[-1] != length:
         want = f"(B, {length})" if batch else f"({length},)"
         raise ValueError(f"{name} has shape {tuple(v.shape)}, expected {want}")
+    if e.cols is None:
+        raise ValueError("this layout has no row-major form on the device")
     A._check(e.cols, "cols", v, (e.n_rows, e.K), index=True)
     A._check(e.vals, "vals", v, (e.n_rows, e.K))
+
+
+def _check_sliced(e: DeviceELLW, X: torch.Tensor):
+    A._check_value(X, "X")
+    if X.dim() != 2 or X.shape[1] != e.n_cols or 0 in X.shape:
+        raise ValueError(f"X has shape {tuple(X.shape)}, expected (B, n_cols) "
+                         f"with n_cols = {e.n_cols}")
+    if e.slot_ptr is None:
+        raise ValueError("this layout has no sliced form on the device: "
+                         "upload it with ELLW.device(..., sliced=True)")
+    NS = -(-e.n_rows // SLICE)
+    if e.slot_ptr.dtype != torch.int32 or tuple(e.slot_ptr.shape) != (NS + 1,):
+        raise TypeError(f"slot_ptr must be int32 of shape ({NS + 1},)")
+    A._check(e.slot_ptr, "slot_ptr", X, index=True)
+    A._check(e.scol, "scol", X, index=True)
+    A._check(e.sval, "sval", X, tuple(e.scol.shape))
 
 
 def ellw_matvec_plain(e: DeviceELLW, x):
@@ -244,9 +377,9 @@ def ellw_matvec_plain(e: DeviceELLW, x):
 
 
 def ellw_matvec(e: DeviceELLW, x):
-    """K4.  y = A x; x (n_cols,) -> y (n_rows,).  The device form is plain
-    ELL, so this is :func:`assembly.ell_matvec`, the B = 1 case of K6a,
-    and counts as its launch."""
+    """K4.  y = A x; x (n_cols,) -> y (n_rows,).  The row-major device form
+    is plain ELL, so this is :func:`assembly.ell_matvec` and counts as its
+    launch."""
     _check_layout(e, x, "x", e.n_cols, batch=False)
     return A.ell_matvec(e.cols, e.vals, x)
 
@@ -280,30 +413,44 @@ def ellw_rmatvec(e: DeviceELLW, r):
 ellw_rmatvec.launches = 0
 
 
+def _sliced_rows(e: DeviceELLW) -> torch.Tensor:
+    """The row (0 .. 32 NS) of every slot of the sliced form."""
+    ptr = e.slot_ptr.long()
+    slice_of = torch.repeat_interleave(torch.arange(ptr.shape[0] - 1, device=ptr.device),
+                                       ptr[1:] - ptr[:-1])
+    return slice_of * SLICE + torch.arange(int(ptr[-1]), device=ptr.device) % SLICE
+
+
 def ellw_matvec_batch_plain(e: DeviceELLW, X):
-    return (e.vals[None] * X[:, e.cols.long()]).sum(dim=-1)
+    rows = _sliced_rows(e)
+    Y = torch.zeros(X.shape[0], (e.slot_ptr.shape[0] - 1) * SLICE, dtype=X.dtype,
+                    device=X.device)
+    return Y.index_add_(1, rows, e.sval * X[:, e.scol.long()])[:, : e.n_rows]
 
 
 def ellw_matvec_batch(e: DeviceELLW, X):
-    """K6a.  Y[b] = A X[b] for B vectors with the indices and values read
-    once: Y[b, i] = sum_k vals[i, k] X[b, cols[i, k]].
+    """K6a.  Y[b] = A X[b] for B vectors from the sliced form, each slot's
+    column and value read once for all B: Y[b, r] = sum over the slots s
+    of row r of sval[s] X[b, scol[s]].
 
     Replaces ``knpemi_tpu/ops/pallas_ell.py:_make_gather_kernel_batch``
-    (via ``ellw_matvec_batch``).  Bound on the H100: bytes — cols, vals, X
-    read once, Y written once (``csrc/mg.cu``).  Design: one thread per
-    row, B accumulators in registers; more than 8 vectors go through in
-    groups of 8.
+    (via ``ellw_matvec_batch``).  Bound on the H100: bytes — an index and
+    a value per nonzero, X read once, Y written once (``csrc/mg.cu``);
+    the padding slots come on top.  Design: one warp per 32-row slice,
+    slot k of its 32 rows one coalesced load of columns and one of values,
+    four slots in flight per thread, B accumulators, X read through the
+    read-only path; more than 8 vectors go through in groups of 8.
 
     X (B, n_cols) -> Y (B, n_rows)."""
-    _check_layout(e, X, "X", e.n_cols, batch=True)
+    _check_sliced(e, X)
     if not X.is_cuda:
         return ellw_matvec_batch_plain(e, X)
     B = X.shape[0]
     Y = torch.empty(B, e.n_rows, dtype=X.dtype, device=X.device)
     for b0 in range(0, B, A.BATCH_MAX):
         nb = min(A.BATCH_MAX, B - b0)
-        A._launch("ell_matvec_batch", X, e.cols.data_ptr(), e.vals.data_ptr(),
-                  X[b0:].data_ptr(), Y[b0:].data_ptr(), e.n_rows, e.K,
+        A._launch("sliced_matvec_batch", X, e.slot_ptr.data_ptr(), e.scol.data_ptr(),
+                  e.sval.data_ptr(), X[b0:].data_ptr(), Y[b0:].data_ptr(), e.n_rows,
                   e.n_cols, nb)
         ellw_matvec_batch.launches += 1
     return Y

@@ -1,10 +1,11 @@
 """Plain P1 element operators in PyTorch: gather -> einsum -> index_add_.
 
-Counterpart of ``knpemi_tpu/ops/kernels.py`` (the JAX package's XLA
-assembly path).  These are the arithmetic the plain versions of the
-Hopper kernels in :mod:`knpemi_tpu_torch.ops.assembly` reuse, and the
-operators of the setup-time paths (Jacobi diagonals).  All forms are
-P1-exact:
+Counterpart of the parts of ``knpemi_tpu/ops/kernels.py`` (the JAX
+package's XLA assembly path) that the port still applies element by
+element: the scatters the plain versions of the facet kernels in
+:mod:`knpemi_tpu_torch.ops.assembly` reuse, the Jacobi diagonals and the
+source load vector (the operators themselves are assembled on the P1
+graph, :mod:`knpemi_tpu_torch.ops.p1op`).  All forms are P1-exact:
 
 * stiffness with a P1 coefficient kappa: ``mean(kappa_vertices) * vol *
   (g_i . g_j)``,
@@ -35,25 +36,6 @@ def scatter_add_rows(n_dofs: int, idx: torch.Tensor, vals: torch.Tensor) -> torc
     return out.index_add_(1, idx.reshape(-1), vals.reshape(F, -1))
 
 
-def cell_gradients(x, cells, grads):
-    """Cellwise-constant gradient of a P1 field: (n_cells, dim)."""
-    return torch.einsum("ck,ckd->cd", x[cells], grads)
-
-
-def stiffness_cell_values(x, cells, grads, vols, coef_vertex=None, coef_cell=1.0):
-    """Per-cell test-function values of ``integral coef grad(x).grad(v)``."""
-    gx = cell_gradients(x, cells, grads)
-    w = vols * coef_cell
-    if coef_vertex is not None:
-        w = w * coef_vertex[cells].mean(dim=1)
-    return torch.einsum("cd,ckd->ck", gx, grads) * w[:, None]
-
-
-def stiffness_apply(n_dofs, x, cells, grads, vols, coef_vertex=None, coef_cell=1.0):
-    vals = stiffness_cell_values(x, cells, grads, vols, coef_vertex, coef_cell)
-    return scatter_add(n_dofs, cells, vals)
-
-
 def stiffness_diag(n_dofs, cells, grads, vols, coef_vertex=None, coef_cell=1.0):
     w = vols * coef_cell
     if coef_vertex is not None:
@@ -62,35 +44,10 @@ def stiffness_diag(n_dofs, cells, grads, vols, coef_vertex=None, coef_cell=1.0):
     return scatter_add(n_dofs, cells, d)
 
 
-def mass_cell_values(x, cells, vols, scale=1.0):
-    """Per-cell values of ``integral scale * x * v`` (P1 consistent mass)."""
-    k = cells.shape[1]
-    xe = x[cells]
-    s = xe.sum(dim=1, keepdim=True)
-    return (vols * scale)[:, None] * (s + xe) / (k * (k + 1))
-
-
-def mass_apply(n_dofs, x, cells, vols, scale=1.0):
-    return scatter_add(n_dofs, cells, mass_cell_values(x, cells, vols, scale))
-
-
 def mass_diag(n_dofs, cells, vols, scale=1.0):
     k = cells.shape[1]
     d = (2.0 * vols * scale / (k * (k + 1)))[:, None].expand(cells.shape)
     return scatter_add(n_dofs, cells, d)
-
-
-def drift_cell_values(x, cells, grads, vols, w_cell, coef=1.0):
-    """Per-cell values of ``integral coef * x * (w . grad v)`` with a
-    cellwise-constant vector field w (w = grad(phi) for the KNP drift)."""
-    k = cells.shape[1]
-    xbar = x[cells].sum(dim=1) / k
-    wg = torch.einsum("cd,ckd->ck", w_cell, grads)
-    return (coef * vols * xbar)[:, None] * wg
-
-
-def drift_apply(n_dofs, x, cells, grads, vols, w_cell, coef=1.0):
-    return scatter_add(n_dofs, cells, drift_cell_values(x, cells, grads, vols, w_cell, coef))
 
 
 def drift_diag(n_dofs, cells, grads, vols, w_cell, coef=1.0):

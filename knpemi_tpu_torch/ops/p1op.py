@@ -1,10 +1,10 @@
-"""The assembled P1 operator of a subdomain: K1 and K11 as one row-parallel
-apply of values filled once per solve (K1f, K11f).
+"""The assembled P1 operator of a subdomain: K1, K3 and K11 as row-parallel
+applies of values filled once per solve (K1f, K11f).
 
 Every cell operator of one subdomain -- the EMI weighted stiffness, the
-unit stiffness of the EMI right-hand side and each solved ion's KNP
-operator (1/dt) M + D_b K + z_b psi D_b Drift(grad phi) -- lives on one
-sparsity pattern, the P1 graph of the cells.  :class:`P1Operator` holds
+unit stiffness of the EMI right-hand side, the P1 mass and each solved
+ion's KNP operator (1/dt) M + D_b K + z_b psi D_b Drift(grad phi) --
+lives on one sparsity pattern, the P1 graph of the cells.  :class:`P1Operator` holds
 that pattern once per subdomain (``EMISystem`` and ``KNPSystem`` share
 it), built on the host in numpy:
 
@@ -323,6 +323,92 @@ knp_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K3: the batched KNP apply
+# ---------------------------------------------------------------------------
+def mass_values(op: P1Operator, cells, vols, dtype) -> torch.Tensor:
+    """The unit P1 mass on ``op`` in the row-sum form (the diagonal slot
+    holds the row's sum, vol/k per cell vertex), summed on the host in
+    float64 from the COO helper's element matrices and cast to
+    ``dtype``: K3's first value stream."""
+    from ..solvers import direct
+
+    Me = direct._mass_coo(np.asarray(cells), np.asarray(vols, np.float64))[2]
+    Mv = op.assemble(Me)[0]
+    Mv[op.diag_slot] = np.bincount(np.asarray(cells).reshape(-1),
+                                   weights=Me.sum(axis=2).reshape(-1), minlength=op.n)
+    return torch.as_tensor(Mv, dtype=dtype, device=op.device)
+
+
+def _check_batch(op: P1Operator, X, coef, M, Kst, Dr):
+    A._check_value(X, "X")
+    if X.dim() != 2 or X.shape[1] != op.n or X.shape[0] == 0:
+        raise ValueError(f"X has shape {tuple(X.shape)}, expected (B, {op.n})")
+    _check_op(op, X)
+    A._check(coef, "coef", X, (X.shape[0], 3))
+    A._check(M, "M", X, (op.slots,))
+    if (Kst is None) != (Dr is None):
+        raise ValueError("give both Kst and Dr, or neither (the mass-only apply)")
+    if Kst is not None:
+        A._check(Kst, "Kst", X, (op.slots,))
+        A._check(Dr, "Dr", X, (op.slots,))
+
+
+def knp_apply_batch_plain(X, op: P1Operator, coef, M, Kst=None, Dr=None):
+    rows, col = op._plain("slot_rows"), op.col.long()
+    xr = X[:, rows.clamp(max=op.n - 1)]  # the padding rows past n hold zeros
+    xg = torch.where(col == rows, xr, X[:, col] - xr)
+    V = coef[:, 0:1] * M
+    if Kst is not None:
+        V = V + coef[:, 1:2] * Kst + coef[:, 2:3] * Dr
+    n_pad = (op.slot_ptr.shape[0] - 1) * SLICE
+    Y = torch.zeros(X.shape[0], n_pad, dtype=X.dtype, device=X.device)
+    return Y.index_add_(1, rows, V * xg)[:, : op.n]
+
+
+def knp_apply_batch(X, op: P1Operator, coef, M, Kst=None, Dr=None):
+    """K3.  For every row b of X (one solved ion),
+
+        y_b = c_b0 (M x_b) + c_b1 (Kst x_b) + c_b2 (Dr x_b),
+
+    with ``coef`` rows [c_b0, c_b1, c_b2] = [1/dt, D_b, z_b psi D_b]: the
+    P1 mass M (:func:`mass_values`), the unit stiffness Kst (the one the
+    EMI system holds for its right-hand side) and the drift values Dr of
+    this solve (:func:`drift_fill`, once per solve and subdomain), three
+    value streams in the row-sum form on the subdomain's P1 operator.
+    Without Kst and Dr it is the mass-only apply of the KNP right-hand
+    side, (1/dt) M c_prev, and reads neither stream.
+
+    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_knp_kernel_batch``
+    (via ``knp_apply_blocked_batch``) together with :func:`drift_fill`.
+    Bound on the H100: bytes — each slot's column and three values (one
+    for the mass-only apply) read once for all B ions, X read once, Y
+    written once (``csrc/cells.cu``).  Design: :func:`emi_stiffness`'s
+    row-parallel apply (one warp per 32-row slice, no atomics), each
+    slot's value for ion b combined in registers from the three streams
+    and B accumulators per row; more than 8 ions go through in groups
+    of 8.
+
+    X (B, n), op, coef (B, 3), M, Kst, Dr (slots,) -> Y (B, n)."""
+    _check_batch(op, X, coef, M, Kst, Dr)
+    if not X.is_cuda:
+        return knp_apply_batch_plain(X, op, coef, M, Kst, Dr)
+    B = X.shape[0]
+    Y = torch.empty_like(X)
+    mass_only = Kst is None
+    for b0 in range(0, B, A.BATCH_MAX):
+        A._launch("p1_apply_batch", X, op.slot_ptr.data_ptr(), op.col.data_ptr(),
+                  M.data_ptr(), None if mass_only else Kst.data_ptr(),
+                  None if mass_only else Dr.data_ptr(), coef[b0:].data_ptr(),
+                  X[b0:].data_ptr(), Y[b0:].data_ptr(), op.n,
+                  min(A.BATCH_MAX, B - b0))
+        knp_apply_batch.launches += 1
+    return Y
+
+
+knp_apply_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K1f / K11f: the fills
 # ---------------------------------------------------------------------------
 def _fill_plain(op: P1Operator, pair_vals):
@@ -409,6 +495,7 @@ drift_fill.launches = 0
 KERNELS = {
     "K1 emi_stiffness": (emi_stiffness, emi_stiffness_plain),
     "K1f emi_fill": (emi_fill, emi_fill_plain),
+    "K3 knp_apply_batch": (knp_apply_batch, knp_apply_batch_plain),
     "K11 knp_apply": (knp_apply, knp_apply_plain),
     "K11f drift_fill": (drift_fill, drift_fill_plain),
 }

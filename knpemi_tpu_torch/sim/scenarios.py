@@ -120,8 +120,10 @@ def build_astrocyte(config: dict, dtype=torch.float64, device=None,
     """The astrocyte tissue scenario of ``config`` (keys of
     ``sim/config.py``; ``mesh_n`` overrides the per-axis cell count, 64
     gives the 840,015 dofs/step flagship); ``device=None`` means CUDA.
-    ``solver_options`` replaces that script's defaults (rtol EMI 1e-6, KNP
-    1e-7) overlaid with ``config['solver']``."""
+    ``solver_options`` replaces that script's defaults
+    (``examples/astrocyte/run_stim_duration.py``: rtol EMI 1e-6, KNP 1e-7,
+    and the EMI hierarchy refreshed every 100 steps of ``Simulation.run``,
+    ``mg_refresh_every=100``) overlaid with ``config['solver']``."""
     if config.get("mesh_file"):
         raise NotImplementedError(
             "reading a mesh file is not ported; leave mesh_file unset to use "
@@ -172,7 +174,8 @@ def build_astrocyte(config: dict, dtype=torch.float64, device=None,
             mm.params0[:, mm.param_index(name)] = v
     if solver_options is None:
         solver_options = SolverOptions(**{
-            "rtol_emi": 1e-6, "rtol_knp": 1e-7, **(config.get("solver") or {})})
+            "rtol_emi": 1e-6, "rtol_knp": 1e-7, "mg_refresh_every": 100,
+            **(config.get("solver") or {})})
     return Simulation(
         geom, ions, params, mem_models, solver_options,
         source_gate=pulsed_source_gate(config), dtype=dtype, device=device,

@@ -10,21 +10,30 @@ default here) or its block-banded / windowed-ELL multigrid
 
   [1] membrane ODEs (RK4 substeps over every membrane dof)
   [2] EMI solve (CG + SA-AMG V-cycle, kernels K1, K2, K4; banded: K5, K7)
-  [3] KNP solve (ion-batched GMRES + batched V-cycle, K3, K4, K9, K10;
-      banded: K6a, K6b, K8; with ``knp_batched=False`` one GMRES per ion
-      on K11 with the single-vector V-cycle; banded: K4, K5, K7), its
+  [3] KNP solve (ion-batched GMRES + batched V-cycle, K3, K4, K9, K10,
+      K11f; banded: K6a, K6b, K8; with ``knp_batched=False`` one GMRES per
+      ion on K11 with the single-vector V-cycle; banded: K4, K5, K7), its
       right-hand side carrying the ECS source term times
       ``source_gate(t)``
   [4] algebraic update (eliminated ion, phi_M from the PDE traces)
 
 The JAX package jits and scans the step; here it runs eagerly, and each
-Krylov iteration reads its stopping test back to the host.
+Krylov iteration reads its stopping test back to the host.  ``run``
+advances in chunks of ``save_every`` steps as the JAX ``run`` does
+(``knpemi_tpu/sim/stepper.py:653-781``): after each chunk it reads the iteration counts once,
+calls the observer with a host copy of the state and, with
+``SolverOptions.mg_refresh_every``, refreshes the lagged EMI
+hierarchy's values from the current concentrations (``refresh_mg``;
+host numpy/scipy, on one worker thread with ``mg_refresh_async``), the
+new values copied into the device tensors in place.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import time
+import warnings
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -37,7 +46,7 @@ from ..ops.geometry import DiscreteGeometry
 from ..ops.p1op import p1_operators
 from ..solvers import direct
 from ..solvers.api import EMISolver, KNPSolver
-from ..solvers.mg import build_hierarchy_cached
+from ..solvers.mg import build_hierarchy_cached, refresh_hierarchy
 from ..solvers.precision import bdot2, dot2
 from ..systems.coupling import (
     membrane_maps, set_initial_conditions, update_pde_variables,
@@ -70,6 +79,14 @@ class SolverOptions:
     # store the fine-level smoothing slab in bfloat16 (storage only: the
     # kernel upcasts after the read; needs mg_banded)
     mg_band_bf16: bool = False
+    # refresh the lagged EMI hierarchy's values from the current
+    # concentrations every N steps of Simulation.run, at a chunk boundary
+    # (0: never): transfers and shapes frozen, the values copied into the
+    # device tensors in place (Simulation.refresh_mg)
+    mg_refresh_every: int = 0
+    # build the refreshed values on one background host thread (numpy and
+    # scipy only) and install them at a later chunk boundary
+    mg_refresh_async: bool = True
 
 
 def _global_rcm(A_hat, s):
@@ -101,6 +118,12 @@ class Simulation:
         self.mem_models = {mm.tag: mm for mm in mem_models}
         opts = solver_options or SolverOptions()
         self.opts = opts
+        # hierarchy refreshes installed and skipped (layout drift)
+        self.refresh_counts = {"installed": 0, "skipped": 0}
+        self._refresh_pool = None
+        self._refresh_future = None
+        self._last_refresh = 0
+        self.refresh_stats = None  # the last installed refill's (DeviceMG.refill_arrays)
         # host seconds of each part of the set-up, in the order it runs
         self.setup_seconds = {}
         t0 = time.perf_counter()
@@ -112,7 +135,8 @@ class Simulation:
         t0 = self._lap("emi_system", t0)
         self.knp_sys = KNPSystem(geom, ions, params, splitting_scheme,
                                  dtype=dtype, device=self.device, p1ops=p1ops,
-                                 per_ion=not opts.knp_batched)
+                                 per_ion=not opts.knp_batched,
+                                 kst={t: s["kst"] for t, s in self.emi_sys.sub.items()})
         t0 = self._lap("knp_system", t0)
         # compensated Krylov inner products in float32
         comp = dtype == torch.float32
@@ -138,9 +162,10 @@ class Simulation:
         return t1
 
     # ------------------------------------------------------------------
-    def _hierarchy(self, A_hat, s):
+    def _hierarchy(self, A_hat, s, batched: bool = False):
         """Global RCM of the equilibrated operator, then the (cached) SA
-        build, uploaded to the device; returns the DeviceMG."""
+        build, uploaded to the device (``batched``: for a cycle on B
+        vectors at once); returns the host hierarchy and the DeviceMG."""
         A_hat, s, perm = _global_rcm(A_hat, s)
         kw = {}
         if self.opts.mg_banded:
@@ -154,7 +179,8 @@ class Simulation:
         )
         hier.perm = perm
         band_dtype = torch.bfloat16 if self.opts.mg_band_bf16 else None
-        return hier, hier.device(self.dtype, self.device, band_dtype=band_dtype)
+        return hier, hier.device(self.dtype, self.device, band_dtype=band_dtype,
+                                 batched=batched)
 
     def _setup_emi_mg(self):
         """Lagged EMI hierarchy from the initial conductivity (host, once)."""
@@ -163,7 +189,7 @@ class Simulation:
         kappa = {t: v.numpy() for t, v in self.emi_sys.kappa(c0).items()}
         A0 = direct.assemble_emi_csr(self.geom, self.params, kappa)
         d = A0.diagonal()
-        diag0 = np.where(d != 0, d, 1.0)
+        self._emi_diag0 = diag0 = np.where(d != 0, d, 1.0)
         s = 1.0 / np.sqrt(np.abs(diag0))
         A_hat = (sp.diags(s) @ A0 @ sp.diags(s)).tocsr()
         self._emi_hier, mg = self._hierarchy(A_hat, s)
@@ -186,9 +212,113 @@ class Simulation:
             d = np.where(d != 0, d, 1.0)
             s = 1.0 / np.sqrt(np.abs(d))
             A_hat = (sp.diags(s) @ A0 @ sp.diags(s)).tocsr()
-            _, mg[t] = self._hierarchy(A_hat, s)
+            _, mg[t] = self._hierarchy(A_hat, s, batched=self.opts.knp_batched)
             mg[t].fine_diag = torch.as_tensor(d, dtype=self.dtype, device=self.device)
         self.knp_solver.mg = mg
+
+    # -- the lagged EMI hierarchy's refresh ----------------------------
+    def _emi_operator(self, c_host):
+        """The EMI operator for the concentrations ``c_host`` ({tag: numpy
+        (N_ions, n)}) in the hierarchy's space: assembled on the host,
+        equilibrated with the FROZEN setup scale and permuted by the
+        hierarchy's RCM — the frozen transfers reproduce the setup's
+        near-null vector 1/s only in that scaled space (the JAX package's
+        ``_refresh_payload``)."""
+        F, psi = self.params.F, self.params.psi
+        kappa = {}
+        for t in self.emi_sys.tags:
+            acc = 0.0
+            for k, ion in enumerate(self.ions):
+                acc = acc + (ion.z ** 2) * ion.D[t] * np.asarray(c_host[t][k])
+            kappa[t] = F * psi * acc
+        A0 = direct.assemble_emi_csr(self.geom, self.params, kappa)
+        s = 1.0 / np.sqrt(np.abs(self._emi_diag0))
+        A_hat = (sp.diags(s) @ A0 @ sp.diags(s)).tocsr()
+        perm = self._emi_hier.perm
+        return A_hat if perm is None else A_hat[perm][:, perm].tocsr()
+
+    def _refresh_payload(self, c_host):
+        """The refreshed EMI hierarchy for the concentrations ``c_host``, on
+        the host in numpy/scipy only (safe on a worker thread):
+        ``refresh_hierarchy`` of :meth:`_emi_operator`, and the arrays the
+        device refill copies.  Returns ((hier, pairs, stats), None) or
+        (None, reason)."""
+        A_hat = self._emi_operator(c_host)
+        mg = self.emi_solver.mg
+        try:
+            hier = refresh_hierarchy(self._emi_hier, A_hat)
+            pairs, stats = mg.refill_arrays(hier)
+        except ValueError as e:
+            return None, str(e)
+        return (hier, pairs + [(mg.fine_diag, self._emi_diag0)], stats), None
+
+    def _install_refreshed(self, hier, pairs, stats):
+        """Copy a refreshed hierarchy's values into the device tensors (main
+        thread, stream-ordered ``copy_``); no tensor is reallocated."""
+        self._emi_hier = hier
+        self.emi_solver.mg.install(pairs)
+        self.refresh_counts["installed"] += 1
+        self.refresh_stats = stats
+
+    def _skip_refresh(self, err: str):
+        self.refresh_counts["skipped"] += 1
+        warnings.warn(f"MG refresh skipped (layout drift: {err}); keeping the "
+                      "stale hierarchy", RuntimeWarning, stacklevel=3)
+
+    def refresh_mg(self, state: SimState):
+        """Refresh the EMI hierarchy's values from ``state``'s concentrations
+        now, on this thread (:meth:`_refresh_payload`), transfers and
+        every shape frozen; a layout that drifted keeps the stale
+        hierarchy with a warning.  The KNP hierarchies' setup operator
+        (mass + mean-D stiffness) does not change in time."""
+        res, err = self._refresh_payload(
+            {t: v.detach().cpu().numpy() for t, v in state.c.items()})
+        if res is None:
+            self._skip_refresh(err)
+        else:
+            self._install_refreshed(*res)
+
+    def _maybe_refresh(self, state: SimState, host: Optional[SimState], done: int,
+                       n_steps: int):
+        every = self.opts.mg_refresh_every
+        if not every:
+            return
+        self._harvest_refresh(block=False)
+        # on the steps since the last refresh, not on divisibility: the
+        # chunk (save_every) need not divide mg_refresh_every
+        if done >= n_steps or done - self._last_refresh < every:
+            return
+        if not self.opts.mg_refresh_async:
+            self._last_refresh = done
+            self.refresh_mg(state)
+            return
+        if self._refresh_future is not None:
+            return  # the previous rebuild still runs; retry after the next chunk
+        if self._refresh_pool is None:
+            self._refresh_pool = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="mg-refresh")
+        self._last_refresh = done
+        c_host = {t: (host.c[t] if host is not None else v.detach().cpu()).numpy()
+                  for t, v in state.c.items()}
+        self._refresh_future = self._refresh_pool.submit(self._refresh_payload, c_host)
+
+    def _harvest_refresh(self, block: bool):
+        fut = self._refresh_future
+        if fut is None or (not block and not fut.done()):
+            return
+        self._refresh_future = None
+        res, err = fut.result()
+        if res is None:
+            self._skip_refresh(err)
+        else:
+            self._install_refreshed(*res)
+
+    def _close_refresh(self):
+        """Install a rebuild still in flight and stop the worker thread."""
+        self._harvest_refresh(block=True)
+        if self._refresh_pool is not None:
+            self._refresh_pool.shutdown(wait=True)
+            self._refresh_pool = None
 
     # ------------------------------------------------------------------
     def init_state(self) -> SimState:
@@ -270,19 +400,54 @@ class Simulation:
             knp_res=knp_info.resnorm.to(self.dtype),
         )
 
-    def run(self, state: SimState, n_steps: int):
-        """Advance n_steps; returns (state, emi_iters[], knp_iters[],
-        converged[]) with one entry per step.  Raises on a solve that did
-        not converge (the reference's ksp_error_if_not_converged)."""
+    def run(self, state: SimState, n_steps: int, save_every: Optional[int] = None,
+            observer: Optional[Callable[[SimState], None]] = None):
+        """Advance n_steps in chunks of ``save_every`` steps (default: one
+        chunk); after each chunk read the iteration counts once, call
+        ``observer`` with a host (CPU) copy of the state and, every
+        ``SolverOptions.mg_refresh_every`` steps since the last refresh
+        and before the last chunk, refresh the EMI hierarchy (on a worker
+        thread with ``mg_refresh_async``, installed at a later chunk
+        boundary; a rebuild still in flight when the run ends is waited
+        for and installed, and the worker stopped).  Returns (state,
+        emi_iters[], knp_iters[], converged[]) with one entry per step.
+        Raises on a solve that did not converge (the reference's
+        ksp_error_if_not_converged), after the chunk that holds it."""
+        chunk_n = save_every or n_steps
         it_e, it_k, ok = [], [], []
-        for k in range(n_steps):
-            state = self.step(state)
-            it_e.append(int(state.emi_iters))
-            it_k.append(int(state.knp_iters))
-            ok.append(bool(state.emi_ok) and bool(state.knp_ok))
-            if not ok[-1]:
-                raise RuntimeError(
-                    f"Krylov solve did NOT converge at step {k + 1}: "
-                    f"emi_ok={bool(state.emi_ok)} (res {float(state.emi_res):.3e}), "
-                    f"knp_ok={bool(state.knp_ok)} (res {float(state.knp_res):.3e})")
+        done = 0
+        self._last_refresh = 0
+        try:
+            while done < n_steps:
+                n = min(chunk_n, n_steps - done)
+                diag = []
+                for _ in range(n):
+                    state = self.step(state)
+                    diag.append(torch.stack([
+                        state.emi_iters.to(torch.int64), state.knp_iters.to(torch.int64),
+                        (state.emi_ok & state.knp_ok).to(torch.int64)]))
+                diag = torch.stack(diag).cpu().numpy()  # one host read per chunk
+                it_e += diag[:, 0].tolist()
+                it_k += diag[:, 1].tolist()
+                ok += diag[:, 2].astype(bool).tolist()
+                done += n
+                if not all(ok[-n:]):
+                    bad = done - n + ok[-n:].index(False) + 1
+                    raise RuntimeError(
+                        f"Krylov solve did NOT converge at step {bad}; the chunk's last "
+                        f"step: emi_ok={bool(state.emi_ok)} (res {float(state.emi_res):.3e}), "
+                        f"knp_ok={bool(state.knp_ok)} (res {float(state.knp_res):.3e})")
+                host = _to_host(state) if observer is not None else None
+                self._maybe_refresh(state, host, done, n_steps)
+                if observer is not None:
+                    observer(host)
+        finally:
+            self._close_refresh()
         return state, np.array(it_e), np.array(it_k), np.array(ok)
+
+
+def _to_host(state: SimState) -> SimState:
+    """A copy of ``state`` with every tensor on the CPU."""
+    cpu = lambda v: {k: t.detach().to("cpu", copy=True) for k, t in v.items()} \
+        if isinstance(v, dict) else v.detach().to("cpu", copy=True)
+    return SimState(**{f: cpu(getattr(state, f)) for f in SimState.__dataclass_fields__})

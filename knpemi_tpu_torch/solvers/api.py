@@ -8,8 +8,8 @@ package's two branches: batched over the solved ions of each subdomain
 (one K3 pass and one batched V-cycle per iteration, the branch the JAX
 package takes with ``use_pallas``) and per ion (one GMRES per
 (subdomain, ion) block on the single-ion operator K11 with the
-single-vector V-cycle, the branch it takes without; the drift values
-K11 reads are filled once per subdomain and solve).  Only the
+single-vector V-cycle, the branch it takes without); in both, the drift
+values K3 or K11 read are filled once per subdomain and solve (K11f).  Only the
 iterative multigrid path is ported; the JAX package's direct LU path
 and its deflated-Jacobi EMI fallback are not.
 """
@@ -96,10 +96,12 @@ class KNPSolver:
 
     def _solve_batched(self, t, rhs_t, diag, x0_t, gradphi_t, mg_t) -> KrylovResult:
         """All solved ions of subdomain ``t`` in one GMRES on K3's operator
-        with the batched V-cycle; x and resnorm have one row per ion."""
+        with the batched V-cycle, the drift values filled once (K11f); x
+        and resnorm have one row per ion."""
         sys_ = self.system
+        Dr = sys_.drift_values(t, gradphi_t)
         s_eq = 1.0 / torch.sqrt(torch.abs(diag))  # (Ns, n)
-        A_hat = lambda V: s_eq * sys_.matvec_batch(t, s_eq * V, gradphi_t)
+        A_hat = lambda V: s_eq * sys_.matvec_batch(t, s_eq * V, Dr)
         M = None
         if mg_t is not None:
             # level 0 smooths with its lagged ELL operator: no A0 needed

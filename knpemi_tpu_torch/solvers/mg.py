@@ -21,12 +21,16 @@ or, where that is refused, its windowed-ELL layout (``ops/ell.py``,
 kernels K4, K5, K6a, K6b); the cycle takes band, then windowed ELL, then
 plain ELL, and computes the post-smoothing residual from AP where that
 is stored.  The layout *decisions* are the JAX package's (they were made
-for TPU costs and are kept so the two cycles do the same arithmetic);
-its value refresh of a built hierarchy is not ported.
+for TPU costs and are kept so the two cycles do the same arithmetic).
 
 The hierarchy is *lagged*: built from the initial operator and reused
 as the preconditioner while the Krylov solve targets the current
-operator exactly.
+operator exactly.  :func:`refresh_hierarchy` (the JAX package's) gives a
+built hierarchy the values of a new operator of the same structure,
+with the transfers frozen and every array's shape kept;
+:meth:`DeviceMG.refill_arrays` pairs them with the tensors the device
+cycle already holds and :meth:`DeviceMG.install` copies them in, so
+that no tensor is reallocated.
 """
 
 from __future__ import annotations
@@ -239,8 +243,10 @@ def _lam_max_jacobi(A: sp.csr_matrix, iters: int = 30) -> float:
     return float(max(lam, 1e-30))
 
 
-def _csr_to_ell(A: sp.csr_matrix, pad_diag=True):
-    """ELL layout (cols, vals) of a CSR matrix, rows padded to the widest."""
+def _csr_to_ell(A: sp.csr_matrix, pad_diag=True, K=None):
+    """ELL layout (cols, vals) of a CSR matrix, rows padded to the widest;
+    ``K`` forces the width (the frozen shape of a refresh): rows wider
+    than K drop their smallest-|value| entries."""
     A = A.tocsr()
     n = A.shape[0]
     Kmax = max(int(np.diff(A.indptr).max()), 1)
@@ -251,10 +257,21 @@ def _csr_to_ell(A: sp.csr_matrix, pad_diag=True):
     pos = np.arange(A.nnz) - np.repeat(A.indptr[:-1], nnz_per_row)
     cols[rows, pos] = A.indices
     vals[rows, pos] = A.data
+    pos_mask = np.zeros((n, Kmax), dtype=bool)
+    pos_mask[rows, pos] = True
+    if K is not None and K != Kmax:
+        if Kmax > K:
+            order = np.argsort(-np.abs(vals), axis=1)[:, :K]
+            r = np.arange(n)[:, None]
+            cols, vals, pos_mask = cols[r, order], vals[r, order], pos_mask[r, order]
+        else:
+            pad = K - Kmax
+            cols = np.pad(cols, ((0, 0), (0, pad)))
+            vals = np.pad(vals, ((0, 0), (0, pad)))
+            pos_mask = np.pad(pos_mask, ((0, 0), (0, pad)))
+        Kmax = K
     if pad_diag:
         # unused slots point at the row itself with zero value
-        pos_mask = np.zeros((n, Kmax), dtype=bool)
-        pos_mask[rows, pos] = True
         cols[~pos_mask] = np.repeat(np.arange(n)[:, None], Kmax, 1)[~pos_mask]
     return cols, vals
 
@@ -403,6 +420,55 @@ def _csr_to_banded(A: sp.csr_matrix, R: int = 256, W_cap: int = 4096,
     return windows, far_rows, far_cols, far_vals, n, m
 
 
+def _csr_fill_banded(A: sp.csr_matrix, band):
+    """Refill a block-banded layout with the values of ``A``, keeping the
+    window geometry (w0, W) and so every array's shape; ``A`` has the
+    sparsity of the matrix the layout was built from up to small drift:
+    far entries that disappeared are padded with zeros, the smallest
+    extra ones dropped (the JAX package's ``_csr_fill_banded``)."""
+    windows, fr, fc, fv, n, m = band
+    A = A.tocsr()
+    assert A.shape == (n, m)
+    indptr, indices, data = A.indptr, A.indices, A.data
+    rows = np.repeat(np.arange(n), np.diff(indptr))
+    R = windows[0][0].shape[1]
+    blk = rows // R
+    remaining = np.ones(A.nnz, bool)
+    new_windows = []
+    for slabT_old, w0, W in windows:
+        loc = indices - w0[blk]
+        inside = remaining & (loc >= 0) & (loc < W)
+        slabT = np.zeros_like(slabT_old)
+        slabT[blk[inside] * W + loc[inside], rows[inside] % R] = data[inside]
+        new_windows.append((slabT, w0, W))
+        remaining = remaining & ~inside
+    far_rows = rows[remaining].astype(np.int32)
+    far_cols = indices[remaining].astype(np.int32)
+    far_vals = data[remaining]
+    target = len(fr)
+    if len(far_rows) < target:
+        pad = target - len(far_rows)
+        far_rows = np.concatenate([far_rows, np.zeros(pad, np.int32)])
+        far_cols = np.concatenate([far_cols, np.zeros(pad, np.int32)])
+        far_vals = np.concatenate([far_vals, np.zeros(pad, far_vals.dtype)])
+    elif len(far_rows) > target:
+        keep = np.argsort(np.abs(far_vals))[::-1][:target]
+        far_rows, far_cols, far_vals = far_rows[keep], far_cols[keep], far_vals[keep]
+    return new_windows, far_rows, far_cols, far_vals, n, m
+
+
+def _drop_guard(what: str, ilev: int, total: float, kept: float, max_drop_frac: float):
+    if total > 0 and (total - kept) > max_drop_frac * total:
+        raise ValueError(
+            f"{what} at level {ilev} dropped {(total - kept) / total:.2e} of |A| "
+            f"mass (> {max_drop_frac:.0e}): sparsity pattern drifted")
+
+
+def _band_mass(band) -> float:
+    windows, _, _, fv, _, _ = band
+    return float(sum(np.abs(w[0]).sum() for w in windows) + np.abs(fv).sum())
+
+
 def _device_band(band, dtype, device, slab_dtype=None):
     """A :func:`_csr_to_banded` layout as device tensors: each window in
     the packed form K7/K8 read (``ops/banded.py::pack_window``, values in
@@ -433,8 +499,13 @@ class MGHierarchy:
     nu: int = 1
     perm: Optional[np.ndarray] = None
 
-    def device(self, dtype, device, band_dtype=None) -> "DeviceMG":
-        """Upload to ``device`` in ``dtype``.  ``band_dtype`` is the STORAGE
+    def device(self, dtype, device, band_dtype=None, batched: bool = False) -> "DeviceMG":
+        """Upload to ``device`` in ``dtype``.  ``batched``: the cycle runs on
+        B vectors at once (the ion-batched KNP solve), so every windowed-ELL
+        layout that it applies forward (A, P, AP) gets the sliced form K6a
+        reads, and A and AP lose the row-major one that nothing then reads
+        (P keeps it where the restriction scatters through the same
+        layout).  ``band_dtype`` is the STORAGE
         type of the fine-level smoothing slab's packed values
         (``torch.bfloat16`` halves their bytes; default ``dtype``): the
         kernel upcasts each value after the read and never rounds the
@@ -447,13 +518,24 @@ class MGHierarchy:
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         iperm = np.argsort(self.perm) if self.perm is not None else None
         dev_band = lambda band, slab_dt=None: _device_band(band, dtype, device, slab_dt)
-        ellw_done = {}  # p_ellw and pt_ellw are often one layout
+        # the forms each layout needs: p_ellw and pt_ellw are often one
+        # layout, gathered forward and scattered transposed
+        need = {}
+        for lv in self.levels:
+            for w in ("a", "ap", "p", "pt"):
+                e = getattr(lv, w + "_ellw")
+                if e is not None:
+                    rm, sl = need.get(id(e), (False, False))
+                    need[id(e)] = (rm or not batched or w == "pt",
+                                   sl or (batched and w != "pt"))
+        ellw_done = {}
 
         def dev_ellw(e):
             if e is None:
                 return None
             if id(e) not in ellw_done:
-                ellw_done[id(e)] = e.device(dtype, device)
+                rm, sl = need[id(e)]
+                ellw_done[id(e)] = e.device(dtype, device, row_major=rm, sliced=sl)
             return ellw_done[id(e)]
 
         out = []
@@ -469,8 +551,8 @@ class MGHierarchy:
                 n=lv.n,
                 dinv=as_f(1.0 / lv.diag),
                 dinv_solver=dinv_solver,
-                # rounded to the run dtype, as the JAX arrays are
-                omega=float(np_dtype(lv.omega)),
+                # a 0-d tensor, so that a refill can overwrite it in place
+                omega=torch.tensor(np_dtype(lv.omega), dtype=dtype, device=device),
                 a_cols=None if lv.a_cols is None else as_i(lv.a_cols),
                 a_vals=None if lv.a_vals is None else as_f(lv.a_vals),
                 p_cols=as_i(lv.p_cols), p_vals=as_f(lv.p_vals),
@@ -653,6 +735,70 @@ def build_hierarchy_cached(A0: sp.csr_matrix, B: Optional[np.ndarray] = None,
     return hier
 
 
+def refresh_hierarchy(hier: MGHierarchy, A_hat_new: sp.csr_matrix,
+                      max_drop_frac: float = 1e-5) -> MGHierarchy:
+    """The values of ``hier`` for a new operator ``A_hat_new`` of the same
+    structure (already permuted by ``hier.perm``), every array's shape
+    kept: the JAX package's ``refresh_hierarchy``, which it runs every
+    ``mg_refresh_every`` steps on the EMI hierarchy.
+
+    The transfers P are FROZEN at their setup values; each level's
+    operator is recomputed as the Galerkin product P^T A P with the
+    frozen P, its diagonal, its smoother weight from a new power
+    iteration, its stored ELL, banded and windowed-ELL layouts refilled
+    in their frozen shapes, and the coarsest level re-factored by eigh.
+    Small pattern drift (float32 kappa rounding makes and unmakes exact
+    zeros) is tolerated as there: entries that vanished leave zeros, the
+    smallest extra ones are dropped.  Raises ``ValueError`` where a
+    refill drops more than ``max_drop_frac`` of a level's |A| (or |AP|)
+    mass, where a windowed-ELL layout no longer fits
+    (``build_ellw(force_shape)``), or on a level-size mismatch: the
+    caller keeps the stale hierarchy."""
+    A = A_hat_new.tocsr()
+    new_levels: List[MGLevel] = []
+    for ilev, lv in enumerate(hier.levels):
+        if A.shape[0] != lv.n:
+            raise ValueError("level size mismatch during refresh")
+        diag = A.diagonal()
+        diag = np.where(np.abs(diag) > 0, diag, 1.0)
+        lam = _lam_max_jacobi(A)
+        nl = MGLevel(
+            n=lv.n, diag=diag, omega=4.0 / (3.0 * lam),
+            p_cols=lv.p_cols, p_vals=lv.p_vals,
+            pt_cols=lv.pt_cols, pt_vals=lv.pt_vals,
+            p_band=lv.p_band, pt_band=lv.pt_band,
+            # transfer ellw layouts are frozen with P itself
+            p_ellw=lv.p_ellw, pt_ellw=lv.pt_ellw, P_csr=lv.P_csr,
+        )
+        total_mass = float(np.abs(A.data).sum())
+        if lv.a_cols is not None:
+            nl.a_cols, nl.a_vals = _csr_to_ell(A, K=lv.a_vals.shape[1])
+            _drop_guard("ELL refill", ilev, total_mass,
+                        float(np.abs(nl.a_vals).sum()), max_drop_frac)
+        if lv.a_band is not None:
+            nl.a_band = _csr_fill_banded(A, lv.a_band)
+            _drop_guard("banded refill", ilev, total_mass, _band_mass(nl.a_band),
+                        max_drop_frac)
+        if lv.a_ellw is not None:
+            e = lv.a_ellw
+            nl.a_ellw = ell_ops.build_ellw(A, force_shape=(e.C, e.K, e.Wr, e.G, e.far_cap))
+        AP = (A @ lv.P_csr).tocsr()  # reused for the Galerkin RAP below
+        if lv.ap_ellw is not None:
+            e = lv.ap_ellw
+            nl.ap_ellw = ell_ops.build_ellw(AP, force_shape=(e.C, e.K, e.Wr, e.G, e.far_cap))
+        if lv.ap_band is not None:
+            nl.ap_band = _csr_fill_banded(AP, lv.ap_band)
+            _drop_guard("AP banded refill", ilev, float(np.abs(AP.data).sum()),
+                        _band_mass(nl.ap_band), max_drop_frac)
+        new_levels.append(nl)
+        A = (lv.P_csr.T @ AP).tocsr()
+    lam, V = np.linalg.eigh(A.toarray())
+    lmax = np.abs(lam).max() if len(lam) else 1.0
+    ilam = np.where(np.abs(lam) > 1e-10 * lmax, 1.0 / lam, 0.0)
+    return MGHierarchy(levels=new_levels, coarse_V=V, coarse_ilam=ilam,
+                       nu=hier.nu, perm=hier.perm)
+
+
 # ---------------------------------------------------------------------------
 # device-side application
 # ---------------------------------------------------------------------------
@@ -698,6 +844,85 @@ class DeviceMG:
         self.perm = perm
         self.iperm = iperm
         self.fine_diag = fine_diag
+
+    def refill_arrays(self, hier: MGHierarchy, max_drop_frac: float = 1e-5):
+        """What :meth:`install` copies to give this cycle the values of
+        ``hier``, a refreshed copy of the host hierarchy it was uploaded
+        from: ``([(device tensor, host array)], stats)``.  Host numpy only
+        (safe on a worker thread): the diagonals, smoother weights, the
+        lagged operators' ELL, windowed-ELL (both device forms) and packed
+        band values, AP's, and the coarse factors; the transfers are
+        frozen.  A packed band window keeps the slots it was built with:
+        a refreshed nonzero without a slot is dropped and counted in
+        ``stats`` (``band_dropped``, ``band_dropped_frac`` of the level's
+        |A| mass), and more than ``max_drop_frac`` raises ``ValueError``."""
+        iperm = None if hier.perm is None else np.argsort(hier.perm)
+        pairs, stats = [], dict(band_dropped=0, band_dropped_frac=0.0)
+        if len(hier.levels) != len(self.levels):
+            raise ValueError("the refreshed hierarchy has another number of levels")
+        for i, (lv, hl) in enumerate(zip(self.levels, hier.levels)):
+            dinv = 1.0 / hl.diag
+            pairs += [(lv["dinv"], dinv), (lv["omega"], np.asarray(hl.omega))]
+            if lv["dinv_solver"] is not None:
+                pairs.append((lv["dinv_solver"], dinv[iperm]))
+            if lv["a_cols"] is not None:
+                pairs += [(lv["a_cols"], hl.a_cols), (lv["a_vals"], hl.a_vals)]
+            for w in ("a", "ap"):
+                band, hband = lv[w + "_band"], getattr(hl, w + "_band")
+                if band is not None:
+                    windows, far_rows, far_cols, far_vals, _, _ = hband
+                    dropped = 0.0
+                    for win, (slabT, _, _) in zip(band["windows"], windows):
+                        wp, nd, mass = band_ops.repack_window(win, slabT)
+                        pairs += wp
+                        stats["band_dropped"] += nd
+                        dropped += mass
+                    frac = dropped / max(_band_mass(hband), 1e-300)
+                    stats["band_dropped_frac"] = max(stats["band_dropped_frac"], frac)
+                    if frac > max_drop_frac:
+                        raise ValueError(
+                            f"packed {w}_band refill at level {i} dropped {frac:.2e} "
+                            f"of its |A| mass (> {max_drop_frac:.0e}): no slot for "
+                            "a refreshed nonzero")
+                    pairs += [(band["far_rows"], far_rows), (band["far_cols"], far_cols),
+                              (band["far_vals"], far_vals)]
+                e = lv[w + "_ellw"]
+                if e is not None:
+                    pairs += getattr(hl, w + "_ellw").refill_arrays(e)
+        pairs += [(self.coarse_V, hier.coarse_V), (self.coarse_ilam, hier.coarse_ilam)]
+        for t, a in pairs:
+            if tuple(t.shape) != tuple(np.shape(a)):
+                raise ValueError(f"refill of shape {np.shape(a)} into a tensor of "
+                                 f"shape {tuple(t.shape)}")
+        return pairs, stats
+
+    @staticmethod
+    def install(pairs):
+        """Copy each host array into its device tensor in place (stream-
+        ordered ``copy_``): shapes and storage stay as they were."""
+        with torch.no_grad():
+            for t, a in pairs:
+                t.copy_(torch.as_tensor(np.asarray(a)))
+
+    def tensors(self):
+        """Every device tensor of the cycle (for checks that a refill keeps
+        them in place)."""
+        out = [self.coarse_V, self.coarse_ilam]
+        for t in (self.perm, self.iperm, self.fine_diag):
+            if t is not None:
+                out.append(t)
+        for lv in self.levels:
+            for key, v in lv.items():
+                if torch.is_tensor(v):
+                    out.append(v)
+                elif isinstance(v, dict):  # a band
+                    out += [v["far_rows"], v["far_cols"], v["far_vals"]]
+                    for win in v["windows"]:
+                        out += [win.slot_ptr, win.off, win.val, win.w0]
+                elif isinstance(v, ell_ops.DeviceELLW):
+                    out += [t for t in (v.cols, v.vals, v.slot_ptr, v.scol, v.sval)
+                            if t is not None]
+        return out
 
     def layout(self):
         """Per level, the form the cycle takes for A, P, P^T and AP: 'band',

@@ -7,15 +7,18 @@ is eliminated) one implicit-Euler advection-diffusion equation
     (1/dt) int u v + int D_k grad(u).grad(v) + z_k psi int D_k u grad(phi).grad(v)
   = (1/dt) int c_prev v + gate(t) int f_k v + membrane Robin terms.
 
-The left-hand side has no interface terms, so the solved ions of one
-subdomain form a batch: K3 (:func:`ops.assembly.knp_apply_batch`)
-applies all of them in one pass, with grad(phi) per cell from K4.  The
-per-ion solve applies one ion's operator as an assembled P1 operator
-(:class:`ops.p1op.P1Operator`, shared with the EMI system): its constant
-part P_b = (1/dt) M + D_b K is assembled once per ion at setup
-(:func:`ion_operator_values`), its drift part filled once per solve
-and subdomain by K11f (:func:`ops.p1op.drift_fill`) for all ions, and K11
-(:func:`ops.p1op.knp_apply`) applies P_b + z_b psi D_b Dr.  The ECS
+Both solves apply the operators on the subdomain's assembled P1
+operator (:class:`ops.p1op.P1Operator`, shared with the EMI system),
+with the drift part filled once per solve and subdomain by K11f
+(:func:`ops.p1op.drift_fill`) from grad(phi) per cell (K4) for all
+ions.  The left-hand side has no interface terms, so the solved ions of
+one subdomain form a batch: K3 (:func:`ops.p1op.knp_apply_batch`)
+applies all of them in one pass from three value streams, the unit mass
+M assembled at setup, the EMI system's unit stiffness and the drift,
+and applies the right-hand side's mass term from M alone.  The per-ion
+solve applies one ion's operator with K11 (:func:`ops.p1op.knp_apply`):
+its constant part P_b = (1/dt) M + D_b K assembled once per ion at setup
+(:func:`ion_operator_values`), plus z_b psi D_b Dr.  The ECS
 source f_k has a static spatial profile (only its scalar gate varies in
 time), so its load vector is assembled once.
 The membrane Robin right-hand side runs in membrane-dof space: K9 gathers
@@ -57,11 +60,13 @@ def ion_operator_values(op: P.P1Operator, cells, grads, vols, dt_inv: float,
 class KNPSystem:
     def __init__(self, geom: DiscreteGeometry, ions: List[Ion],
                  params: PhysicalParams, splitting_scheme: bool = True,
-                 dtype=torch.float64, device=None, *, p1ops, per_ion: bool = False):
+                 dtype=torch.float64, device=None, *, p1ops, kst, per_ion: bool = False):
         """``p1ops``: {tag: P1Operator} of ``geom`` on ``device``
         (:func:`ops.p1op.p1_operators`), shared with the EMI system;
         ``per_ion``: assemble each solved ion's operator values for the
-        per-ion solve (K11), which the batched one (K3) never reads."""
+        per-ion solve (K11), which the batched one (K3) never reads;
+        ``kst``: {tag: the unit stiffness's values on that operator}, the
+        EMI system's tensors (shared, not copied), K3's second stream."""
         device = resolve_device(device)
         self.geom = geom
         self.ions = ions
@@ -85,16 +90,19 @@ class KNPSystem:
         for t, s in geom.subdomains.items():
             gc, gv = A.cell_gradient_ell(s.cells, s.grads, s.n_dofs)
             D_t = [ion.D[t] for ion in ions[:-1]]
+            op = p1ops[t]
             self.sub[t] = dict(
-                n_dofs=s.n_dofs, n_cells=s.n_cells, op=p1ops[t], cells=p1ops[t].cells,
+                n_dofs=s.n_dofs, n_cells=s.n_cells, op=op, cells=op.cells,
                 grads=as_f(s.grads), vols=as_f(s.vols),
                 grad_cols=as_i(gc), grad_vals=as_f(gv),
+                # K3's value streams: the unit mass and the unit stiffness
+                M=P.mass_values(op, s.cells, s.vols, dtype),
+                kst=kst[t],
                 # K3 rows [1/dt, D, z psi D]: the solve's operator, and the
                 # right-hand side's mass term (D = z = 0)
                 coef=as_f([[1.0 / dt, D, ion.z * psi * D]
                            for ion, D in zip(ions[:-1], D_t)]),
                 coef_mass=as_f([[1.0 / dt, 0.0, 0.0]] * Ns),
-                zero_w=torch.zeros(s.n_cells, self.dim, dtype=dtype, device=device),
             )
         self.mem = {}
         for m, sp in geom.membranes.items():
@@ -146,16 +154,15 @@ class KNPSystem:
             for t, s in self.sub.items()
         }
 
-    def matvec_batch(self, tag: int, X: torch.Tensor, gradphi: torch.Tensor):
-        """All solved ion systems of one subdomain in one K3 pass:
-        X (N_solved, n) -> (N_solved, n)."""
+    def matvec_batch(self, tag: int, X: torch.Tensor, Dr: torch.Tensor):
+        """All solved ion systems of one subdomain in one K3 pass, with
+        ``Dr`` from :meth:`drift_values`: X (N_solved, n) -> (N_solved, n)."""
         s = self.sub[tag]
-        return A.knp_apply_batch(X.contiguous(), s["cells"], s["grads"], s["vols"],
-                                 gradphi, s["coef"])
+        return P.knp_apply_batch(X.contiguous(), s["op"], s["coef"], s["M"], s["kst"], Dr)
 
     def drift_values(self, tag: int, gradphi: torch.Tensor) -> torch.Tensor:
         """The drift along grad(phi) on the subdomain's P1 operator, by
-        K11f: once per solve, shared by every solved ion."""
+        K11f: once per solve, shared by every solved ion (K3 and K11)."""
         s = self.sub[tag]
         return P.drift_fill(s["op"], s["grads"], s["vols"], gradphi)
 
@@ -234,15 +241,15 @@ class KNPSystem:
 
     def rhs(self, c, phi, phi_M, I_ch=None, source_gate=1.0) -> Dict[int, torch.Tensor]:
         """RHS per subdomain: {tag: (N_solved, n)} — the mass term
-        (1/dt) M c_prev by K3 with D = z = 0, the gated source term, plus
+        (1/dt) M c_prev by K3's mass-only apply, the gated source term, plus
         the membrane terms.  ``source_gate`` is a number or a 0-d tensor."""
         Ns = self.n_solved
         if torch.is_tensor(source_gate):
             source_gate = source_gate.to(self.dtype)
         r = {}
         for t, s in self.sub.items():
-            r[t] = A.knp_apply_batch(c[t][:Ns].contiguous(), s["cells"], s["grads"],
-                                     s["vols"], s["zero_w"], s["coef_mass"])
+            r[t] = P.knp_apply_batch(c[t][:Ns].contiguous(), s["op"], s["coef_mass"],
+                                     s["M"])
             if self._src_vec[t] is not None:
                 r[t] = r[t] + source_gate * self._src_vec[t]
         for m, mb in self.mem.items():

@@ -4,9 +4,10 @@ Skipped where there is no CUDA device (the CPU test machines); on the
 GPU run ``python -m pytest tests/test_torch_cuda.py -q --noconftest``.  Tolerances:
 the kernels sum with atomics or with fused multiply-adds, in another
 order than the plain versions: 1e-5 max|y| in float32, 1e-12 max|y| in
-float64.  K7/K8 run on the packed band windows (``ops/banded.py``); K1
-and K11 apply a subdomain's assembled P1 operator (``ops/p1op.py``),
-whose values K1f and K11f fill.
+float64.  K7/K8 run on the packed band windows (``ops/banded.py``), K6a
+on the sliced form of a windowed-ELL layout (``ops/ell.py``); K1, K3 and
+K11 apply a subdomain's assembled P1 operator (``ops/p1op.py``), whose
+per-solve values K1f and K11f fill.
 """
 
 import pytest
@@ -84,8 +85,9 @@ def test_step_launches_every_kernel(sim):
     assert ok.all()
     counts = ops.launch_counts()
     assert all(counts[k] for k in counts if k.split()[0] in
-               ("K1", "K1f", "K2", "K3", "K4", "K9", "K10"))
-    assert counts["K1f emi_fill"] == 2  # once per subdomain and EMI solve
+               ("K1", "K1f", "K2", "K3", "K4", "K9", "K10", "K11f"))
+    # once per subdomain and solve: the EMI values, the KNP drift
+    assert counts["K1f emi_fill"] == counts["K11f drift_fill"] == 2
 
 
 def test_per_ion_step_launches_k11_and_k3_only_for_the_mass_term(sim_astro):
@@ -172,6 +174,87 @@ def test_p1_wrappers_raise_rather_than_fall_back(sim_astro):
     with pytest.raises(TypeError):
         P.emi_fill(op, s["grads"], s["vols"].double())
     assert (P.emi_stiffness.launches, P.emi_fill.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k3_matches_plain_on_every_subdomain(sim_astro, dtype):
+    """K3 on the three tissue subdomains at B = 1, 2, 3: the full apply
+    (mass, stiffness, drift) and the right-hand side's mass-only apply."""
+    import chip_smoke
+
+    rows = chip_smoke.check_cases(chip_smoke.k3_cases(sim_astro, dtype, 1.0), dtype,
+                                  time_them=False)
+    assert len(rows) == 3 * 3 * 2
+    assert all(r["drift_share"] > 1e-3 for r in rows if "drift_share" in r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k6a_matches_plain_and_scipy_with_far_entries(dtype):
+    """K6a on the sliced form of a windowed-ELL layout with far entries
+    folded in, B = 1, 2, 8 and 9 (two launches), against the plain
+    version and the scipy product."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    import scipy.sparse as sp
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    rng = np.random.default_rng(0)
+    n = 20000
+    rows = np.repeat(np.arange(n), 6)
+    cols = np.clip(rows + rng.integers(-200, 201, len(rows)), 0, n - 1)
+    spill = rng.choice(len(cols), len(cols) // 50, replace=False)
+    cols[spill] = rng.integers(0, n, len(spill))
+    A = sp.coo_matrix((rng.standard_normal(len(rows)), (rows, cols)), shape=(n, n)).tocsr()
+    host = TE.build_ellw(A)
+    assert host.far_cap > 0
+    e = host.device(dtype, "cuda", sliced=True)
+    tol = {torch.float32: 1e-5, torch.float64: 1e-12}[dtype]
+    before = TE.ellw_matvec_batch.launches
+    for B in (1, 2, 8, 9):
+        X = torch.as_tensor(rng.standard_normal((B, n)), dtype=dtype, device="cuda")
+        Y, Y_ref = TE.ellw_matvec_batch(e, X), TE.ellw_matvec_batch_plain(e, X)
+        Ys = torch.as_tensor((A @ X.double().cpu().numpy().T).T)
+        torch.cuda.synchronize()
+        scale = float(Y_ref.abs().max())
+        assert float((Y - Y_ref).abs().max()) <= tol * scale
+        assert float((Y.double().cpu() - Ys).abs().max()) <= 10 * tol * scale
+    assert TE.ellw_matvec_batch.launches == before + 1 + 1 + 1 + 2
+
+
+def test_k3_and_k6a_raise_rather_than_fall_back(sim_astro):
+    """On the card K3 refuses a CPU operand, a wrong dtype or only one of
+    the stiffness and drift streams; K6a a layout without its sliced form
+    or a vector of the wrong length; neither launches then."""
+    import dataclasses
+
+    from knpemi_tpu_torch.ops import ell as TE
+    from knpemi_tpu_torch.ops import p1op as P
+
+    s = sim_astro.knp_sys.sub[0]
+    op, M, Kst = s["op"], s["M"], s["kst"]
+    X = torch.ones(2, s["n_dofs"], device="cuda")
+    Dr = torch.zeros(op.slots, device="cuda")
+    before = P.knp_apply_batch.launches
+    with pytest.raises(ValueError):
+        P.knp_apply_batch(X, op, s["coef"], M, Kst)
+    with pytest.raises(ValueError):
+        P.knp_apply_batch(X, op, s["coef"], M.cpu(), Kst, Dr)
+    with pytest.raises(TypeError):
+        P.knp_apply_batch(X, op, s["coef"], M, Kst, Dr.double())
+    assert P.knp_apply_batch.launches == before
+    import scipy.sparse as sp
+
+    A = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(500, 500)).tocsr()
+    e = TE.build_ellw(A).device(torch.float32, "cuda", sliced=True)
+    before = TE.ellw_matvec_batch.launches
+    with pytest.raises(ValueError):
+        TE.ellw_matvec_batch(dataclasses.replace(e, slot_ptr=None),
+                             torch.ones(2, 500, device="cuda"))
+    with pytest.raises(ValueError):
+        TE.ellw_matvec_batch(e, torch.ones(2, 499, device="cuda"))
+    assert TE.ellw_matvec_batch.launches == before
 
 
 def test_per_ion_banded_step_runs_the_knp_vcycle_on_single_vectors():

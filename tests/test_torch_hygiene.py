@@ -104,9 +104,10 @@ def test_simulation_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         set_initial_conditions(geom, ions)
     p1ops = p1_operators(geom, "cpu")
-    for cls in (EMISystem, KNPSystem):
+    # (KNPSystem also takes the EMI system's unit stiffness values)
+    for cls, kw in ((EMISystem, {}), (KNPSystem, {"kst": {}})):
         with pytest.raises(RuntimeError, match="CUDA"):
-            cls(geom, ions, params, p1ops=p1ops)
+            cls(geom, ions, params, p1ops=p1ops, **kw)
     c = set_initial_conditions(geom, ions, device="cpu")
     assert all(v.device.type == "cpu" for v in c.values())
     assert EMISystem(geom, ions, params, device="cpu", p1ops=p1ops).device == torch.device("cpu")
@@ -174,6 +175,34 @@ def test_k11_is_its_own_kernel_with_its_own_launch():
     assert ast.unparse(guard.test) == "not x.is_cuda"
     # the matrix-free cell kernels of K1 and K11 are gone
     assert "emi_stiffness_kernel" not in src and "knp_apply_kernel" not in src
+
+
+def test_k3_and_k6a_are_the_sliced_applies():
+    """K3 is the P1 operator's batched apply (its own entry point and
+    __global__ function in cells.cu; the one-thread-per-cell kernel with
+    atomics is gone), K6a the sliced-ELL gather (the row-major batched
+    gather is gone from mg.cu); each wrapper reaches its plain version
+    only under ``if not X.is_cuda:``."""
+    from knpemi_tpu_torch.ops import assembly, ell, p1op
+
+    cells = (PORT / "ops" / "csrc" / "cells.cu").read_text()
+    mg = (PORT / "ops" / "csrc" / "mg.cu").read_text()
+    assert assembly._SIGS["p1_apply_batch"][:2] == ("cells", "knp_p1_apply_batch")
+    assert assembly._SIGS["sliced_matvec_batch"][:2] == ("mg", "knp_sliced_matvec_batch")
+    assert "knp_apply_batch" not in assembly._SIGS and "ell_matvec_batch" not in assembly._SIGS
+    assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+p1_apply_batch_kernel\(",
+                     cells)
+    assert re.search(r"sliced_matvec_batch_kernel\(", mg)
+    assert "knp_apply_batch_kernel" not in cells and "atomicAdd(&y[v[i]]" not in cells
+    assert "ell_matvec_batch_kernel" not in mg
+    for mod, name in ((p1op, "knp_apply_batch"), (ell, "ellw_matvec_batch")):
+        tree = ast.parse(Path(mod.__file__).read_text())
+        fn = next(n for n in ast.walk(tree)
+                  if isinstance(n, ast.FunctionDef) and n.name == name)
+        guard = next(n for n in ast.walk(fn) if isinstance(n, ast.If)
+                     and any(isinstance(c, ast.Call) and getattr(c.func, "id", "") ==
+                             name + "_plain" for c in ast.walk(n)))
+        assert ast.unparse(guard.test) == "not X.is_cuda"
 
 
 @pytest.mark.parametrize("module", ["ell", "banded", "assembly", "p1op"])

@@ -1,9 +1,10 @@
 """The port's assembly kernel functions against the JAX package's.
 
-For each kernel of ``knpemi_tpu_torch/ops/assembly.py``, and K1 of
-``ops/p1op.py`` (the EMI stiffness as an assembled P1 operator: the
-values K1f fills, then the apply), the plain PyTorch version (what the
-wrapper runs on CPU tensors) is held
+For each kernel of ``knpemi_tpu_torch/ops/assembly.py``, and K1 and K3
+of ``ops/p1op.py`` (the EMI stiffness and the ion-batched KNP operator
+as an assembled P1 operator: K1 the values K1f fills, K3 the unit mass,
+the unit stiffness and the drift K11f fills, then the apply), the plain
+PyTorch version (what the wrapper runs on CPU tensors) is held
 
 * in float32 against the JAX Pallas wrapper in interpret mode, at
   5e-6 max|y| — the JAX kernels gather through bf16 split passes and
@@ -30,6 +31,7 @@ from knpemi_tpu.ops.pallas_ell import ellw_matvec
 from knpemi_tpu_torch import ops
 from knpemi_tpu_torch.ops import assembly as A
 from knpemi_tpu_torch.ops import p1op as P
+from knpemi_tpu_torch.solvers import direct
 
 MESHES = {
     "square12": lambda: unit_square_mms_mesh(12),
@@ -60,6 +62,25 @@ def k1(x, sub, wv):
     operator from wv, K1 applies it."""
     op = P.P1Operator(sub.cells, sub.n_dofs, "cpu")
     return P.emi_stiffness(x, op, P.emi_fill(op, t(sub.grads, x.dtype), wv))
+
+
+def k3(X, sub, w, coef, mass_only=False):
+    """K3 as the KNP system applies it on the subdomain's P1 operator: the
+    unit mass and unit stiffness assembled on the host, the drift filled
+    by K11f from w = grad(phi) per cell; ``mass_only``: the right-hand
+    side's apply, which reads the mass alone."""
+    dtype = X.dtype
+    op = P.P1Operator(sub.cells, sub.n_dofs, "cpu")
+    M = P.mass_values(op, sub.cells, sub.vols, dtype)
+    if mass_only:
+        return P.knp_apply_batch(X, op, coef, M)
+    Kst = t(op.assemble(direct._stiffness_coo(sub.cells, sub.grads, sub.vols)[2])[0], dtype)
+    Dr = P.drift_fill(op, t(sub.grads, dtype), t(sub.vols, dtype), w)
+    return P.knp_apply_batch(X, op, coef, M, Kst, Dr)
+
+
+# K3's ions: diffusion coefficients and valences of up to three
+K3_D, K3_Z = np.array([1.3, 2.0, 0.7]), np.array([1.0, -1.0, 2.0])
 
 
 def close(y, y_ref, tol):
@@ -114,14 +135,13 @@ def test_k2_facet_mass_vs_pallas(mesh):
         close(y, y_jax, TOL32)
 
 
-@pytest.mark.parametrize("mesh", list(MESHES))
-def test_k3_knp_apply_batch_vs_pallas(mesh):
+def _k3_vs_pallas(mesh, B, mass_only):
     geom = geometry(mesh)
     dt_inv, psi = 10.0, 38.7
-    D, z = np.array([1.3, 2.0]), np.array([1.0, -1.0])
+    D, z = (np.zeros(B), np.zeros(B)) if mass_only else (K3_D[:B], K3_Z[:B])
     for tag, sub in geom.subdomains.items():
         rng = np.random.default_rng(7 + tag)
-        X = rng.standard_normal((2, sub.n_dofs))
+        X = rng.standard_normal((B, sub.n_dofs))
         phi = rng.standard_normal(sub.n_dofs)
         bk = PA.build_blocking(sub.cells, sub.grads, sub.vols, sub.n_dofs)
         g32 = jnp.asarray(bk.grads_lane, jnp.float32)
@@ -133,10 +153,52 @@ def test_k3_knp_apply_batch_vs_pallas(mesh):
             interpret=True)
         gc, gv = A.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs)
         w = A.ell_matvec(ti(gc), t(gv), t(phi)).reshape(sub.n_cells, geom.dim)
-        coef = t(np.stack([np.full(2, dt_inv), D, z * psi * D], axis=1))
-        Y = A.knp_apply_batch(t(X), ti(sub.cells), t(sub.grads), t(sub.vols), w, coef)
-        for b in range(2):
+        coef = t(np.stack([np.full(B, dt_inv), D, z * psi * D], axis=1))
+        Y = k3(t(X), sub, w, coef, mass_only)
+        for b in range(B):
             close(Y[b], Y_jax[b], TOL32)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_k3_knp_apply_batch_vs_pallas(mesh):
+    _k3_vs_pallas(mesh, 2, mass_only=False)
+
+
+@pytest.mark.parametrize("mass_only", [False, True], ids=["apply", "mass_only"])
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_k3_batch_sizes_vs_pallas(mesh, B, mass_only):
+    """B = 1, 2, 3 ions, and the right-hand side's mass-only apply against
+    the JAX kernel with D = z = 0."""
+    _k3_vs_pallas(mesh, B, mass_only)
+
+
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_k3_constant_field_float32(mesh):
+    """The row-sum form in float32: on a constant field the stiffness adds
+    exactly nothing (its off-diagonal slots meet x_j - x_i = 0, its
+    diagonal slots hold an exact 0), whatever the rounding of its stored
+    values; with grad(phi) = 0 the field maps to (1/dt) M 1, bit for bit
+    the mass-only apply, and that to the scipy mass times the field."""
+    geom = geometry(mesh)
+    for tag, sub in geom.subdomains.items():
+        rng = np.random.default_rng(40 + tag)
+        op = P.P1Operator(sub.cells, sub.n_dofs, "cpu")
+        M = P.mass_values(op, sub.cells, sub.vols, torch.float32)
+        Kst = t(op.assemble(direct._stiffness_coo(sub.cells, sub.grads, sub.vols)[2])[0])
+        X = torch.full((3, sub.n_dofs), 97.25)
+        coef = t(np.stack([np.full(3, 10.0), K3_D, K3_Z * 38.7 * K3_D], axis=1))
+        w = t(rng.standard_normal((sub.n_cells, geom.dim)) * 1e3)
+        Dr = P.drift_fill(op, t(sub.grads), t(sub.vols), w)
+        assert torch.equal(P.knp_apply_batch(X, op, coef, M, Kst, Dr),
+                           P.knp_apply_batch(X, op, coef, M, torch.zeros_like(Kst), Dr))
+        Y0 = k3(X, sub, torch.zeros_like(w), coef)
+        Ym = k3(X, sub, w, coef, mass_only=True)
+        assert torch.equal(Y0, Ym)
+        M1 = direct._coo_accumulate(*[[a] for a in direct._mass_coo(
+            sub.cells, sub.vols, 10.0)], sub.n_dofs) @ np.full(sub.n_dofs, 97.25)
+        for b in range(3):
+            close(Ym[b], M1, 1e-6)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))
@@ -229,19 +291,7 @@ def _f64_case(kernel, geom):
             kc, kv = A.cell_mean_ell(cells, n)
             kbar = A.ell_matvec(ti(kc), f64(kv), f64(kap))
             return [(w, w_ref), (kbar, J(kap)[Ji(cells)].mean(axis=1))]
-        X = rng.standard_normal((2, n))
-        dt_inv, psi, D, z = 10.0, 38.7, [1.3, 2.0], [1.0, -1.0]
-        coef = f64([[dt_inv, D[b], z[b] * psi * D[b]] for b in range(2)])
-        Y = A.knp_apply_batch(f64(X), ti(cells), f64(sub.grads), f64(sub.vols), w, coef)
-        out = []
-        for b in range(2):
-            y_ref = (dt_inv * JK.mass_apply(n, J(X[b]), Ji(cells), J(sub.vols))
-                     + D[b] * JK.stiffness_apply(n, J(X[b]), Ji(cells), J(sub.grads),
-                                                 J(sub.vols))
-                     + z[b] * psi * D[b] * JK.drift_apply(
-                         n, J(X[b]), Ji(cells), J(sub.grads), J(sub.vols), w_ref))
-            out.append((Y[b], y_ref))
-        return out
+        return _k3_f64(rng, sub, w, w_ref, 2, mass_only=False)
     sp = geom.membranes[1]
     fd, n_m = sp.facet_dofs, sp.n_dofs
     kf = fd.shape[1]
@@ -255,6 +305,42 @@ def _f64_case(kernel, geom):
     V = rng.standard_normal((3, sp.n_facets, kf))
     Y = A.facet_scatter(f64(V), ti(fd), n_m)
     return [(Y[i], JK.scatter_add(n_m, Ji(fd), J(V[i]))) for i in range(3)]
+
+
+def _k3_f64(rng, sub, w, w_ref, B, mass_only):
+    f64 = lambda a: t(a, torch.float64)
+    J = lambda a: jnp.asarray(np.asarray(a), jnp.float64)
+    cells, n = jnp.asarray(sub.cells), sub.n_dofs
+    X = rng.standard_normal((B, n))
+    dt_inv, psi = 10.0, 38.7
+    D, z = (np.zeros(B), np.zeros(B)) if mass_only else (K3_D[:B], K3_Z[:B])
+    coef = f64(np.stack([np.full(B, dt_inv), D, z * psi * D], axis=1))
+    Y = k3(f64(X), sub, w, coef, mass_only)
+    out = []
+    for b in range(B):
+        y_ref = (dt_inv * JK.mass_apply(n, J(X[b]), cells, J(sub.vols))
+                 + D[b] * JK.stiffness_apply(n, J(X[b]), cells, J(sub.grads),
+                                             J(sub.vols))
+                 + z[b] * psi * D[b] * JK.drift_apply(
+                     n, J(X[b]), cells, J(sub.grads), J(sub.vols), w_ref))
+        out.append((Y[b], y_ref))
+    return out
+
+
+@pytest.mark.parametrize("mass_only", [False, True], ids=["apply", "mass_only"])
+@pytest.mark.parametrize("B", [1, 2, 3])
+@pytest.mark.parametrize("mesh", list(MESHES))
+def test_k3_batch_sizes_f64_vs_xla(mesh, B, mass_only):
+    geom = geometry(mesh)
+    rng = np.random.default_rng(9)
+    for tag, sub in geom.subdomains.items():
+        phi = rng.standard_normal(sub.n_dofs)
+        gc, gv = A.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs)
+        w = A.ell_matvec(ti(gc), t(gv, torch.float64), t(phi, torch.float64))
+        w_ref = JK.cell_gradients(jnp.asarray(phi), jnp.asarray(sub.cells),
+                                  jnp.asarray(sub.grads))
+        for y, y_ref in _k3_f64(rng, sub, w.reshape(sub.n_cells, -1), w_ref, B, mass_only):
+            close(y, y_ref, TOL64)
 
 
 @pytest.mark.parametrize("mesh", list(MESHES))

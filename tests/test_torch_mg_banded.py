@@ -251,7 +251,7 @@ def test_ellw_plain_f32_vs_jax_interpret(case, transpose, B):
     host = TE.build_ellw(A, **kw)
     V = np.random.default_rng(B).standard_normal(
         (B, A.shape[0] if transpose else A.shape[1])).astype(np.float32)
-    y = _ell_apply_port(host.device(torch.float32, "cpu"), torch.as_tensor(V),
+    y = _ell_apply_port(host.device(torch.float32, "cpu", sliced=True), torch.as_tensor(V),
                         transpose)
     y_jax = _ell_apply_jax(JE.build_ellw(A, **kw).device(jnp.float32),
                            jnp.asarray(V), transpose)
@@ -264,7 +264,7 @@ def test_ellw_plain_f32_vs_jax_interpret(case, transpose, B):
 def test_ellw_plain_f64_vs_scipy(case, transpose, B):
     make, kw = ELL_CASES[case]
     A = make()
-    e = TE.build_ellw(A, **kw).device(torch.float64, "cpu")
+    e = TE.build_ellw(A, **kw).device(torch.float64, "cpu", sliced=True)
     V = np.random.default_rng(10 + B).standard_normal(
         (B, A.shape[0] if transpose else A.shape[1]))
     y = _ell_apply_port(e, torch.as_tensor(V), transpose)
@@ -281,6 +281,51 @@ def test_ellw_device_form_is_the_matrix():
     rows = np.repeat(np.arange(A.shape[0]), host.K)
     back = sp.coo_matrix((vals.ravel(), (rows, cols.ravel())), shape=A.shape).tocsr()
     assert abs(back - A).max() == 0.0
+
+
+@pytest.mark.parametrize("case", list(ELL_CASES))
+def test_sliced_form_is_the_row_major_matrix(case):
+    """K6a's sliced form (32-row slices, slot-major, far entries folded in
+    as in the row-major form) stores exactly the matrix of the row-major
+    ELL and of A, in no more slots than the row-major form; its slices
+    are as wide as their longest row, slot k of a row at
+    slot_ptr[r // 32] + 32 k + r % 32."""
+    make, kw = ELL_CASES[case]
+    A = make()
+    host = TE.build_ellw(A, **kw)
+    e = host.device(torch.float64, "cpu", sliced=True)
+    assert e.cols is not None and e.slot_ptr.dtype == torch.int32
+    keep = e.sval != 0
+    rows = TE._sliced_rows(e)[keep].numpy()
+    back = sp.coo_matrix((e.sval[keep].numpy(), (rows, e.scol[keep].numpy())),
+                         shape=A.shape).tocsr()
+    assert abs(back - A).max() == 0.0 and e.nnz == A.nnz
+    assert e.scol.numel() <= host.n_rows * host.K
+    width = np.diff(e.slot_ptr.numpy()) // TE.SLICE
+    count = np.bincount(rows, minlength=len(width) * TE.SLICE).reshape(-1, TE.SLICE)
+    assert np.array_equal(width, count.max(axis=1))
+    if case == "spill":
+        assert host.far_cap > 0
+
+
+def test_sliced_refill_keeps_its_shape_or_refuses():
+    """A refill of the sliced form (new values, the frozen slot_ptr) gives
+    the new matrix in the same slots; a row that no longer fits its
+    slice raises."""
+    make, kw = ELL_CASES["square"]
+    A = make()
+    host = TE.build_ellw(A, **kw)
+    e = host.device(torch.float64, "cpu", sliced=True)
+    new = TE.build_ellw(2.0 * A, force_shape=(host.C, host.K, host.Wr, host.G, host.far_cap))
+    pairs = dict((id(t), a) for t, a in new.refill_arrays(e))
+    assert np.array_equal(pairs[id(e.sval)], 2.0 * e.sval.numpy())
+    assert np.array_equal(pairs[id(e.scol)], e.scol.numpy())
+    wide = A.tolil()
+    r = int(np.argmin(np.diff(A.indptr)))  # the shortest row of its slice gains entries
+    wide[r, : host.K] = 1.0
+    grown = TE.build_ellw(wide.tocsr(), **kw)
+    with pytest.raises(ValueError):
+        TE.sliced_ell(*grown.to_ell(), A.shape[1], e.slot_ptr_host)
 
 
 @pytest.mark.parametrize("B", [1, 2, 8])
@@ -340,7 +385,7 @@ def test_bf16_slab_is_storage_only():
 def test_new_wrappers_take_plain_path_on_cpu_and_check_inputs():
     A = BAND_CASES["tridiag_far"]()
     n = A.shape[0]
-    e = TE.build_ellw(A).device(torch.float32, "cpu")
+    e = TE.build_ellw(A).device(torch.float32, "cpu", sliced=True)
     (sT, w0, W), = tmg._csr_to_banded(A, R=256, dtype=np.float32)[0][:1]
     win = TB.pack_window(sT, w0, W, torch.float32, "cpu")
     x = torch.ones(n)
@@ -473,7 +518,7 @@ def test_device_band_holds_no_dense_slab():
 @pytest.mark.parametrize("all_ellw", [False, True], ids=["banded", "all_ellw"])
 def test_banded_vcycle_equals_jax(monkeypatch, all_ellw, batch):
     A, hj, ht = _hierarchies(monkeypatch, all_ellw)
-    dj, dt = hj.device(jnp.float64), ht.device(torch.float64, "cpu")
+    dj, dt = hj.device(jnp.float64), ht.device(torch.float64, "cpu", batched=batch)
     want = "ellw" if all_ellw else "band"
     assert all(lv[w] == want for lv in dt.layout() for w in ("A", "P", "Pt"))
     R = np.random.default_rng(22).standard_normal((3, A.shape[0]))
@@ -491,7 +536,7 @@ def test_banded_vcycle_equals_jax(monkeypatch, all_ellw, batch):
 @pytest.mark.parametrize("all_ellw", [False, True], ids=["banded", "all_ellw"])
 def test_fused_post_smooth_equals_unfused(monkeypatch, all_ellw, batch):
     A, _, ht = _hierarchies(monkeypatch, all_ellw)
-    fused = ht.device(torch.float64, "cpu")
+    fused = ht.device(torch.float64, "cpu", batched=batch)
     assert any(lv["AP"] is not None for lv in fused.layout())
     plain = tmg.DeviceMG(
         [dict(lv, ap_band=None, ap_ellw=None) for lv in fused.levels],

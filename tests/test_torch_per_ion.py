@@ -35,6 +35,7 @@ from knpemi_tpu_torch import ops
 from knpemi_tpu_torch.ops import assembly as A
 from knpemi_tpu_torch.ops import p1op as P
 from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+from knpemi_tpu_torch.solvers import direct
 from knpemi_tpu_torch.solvers.gmres import gmres as tgmres
 from knpemi_tpu_torch.systems.knp import ion_operator_values
 
@@ -135,8 +136,11 @@ def test_k11_equals_k3_row_by_row(mesh, dtype, tol):
     rng = np.random.default_rng(5)
     X = t(rng.standard_normal((2, sub.n_dofs)), dtype)
     w = t(rng.standard_normal((sub.n_cells, sub.grads.shape[-1])), dtype)
-    geo = (ti(sub.cells), t(sub.grads, dtype), t(sub.vols, dtype), w)
-    Y = A.knp_apply_batch(X, *geo, t(SCALARS, dtype))
+    op = P.P1Operator(sub.cells, sub.n_dofs, "cpu")
+    Kst = t(op.assemble(direct._stiffness_coo(sub.cells, sub.grads, sub.vols)[2])[0], dtype)
+    Dr = P.drift_fill(op, t(sub.grads, dtype), t(sub.vols, dtype), w)
+    Y = P.knp_apply_batch(X, op, t(SCALARS, dtype),
+                          P.mass_values(op, sub.cells, sub.vols, dtype), Kst, Dr)
     for b, scal in enumerate(SCALARS):
         close(k11(X[b].contiguous(), sub, w, *scal), Y[b], tol)
 

@@ -188,7 +188,8 @@ def sims():
     simT = build_astrocyte({**ASTROCYTE_BASELINE, "mesh_n": 10},
                            dtype=torch.float64, device="cpu",
                            solver_options=SolverOptions(
-                               rtol_emi=1e-6, rtol_knp=1e-7, knp_batched=False))
+                               rtol_emi=1e-6, rtol_knp=1e-7, knp_batched=False,
+                               mg_refresh_every=simJ.opts.mg_refresh_every))
     return simJ, simT
 
 
@@ -223,6 +224,7 @@ def test_initial_state_and_params_match_jax(sims):
                                           err_msg=f"{f}[{k}]")
     assert simT.params.psi == simJ.params.psi
     assert simT.opts.rtol_emi == simJ.opts.rtol_emi == 1e-6
+    assert simT.opts.mg_refresh_every == simJ.opts.mg_refresh_every == 100
 
 
 # ---------------------------------------------------------------------------
@@ -276,6 +278,37 @@ def test_per_ion_step_matches_jax_example(runs, step):
     _assert_fields_close(sJ, sT, 1e-9)
 
 
+@pytest.fixture(scope="module")
+def both_branches():
+    """The port's ion-batched branch (K3 on the P1 operator, the drift
+    filled once per solve by K11f) and its per-ion branch (K11 with each
+    ion's assembled P_b), the KNP solves to rtol 1e-12 so that their
+    tolerance does not hide how far the two operators agree."""
+    runs = {}
+    for batched in (True, False):
+        sim = build_astrocyte({**ASTROCYTE_BASELINE, "mesh_n": 10}, dtype=torch.float64,
+                              device="cpu", solver_options=SolverOptions(
+                                  rtol_emi=1e-6, rtol_knp=1e-12, knp_batched=batched,
+                                  mg_refresh_every=100))
+        runs[batched] = _run_port(sim, N_STEPS)
+    return runs
+
+
+@pytest.mark.parametrize("step", range(N_STEPS))
+def test_batched_k3_matches_per_ion_k11(both_branches, step):
+    """Over the source onset: equal EMI and KNP iterations, phi_M and c
+    within 1e-9 relative."""
+    sB, sP = both_branches[True][step], both_branches[False][step]
+    assert int(sB.emi_iters) == int(sP.emi_iters)
+    assert int(sB.knp_iters) == int(sP.knp_iters)
+    assert bool(sB.emi_ok) and bool(sB.knp_ok)
+    for m in sP.phi_M:
+        np.testing.assert_allclose(sB.phi_M[m].numpy(), sP.phi_M[m].numpy(), rtol=1e-9,
+                                   atol=0)
+    for t in sP.c:
+        np.testing.assert_allclose(sB.c[t].numpy(), sP.c[t].numpy(), rtol=1e-9, atol=0)
+
+
 def test_carry_over_from_jax_state_at_the_onset(sims, runs):
     """JAX state before the onset step -> interop -> one port step == the
     JAX onset step (three subdomains, two membranes, two ODE models)."""
@@ -315,6 +348,8 @@ def test_batched_matches_jax_at_tight_tolerance():
     simT = build_astrocyte({**ASTROCYTE_BASELINE, "mesh_n": 10, "solver": tight},
                            dtype=torch.float64, device="cpu")
     assert simT.opts.knp_batched and simT.opts.rtol_knp == 1e-12
+    # run_stim_duration.py's refresh cadence, taken over by default
+    assert simT.opts.mg_refresh_every == simJ.opts.mg_refresh_every == 100
     sJ, sT = _run_jax(simJ, N_STEPS)[-1], _run_port(simT, N_STEPS)[-1]
     assert bool(sT.emi_ok) and bool(sT.knp_ok)
     assert float(sT.c[0][0].max()) > 4.0
