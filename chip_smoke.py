@@ -25,12 +25,16 @@ and 4 come in two groups):
    kernels at the shapes of the res-2 banded hierarchies' own operators
    (EMI for K4/K5/K7, KNP tag 0 at B = 2 and once at B = 1 and 8 for
    K6a/K6b/K8; K6a on the sliced form of a layout the batched cycle
-   applies), and the single-ion KNP
+   applies; K5/K6b on the transposed form of a restriction layout, held
+   to 1e-13 of max|y| in float64 and bitwise across two launches, and
+   timed beside K6a's kernel on the sliced ELL of the same P^T), and the
+   single-ion KNP
    operator K11 (the same apply with two value streams) and its drift
    fill K11f on every subdomain of the astrocyte flagship and of the
    l = 4 box, K11 also row by row against K3; K3 on every subdomain of
-   both at B = 1, 2, 3, full and mass-only; K6a on every sliced layout of
-   the l = 4 box's KNP hierarchies; before each of the three flagship
+   both at B = 1, 2, 3, full and mass-only; K6a on every sliced layout and
+   K6b on every restriction layout of the l = 4 box's KNP hierarchies,
+   K5 on the EMI hierarchy's; before each of the three flagship
    runs, every kernel of the batched step once more on that
    simulation's own operators: K1/K1f/K3/K4 on each of its three
    subdomains (per-tag diffusion coefficients), K2/K9/K10 on both
@@ -629,21 +633,127 @@ def _ellw_case_source(mg, dtype, roles):
         P.eliminate_zeros()
         host = build_ellw(P)
         if host is not None:
-            return host.device(dtype, lv["p_vals"].device), (
+            return host.device(dtype, lv["p_vals"].device, transposed=True), (
                 f"no {'/'.join(roles)} ellw operator in this build: "
                 f"build_ellw of level {i} P")
     raise AssertionError("build_ellw refuses every prolongator of the hierarchy")
 
 
-def _csr_of_ell(e, transpose: bool):
+def _csr_of_ell(e):
     import torch
 
     rows = torch.arange(e.n_rows, device=e.vals.device).repeat_interleave(e.K)
     idx = torch.stack([rows, e.cols.reshape(-1).long()])
     keep = e.vals.reshape(-1) != 0
-    A = torch.sparse_coo_tensor(idx[:, keep], e.vals.reshape(-1)[keep],
-                                (e.n_rows, e.n_cols)).coalesce()
-    return (A.t().coalesce() if transpose else A).to_sparse_csr()
+    return torch.sparse_coo_tensor(idx[:, keep], e.vals.reshape(-1)[keep],
+                                   (e.n_rows, e.n_cols)).coalesce().to_sparse_csr()
+
+
+def _pt_layouts(mgs):
+    """[(label, device ELLW)] of every layout the cycles of ``mgs`` ({name:
+    DeviceMG}) restrict through (those with the transposed form K5/K6b
+    read), fine level first; a layout shared by two levels once."""
+    out, seen = [], set()
+    for name, mg in mgs.items():
+        for i, lv in enumerate(mg.levels):
+            e = lv["pt_ellw"]
+            if e is not None and id(e) not in seen:
+                seen.add(id(e))
+                out.append((f"{name} level {i} pt_ellw", e))
+    return out
+
+
+def _sliced_transpose(e):
+    """The sliced ELL of A^T (K6a's layout and kernel, one thread per row of
+    A^T) built from ``e``'s transposed form: the design alternative the
+    restriction is timed against, not a route of the port."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    ptr = e.trow_ptr.long().cpu().numpy()
+    count = np.diff(ptr)
+    Kt = max(int(count.max()), 1)
+    rows = np.repeat(np.arange(e.n_cols), count)
+    slot = np.arange(len(rows)) - ptr[rows]
+    cols = np.zeros((e.n_cols, Kt), np.int32)
+    vals = np.zeros((e.n_cols, Kt), e.tval.cpu().numpy().dtype)
+    cols[rows, slot] = e.tcol.cpu().numpy()
+    vals[rows, slot] = e.tval.cpu().numpy()
+    sptr, scol, sval, nnz = TE.sliced_ell(cols, vals, e.n_rows)
+    dev = e.tval.device
+    return dataclasses.replace(
+        e, n_rows=e.n_cols, n_cols=e.n_rows, K=Kt, cols=None, vals=None,
+        slot_ptr=torch.as_tensor(sptr.astype(np.int32), device=dev),
+        scol=torch.as_tensor(scol, device=dev), sval=torch.as_tensor(sval, device=dev),
+        nnz=nnz, slot_ptr_host=sptr, trow_ptr=None, tcol=None, tval=None)
+
+
+def restrict_cases(layouts, dtype, Bs, timed: bool = True):
+    """K5 (B = None: the single-vector wrapper) and K6b (B >= 1) on each
+    windowed-ELL layout of ``layouts`` ([(label, device ELLW)]), from its
+    transposed form, inputs from a seed.  Each is held against the plain
+    version (float64 to 1e-13 of max|y|) and launched twice, bitwise
+    equal (``deterministic``).  Bound: an index and a value per nonzero,
+    R read and Y written once; by slots: the row pointers beside them.
+    The first layout's first B is timed (with ``timed``), and beside it
+    the design alternative, K6a on the sliced ELL of A^T
+    (``sliced_transpose_ms``)."""
+    import dataclasses
+
+    import torch
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    dev = layouts[0][1].tval.device
+    g = torch.Generator(device=dev).manual_seed(2)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+    es = torch.empty((), dtype=dtype).element_size()
+    cases = []
+    for k, (src, e) in enumerate(layouts):
+        e = dataclasses.replace(e, tval=e.tval.to(dtype))
+        nnz, nc, nf = e.tcol.numel(), e.n_cols, e.n_rows
+        csr = torch.sparse_csr_tensor(e.trow_ptr.long(), e.tcol.long(), e.tval,
+                                      size=(nc, nf))
+        count = (e.trow_ptr[1:] - e.trow_ptr[:-1]).double()
+        # slots a nonzero of the sliced ELL of A^T: each slice of 32 rows
+        # as wide as its longest
+        pad = torch.nn.functional.pad(count, (0, -nc % TE.SLICE))
+        sliced_slots = float(pad.reshape(-1, TE.SLICE).amax(dim=1).sum()) * TE.SLICE
+        alt = []  # the sliced-A^T layout, built at its first timing
+        for j, B in enumerate(Bs):
+            nb = B or 1
+            R = rnd(nf) if B is None else rnd(B, nf)
+            vec = nb * (nf + nc) * es
+            if B is None:
+                name, kern, plain = "K5 ellw_rmatvec", TE.ellw_rmatvec, TE.ellw_rmatvec_plain
+                lib = lambda R=R: torch.mv(csr, R)
+            else:
+                name, kern, plain = ("K6b ellw_rmatvec_batch", TE.ellw_rmatvec_batch,
+                                     TE.ellw_rmatvec_batch_plain)
+                lib = lambda R=R: torch.sparse.mm(csr, R.T)
+
+            def alt_ms(R=R):
+                if not alt:
+                    alt.append(_sliced_transpose(e))
+                return TE.ellw_matvec_batch(alt[0], R.reshape(-1, nf))
+            cases.append(dict(
+                name=name, variant=f"B={nb}", kern=lambda e=e, R=R, f=kern: f(e, R),
+                plain=lambda e=e, R=R, f=plain: f(e, R), lib=lib,
+                time=timed and k == 0 and j == 0, repeat=True, tol={"float64": 1e-13},
+                nbytes=nnz * (4 + es) + vec, ops=2 * nnz * nb,
+                nbytes_slots=nnz * (4 + es) + _nbytes(e.trow_ptr) + vec,
+                also_time={"sliced_transpose_ms": alt_ms},
+                shape=dict(rows=nf, cols=nc, coarse_rows=nc, nnz=nnz,
+                           mean_row=float(count.mean()), max_row=int(count.max()),
+                           G=e.tgroup, lanes_per_nonzero=e.tgroup * nc / max(nnz, 1),
+                           slots_per_nonzero_row_major_replaced=nf * e.K / max(nnz, 1),
+                           slots_per_nonzero_sliced_transpose=sliced_slots / max(nnz, 1),
+                           row_major_kept=e.cols is not None, source=src)))
+    return cases
 
 
 def _csr_of_sliced(e):
@@ -706,9 +816,10 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
     hierarchies: with ``emi``, K4 (the single-vector gather on a level
     operator or prolongator), K5 and K7 on operators of the EMI
     hierarchy; K6a, K6b and K8 on operators of the KNP hierarchy of
-    ``knp_tag`` at B = 2 (the solved ions) and once at B = 8; the scatter
-    kernels K5 and K6b on a restriction (pt) layout, the gather kernels
-    K4 and K6a on a level operator or prolongator.  A hierarchy that
+    ``knp_tag`` at B = 2 (the solved ions) and once at B = 8 (K6b also
+    at 3); the restrictions K5 and K6b on the transposed form of a pt
+    layout (:func:`restrict_cases`; with ``all_bands`` on every one), K4
+    and K6a on a level operator or prolongator.  A hierarchy that
     stores no operator in a kernel's layout gets, for the windowed-ELL
     kernels, the layout build_ellw gives one of its prolongators, and for
     the banded ones an error — or, with ``as_built_only``, no case: the
@@ -717,9 +828,10 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
     every window of every level and role, each with its values in the
     run dtype and in bfloat16, by both routes of reading x.  Bounds count
     what the matrix needs: K7/K8 a value and a 2-byte offset per nonzero,
-    the window starts and the vectors; K5/K6 an index and a value per
-    nonzero slot and the vectors.  The kernels read padding slots too,
-    whose bytes stand beside the bound as ``bytes_padded``."""
+    the window starts and the vectors; K4-K6 an index and a value per
+    nonzero and the vectors.  The kernels read padding slots too, whose
+    bytes stand beside the bound as ``bytes_padded`` (``nbytes_slots``
+    for K6a and the restrictions)."""
     import dataclasses
 
     import torch
@@ -734,26 +846,35 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
     emi_mg, knp = sim.emi_solver.mg, sim.knp_solver.mg[knp_tag]
     cases = []
 
-    def ell_cases(name, mg, hname, roles, wrapper, plain, transpose, Bs):
+    def k4_cases(mg, hname):
+        roles = ("a", "p", "ap")
         if as_built_only and _first_layout(mg.levels, "ellw", roles) is None:
             return
         e, src = _ellw_case_source(mg, dtype, roles)
         e = dataclasses.replace(e, vals=e.vals.to(dtype))
         nnz = int((e.vals != 0).sum())
-        csr = _csr_of_ell(e, transpose)
-        n_in, n_out = (e.n_rows, e.n_cols) if transpose else (e.n_cols, e.n_rows)
-        for B in Bs:
-            V = rnd(n_in) if B is None else rnd(B, n_in)
-            nb = B or 1
-            lib = (lambda V=V: torch.mv(csr, V)) if B is None else (
-                lambda V=V: torch.sparse.mm(csr, V.T))
-            cases.append(dict(
-                name=name, variant=f"B={nb}", kern=lambda V=V: wrapper(e, V),
-                plain=lambda V=V: plain(e, V), lib=lib,
-                nbytes=nnz * (4 + es) + nb * (n_in + n_out) * es, ops=2 * nnz * nb,
-                bytes_padded=e.n_rows * e.K * (4 + es) + nb * (n_in + n_out) * es,
-                shape=dict(rows=e.n_rows, cols=e.n_cols, K=e.K, nnz=nnz,
-                           source=f"{hname} {src}")))
+        csr = _csr_of_ell(e)
+        x = rnd(e.n_cols)
+        cases.append(dict(
+            name="K4 ell_matvec", variant="B=1", kern=lambda: TE.ellw_matvec(e, x),
+            plain=lambda: TE.ellw_matvec_plain(e, x), lib=lambda: torch.mv(csr, x),
+            nbytes=nnz * (4 + es) + (e.n_rows + e.n_cols) * es, ops=2 * nnz,
+            bytes_padded=e.n_rows * e.K * (4 + es) + (e.n_rows + e.n_cols) * es,
+            shape=dict(rows=e.n_rows, cols=e.n_cols, K=e.K, nnz=nnz,
+                       source=f"{hname} {src}")))
+
+    def rst_cases(mgs, Bs):
+        """K5/K6b on the first restriction layout of ``mgs`` or, with
+        ``all_bands``, on every one; where none was built, on the layout
+        build_ellw gives a prolongator (none with ``as_built_only``)."""
+        layouts = _pt_layouts(mgs)
+        if not layouts:
+            if as_built_only:
+                return
+            first = next(iter(mgs))
+            e, src = _ellw_case_source(mgs[first], dtype, ("pt",))
+            layouts = [(f"{first} {src}", e)]
+        cases.extend(restrict_cases(layouts if all_bands else layouts[:1], dtype, Bs))
 
     def band_cases(name, mg, hname, batch, Bs):
         bands = _bands(mg.levels, all_bands)
@@ -849,22 +970,19 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
 
     kname = f"KNP tag {knp_tag}"
     if emi:
-        ell_cases("K5 ellw_rmatvec", emi_mg, "EMI", ("pt",), TE.ellw_rmatvec,
-                  TE.ellw_rmatvec_plain, True, (None,))
+        rst_cases({"EMI": emi_mg}, (None,))
     knp_mgs = {kname: knp}
     if all_bands:
         knp_mgs.update({f"KNP tag {t}": mg for t, mg in sorted(sim.knp_solver.mg.items())
                         if t != knp_tag})
     k6a_cases(knp_mgs, (2, 1, 8))  # B = 2 first: the kernel table's row
-    ell_cases("K6b ellw_rmatvec_batch", knp, kname, ("pt",), TE.ellw_rmatvec_batch,
-              TE.ellw_rmatvec_batch_plain, True, (2, 8))
+    rst_cases(knp_mgs, (2, 3, 8))
     if emi:
         band_cases("K7 banded_matvec", emi_mg, "EMI", False, (1,))
     band_cases("K8 banded_matvec_batch", knp, kname, True, (2, 8))
     if emi:
         # after the others: the order of the random inputs above is kept
-        ell_cases("K4 ell_matvec", emi_mg, "EMI", ("a", "p", "ap"), TE.ellw_matvec,
-                  TE.ellw_matvec_plain, False, (None,))
+        k4_cases(emi_mg, "EMI")
     return cases
 
 
@@ -889,6 +1007,7 @@ def check_cases(cases, dtype, time_them: bool):
         label = " ".join(filter(None, [c["name"], c.get("variant"), dname]))
         y_ref = None
         row = dict(name=c["name"], dtype=dname)
+        tol = c.get("tol", {}).get(dname, TOL[dname])
         for route, fn in [(None, c["kern"]), *c.get("routes", {}).items()]:
             y = fn()
             torch.cuda.synchronize()
@@ -896,12 +1015,17 @@ def check_cases(cases, dtype, time_them: bool):
                 y_ref = c["plain"]()
                 scale = float(y_ref.abs().max()) or 1.0
             err = float((y - y_ref).abs().max())
-            if y.shape != y_ref.shape or not (err <= TOL[dname] * scale) \
+            if y.shape != y_ref.shape or not (err <= tol * scale) \
                     or not bool(torch.isfinite(y).all()):
                 raise AssertionError(
                     f"{label} {route or ''}: max|kernel - plain| = {err:.3e} exceeds "
-                    f"{TOL[dname]:.0e} x max|y| = {TOL[dname] * scale:.3e}")
+                    f"{tol:.0e} x max|y| = {tol * scale:.3e}")
             row["max_abs_err" if route is None else f"max_abs_err_{route}"] = err
+            if route is None and c.get("repeat"):
+                # a second launch on the same inputs: the same bits
+                row["deterministic"] = bool(torch.equal(c["kern"](), y))
+                if not row["deterministic"]:
+                    raise AssertionError(f"{label}: two launches differ")
         row["max_abs_y"] = scale
         for key in ("variant", "shape", "bytes_padded"):
             if key in c:
@@ -1562,9 +1686,9 @@ def step_profile(warm: int = 12, steps: int = 2):
     """The port's kernels inside the flagship's step, for the
     ``knpemi_tpu_torch`` on ``sys.path``: batched and banded (float32, the
     tuned options), ``warm`` steps, then ``steps`` under torch.profiler;
-    device ms per step, the iterations of the last step and, for every
-    kernel of the port (those in ``ops/csrc``), device ms and launches per
-    step.  Yields one record per run."""
+    device ms and device kernels per step, the iterations of the last
+    step and, for every kernel of the port (those in ``ops/csrc``),
+    device ms and launches per step.  Yields one record per run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1588,6 +1712,7 @@ def step_profile(warm: int = 12, steps: int = 2):
         yield dict(package=str(Path(kt.__file__).parent), mg_banded=banded,
                    steps=[warm + 1, warm + steps],
                    device_kernel_ms_per_step=sum(dev_t(e) for e in events) / 1e3 / steps,
+                   kernels_per_step=sum(e.count for e in events) / steps,
                    emi_iters=int(state.emi_iters), knp_iters=int(state.knp_iters),
                    port_kernels={e.key[:90]: [dev_t(e) / 1e3 / steps, e.count / steps]
                                  for e in events
@@ -1789,7 +1914,8 @@ def main(argv=None) -> int:
              shape=r.get("shape"), bytes_padded=r.get("bytes_padded"),
              **{k: r[k] for k in ("graph_ms", "call_ms", "library_call_ms", "ms_staged",
                                   "ms_l2", "dense_slab_bound_ms", "bound_slots_ms",
-                                  "cell_loop_bound_ms", "k3_b1_ms", "fill_ms") if k in r})
+                                  "cell_loop_bound_ms", "k3_b1_ms", "fill_ms",
+                                  "sliced_transpose_ms", "deterministic") if k in r})
         for name, r in sorted(first.items(),
                               key=lambda kv: list(KERNEL_SOURCES).index(kv[0].split()[0]))
     ]})

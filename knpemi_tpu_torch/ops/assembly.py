@@ -64,12 +64,10 @@ _SIGS = {
     "drift_fill": ("cells", "knp_drift_fill",
                    [_c_int] + [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr]),
     # ops/ell.py and ops/banded.py
-    "ell_rmatvec": ("mg", "knp_ell_rmatvec",
-                    [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
     "sliced_matvec_batch": ("mg", "knp_sliced_matvec_batch",
                             [_c_int] + [_c_ptr] * 5 + [_c_int] * 3 + [_c_ptr]),
-    "ell_rmatvec_batch": ("mg", "knp_ell_rmatvec_batch",
-                          [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]),
+    "csr_gather_batch": ("mg", "knp_csr_gather_batch",
+                         [_c_int] + [_c_ptr] * 5 + [_c_int] * 4 + [_c_ptr]),
     "banded_matvec": ("mg", "knp_banded_matvec",
                       [_c_int] * 2 + [_c_ptr] * 6 + [_c_int] * 6 + [_c_ptr]),
     "banded_matvec_batch": ("mg", "knp_banded_matvec_batch",

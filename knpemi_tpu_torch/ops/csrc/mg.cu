@@ -1,21 +1,23 @@
-// Multigrid V-cycle kernels for Hopper (sm_90a): K5, K6b (scatters from
-// a sparse operator in row-major ELL form, for one vector and for B
-// vectors), K6a (the B-vector gather from its sliced form) and K7, K8
-// (block-banded operators, read as the packed nonzeros of their slabs).
-// Plain C interface, loaded with ctypes by knpemi_tpu_torch/ops/ell.py
-// and ops/banded.py, which hold the plain PyTorch version of each
-// kernel, the input checks and the launch counters.
+// Multigrid V-cycle kernels for Hopper (sm_90a): K5, K6b (the
+// restriction y = A^T r, for one vector and for B vectors, gathered from
+// the CSR of A^T), K6a (the B-vector gather from the sliced form of a
+// windowed-ELL operator) and K7, K8 (block-banded operators, read as the
+// packed nonzeros of their slabs).  Plain C interface, loaded with
+// ctypes by knpemi_tpu_torch/ops/ell.py and ops/banded.py, which hold
+// the plain PyTorch version of each kernel, the input checks and the
+// launch counters.
 //
 // They replace the TPU kernels of knpemi_tpu/ops/pallas_ell.py and
 // pallas_banded.py.  Those gather and scatter through one-hot matrix
 // products over per-chunk windows, split float32 into bf16 passes and
-// align every start to the (8, 128) tiling; here a gather is a load and
-// a scatter an atomicAdd, exact in the vector's type, and no alignment
-// is asked of the layout.  All five are bound by the bytes they move:
-// the ELL kernels by indices + values, the banded kernels by the
-// nonzeros of the slabs.  Sums taken with atomics (K5, K6b) are
-// order-dependent, so those agree with the plain version to a few ulps
-// of max|y|, not bit for bit.
+// align every start to the (8, 128) tiling; here a gather is a load,
+// exact in the vector's type, a scatter is turned into a gather from the
+// transposed operator, and no alignment is asked of the layout.  All
+// five are bound by the bytes they move: the ELL kernels by indices +
+// values, the banded kernels by the nonzeros of the slabs.  None uses
+// atomics: each output element is summed by one thread (or, in K5/K6b,
+// one group of lanes) in a fixed order and stored once, so a launch
+// gives the same bits every time.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -33,38 +35,6 @@ template <typename T>
 __device__ __forceinline__ T upcast(T v) { return v; }
 __device__ __forceinline__ float upcast(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// ---------------------------------------------------------------------
-// ELL: cols, vals are (R, K) row-major; padded slots carry value 0.
-// ---------------------------------------------------------------------
-
-// K5 (B = 1) and K6b read the row-major ELL below; K6a reads the
-// sliced form (further down).
-
-// K5 (B = 1) and K6b: Y[b, cols[r, k]] += vals[r, k] Rv[b, r] into a
-// zeroed Y; one thread per row holds its B values of Rv.  Padded slots
-// are skipped: they all name one column.
-template <typename T, int B>
-__global__ void ell_rmatvec_batch_kernel(const int* __restrict__ cols,
-                                         const T* __restrict__ vals,
-                                         const T* __restrict__ Rv,
-                                         T* __restrict__ Y, int R, int K,
-                                         int m) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const int64_t base = static_cast<int64_t>(r) * K;
-  T rv[B];
-#pragma unroll
-  for (int b = 0; b < B; ++b) rv[b] = Rv[static_cast<int64_t>(b) * R + r];
-  for (int k = 0; k < K; ++k) {
-    const T v = vals[base + k];
-    if (v == T(0)) continue;
-    const int c = cols[base + k];
-#pragma unroll
-    for (int b = 0; b < B; ++b)
-      atomicAdd(&Y[static_cast<int64_t>(b) * m + c], v * rv[b]);
-  }
 }
 
 // ---------------------------------------------------------------------
@@ -294,6 +264,86 @@ sliced_matvec_batch_kernel(const int* __restrict__ slot_ptr,
   for (int b = 0; b < B; ++b) Y[static_cast<int64_t>(b) * R + r] = acc[b];
 }
 
+// ---------------------------------------------------------------------
+// K5 (B = 1) and K6b: Y[b, r] = sum over the entries s of row r of A^T
+// of val[s] X[b, col[s]], for B <= 8 vectors, from the CSR of A^T
+// (ops/ell.py::transposed_csr): row r owns entries row_ptr[r] ..
+// row_ptr[r+1], each a row of A (int32) and a value, in ascending order
+// of that row.  For a multigrid transfer A = P, so this is the
+// restriction, and P is frozen for the life of its hierarchy: the CSR
+// is built once on the host, never refilled.
+//
+// Replaces _make_scatter_kernel (pallas_ell.py:347) and
+// _make_scatter_kernel_batch (:494).  The TPU kernels scatter through
+// one-hot products; a scatter on the H100 is an atomic add per nonzero
+// into a zeroed Y, and the adds to one coarse dof (~30 of them on the
+// flagship's prolongator) serialize in L2.  Here each output row is
+// gathered instead:
+// * G lanes own a row (G in {4, 8, 16, 32}, about a quarter of the mean
+//   row length, chosen at upload): one thread a row would put only one
+//   thread on every ~30 nonzeros, too few loads in flight to reach the
+//   memory rate;
+// * lane l takes entries l, l+G, l+2G, ..., kCsrInFlight of them loaded
+//   before their X values, so that several loads are in flight; the
+//   group's loads of columns and values are coalesced;
+// * B sums a lane, X read through the read-only path (it lives in L2),
+//   fused multiply-adds in the vector's type; the G partial sums are
+//   reduced by __shfl_down_sync in a fixed tree, and lane 0 stores the
+//   row: no atomics, no memset, the same bits from every launch.
+// Bound by bytes: a column and a value per nonzero, X and Y once
+// (row_ptr beside them).
+// ---------------------------------------------------------------------
+constexpr int kCsrInFlight = 4;
+
+template <typename T, int B, int G>
+__global__ void __launch_bounds__(kThreads)
+csr_gather_batch_kernel(const int* __restrict__ row_ptr,
+                        const int* __restrict__ col,
+                        const T* __restrict__ val, const T* __restrict__ X,
+                        T* __restrict__ Y, int R, int m) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const int64_t r = t / G;
+  const int lane = static_cast<int>(t % G);
+  T acc[B];
+#pragma unroll
+  for (int b = 0; b < B; ++b) acc[b] = T(0);
+  // every lane of the warp stays for the shuffles below, live row or not
+  if (r < R) {
+    const int end = __ldg(row_ptr + r + 1);
+    for (int s0 = __ldg(row_ptr + r) + lane; s0 < end;
+         s0 += kCsrInFlight * G) {
+      int c[kCsrInFlight];
+      T v[kCsrInFlight];
+#pragma unroll
+      for (int u = 0; u < kCsrInFlight; ++u) {
+        const int s = s0 + u * G;
+        const bool in = s < end;
+        c[u] = in ? __ldg(col + s) : 0;
+        v[u] = in ? __ldg(val + s) : T(0);
+      }
+#pragma unroll
+      for (int u = 0; u < kCsrInFlight; ++u) {
+        if (s0 + u * G < end) {
+#pragma unroll
+          for (int b = 0; b < B; ++b)
+            acc[b] = fma_t(v[u], __ldg(X + static_cast<int64_t>(b) * m + c[u]),
+                           acc[b]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+#pragma unroll
+    for (int b = 0; b < B; ++b)
+      acc[b] += __shfl_down_sync(0xffffffffu, acc[b], o, G);
+  }
+  if (r < R && lane == 0) {
+#pragma unroll
+    for (int b = 0; b < B; ++b) Y[static_cast<int64_t>(b) * R + r] = acc[b];
+  }
+}
+
 // Launchers: pick the instantiation for a batch of nb vectors.
 #define KNP_FOR_BATCH(nb, M)    \
   switch (nb) {                 \
@@ -321,16 +371,31 @@ int sliced_matvec_batch_t(const int* slot_ptr, const int* col,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int ell_rmatvec_batch_t(const int* cols, const void* vals, const void* Rv,
-                        void* Y, int R, int K, int m, int nb, cudaStream_t s) {
+template <typename T, int G>
+int csr_gather_launch(const int* row_ptr, const int* col, const void* val,
+                      const void* X, void* Y, int R, int m, int nb,
+                      cudaStream_t s) {
+  const int64_t threads = static_cast<int64_t>(R) * G;
 #define CALL(BB)                                                          \
-  ell_rmatvec_batch_kernel<T, BB><<<blocks_for(R), kThreads, 0, s>>>(     \
-      cols, static_cast<const T*>(vals), static_cast<const T*>(Rv),       \
-      static_cast<T*>(Y), R, K, m)
+  csr_gather_batch_kernel<T, BB, G><<<blocks_for(threads), kThreads, 0, s>>>( \
+      row_ptr, col, static_cast<const T*>(val), static_cast<const T*>(X),  \
+      static_cast<T*>(Y), R, m)
   KNP_FOR_BATCH(nb, CALL)
 #undef CALL
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int csr_gather_t(const int* row_ptr, const int* col, const void* val,
+                 const void* X, void* Y, int R, int m, int nb, int G,
+                 cudaStream_t s) {
+  switch (G) {
+    case 4: return csr_gather_launch<T, 4>(row_ptr, col, val, X, Y, R, m, nb, s);
+    case 8: return csr_gather_launch<T, 8>(row_ptr, col, val, X, Y, R, m, nb, s);
+    case 16: return csr_gather_launch<T, 16>(row_ptr, col, val, X, Y, R, m, nb, s);
+    case 32: return csr_gather_launch<T, 32>(row_ptr, col, val, X, Y, R, m, nb, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <typename S, typename T, int B, bool STAGE>
@@ -399,17 +464,6 @@ extern "C" {
 // dtype: 0 = float32, 1 = float64.  Each entry point launches on the
 // given stream, allocates nothing and returns cudaGetLastError().
 
-// K5: y (m,) += A^T r; y must be zeroed by the caller.
-int knp_ell_rmatvec(int dtype, const int* cols, const void* vals,
-                    const void* r, void* y, int R, int K, void* stream) {
-  if (R == 0 || K == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the output's length is not needed for one vector: pass 0 as its stride
-  return dtype == 0
-             ? ell_rmatvec_batch_t<float>(cols, vals, r, y, R, K, 0, 1, s)
-             : ell_rmatvec_batch_t<double>(cols, vals, r, y, R, K, 0, 1, s);
-}
-
 // K6a: Y (nb, R) = X A^T from the sliced form, nb <= 8; X is (nb, m).
 int knp_sliced_matvec_batch(int dtype, const int* slot_ptr, const int* col,
                             const void* val, const void* X, void* Y, int R,
@@ -422,15 +476,17 @@ int knp_sliced_matvec_batch(int dtype, const int* slot_ptr, const int* col,
                                                     R, m, nb, s);
 }
 
-// K6b: Y (nb, m) += Rv (nb, R) A, nb <= 8; Y must be zeroed by the caller.
-int knp_ell_rmatvec_batch(int dtype, const int* cols, const void* vals,
-                          const void* Rv, void* Y, int R, int K, int m,
-                          int nb, void* stream) {
-  if (R == 0 || K == 0 || nb == 0) return 0;
+// K5 (nb = 1) and K6b: Y (nb, R) = X (nb, m) A from the CSR of A^T
+// (R rows: A's columns; m: A's rows), nb <= 8, G lanes a row.
+int knp_csr_gather_batch(int dtype, const int* row_ptr, const int* col,
+                         const void* val, const void* X, void* Y, int R,
+                         int m, int nb, int G, void* stream) {
+  if (R == 0 || nb == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? ell_rmatvec_batch_t<float>(cols, vals, Rv, Y, R, K, m, nb, s)
-             : ell_rmatvec_batch_t<double>(cols, vals, Rv, Y, R, K, m, nb, s);
+  return dtype == 0 ? csr_gather_t<float>(row_ptr, col, val, X, Y, R, m, nb,
+                                          G, s)
+                    : csr_gather_t<double>(row_ptr, col, val, X, Y, R, m, nb,
+                                           G, s);
 }
 
 // K7: y (n,) = one packed window of a block-banded operator times x (m,).

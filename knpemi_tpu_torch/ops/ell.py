@@ -17,18 +17,24 @@ Counterpart of ``knpemi_tpu/ops/pallas_ell.py``.  Two halves:
   ``build_ellw``), so each is exactly A with no second pass:
 
   - a row-major ELL ``cols, vals`` of shape (n_rows, K), padded slots
-    value 0 — what the single-vector gather K4 and the scatters K5, K6b
-    read;
+    value 0 — what the single-vector gather K4 reads;
   - a *sliced* ELL of the nonzeros (``slot_ptr``, ``scol``, ``sval``;
     :func:`sliced_ell`): rows in slices of 32, slice s holding K[s]
     slots per row (its longest row's nonzeros), slot-major inside the
     slice, so that slot k of the slice's 32 rows lies in 32 consecutive
     words — the layout K6a reads, as K1/K11 (``ops/p1op.py``) and K7/K8
-    (``ops/banded.py``) do.
+    (``ops/banded.py``) do;
+  - the *transposed* form, the CSR of A^T (``trow_ptr``, ``tcol``,
+    ``tval``; :func:`transposed_csr`): A's nonzeros grouped by column,
+    within a column by ascending row, with ``tgroup`` lanes per row of
+    A^T chosen from its mean length — what the restrictions K5 and K6b
+    gather from.  A transfer P is frozen for the life of its hierarchy,
+    so this form is built once per upload and never refilled.
 
   A layout gets the forms its applies need (``solvers/mg.py``): the
   sliced one where the ion-batched KNP V-cycle applies it forward, the
-  row-major one where a single-vector path or a scatter reads it.  The
+  row-major one where a single-vector path does, the transposed one
+  where a cycle restricts through it.  The
   windows, the (G, 128) group layout and the 8-group-aligned ``q`` exist
   on the TPU to turn a gather into one-hot matrix products over a short
   axis; on Hopper a gather is a load, so none of it reaches the device.
@@ -37,16 +43,17 @@ The four applies, each with a plain PyTorch twin on the same tensors:
 
 =====================  ====  ======================================
 ``ellw_matvec``        K4    y = A x        (``assembly.ell_matvec``)
-``ellw_rmatvec``       K5    y = A^T r      scatter, ``atomicAdd``
+``ellw_rmatvec``       K5    y = A^T r      gather, transposed form
 ``ellw_matvec_batch``  K6a   Y = X A^T      B vectors, sliced form
-``ellw_rmatvec_batch`` K6b   Y = R A        B vectors, ``atomicAdd``
+``ellw_rmatvec_batch`` K6b   Y = R A        B vectors, transposed form
 =====================  ====  ======================================
 
 On a CUDA tensor a wrapper launches its kernel (``csrc/mg.cu``) or
-raises; the plain twin runs only for CPU tensors.  The scatter kernels
-sum with atomics in an order that changes from run to run: they agree
-with their plain versions to ~1e-5 max|y| in float32 and ~1e-12 max|y|
-in float64, not bit for bit.
+raises; the plain twin runs only for CPU tensors.  No kernel here sums
+with atomics: each output element is summed by one thread or one group
+of lanes in a fixed order, so every launch on the same inputs gives the
+same bits.  The order differs from the plain versions', which they
+match to ~1e-6 max|y| in float32 and ~1e-15 max|y| in float64.
 """
 
 from __future__ import annotations
@@ -72,7 +79,9 @@ class DeviceELLW:
     ``C, K, NCH, Wr`` are the host layout's statics.  ``cols, vals``: the
     row-major form, None where no apply of this layout reads it;
     ``slot_ptr, scol, sval``: the sliced form (:func:`sliced_ell`), None
-    where K6a does not apply it."""
+    where K6a does not apply it; ``trow_ptr, tcol, tval``: the CSR of
+    A^T (:func:`transposed_csr`) with ``tgroup`` lanes per row, None
+    where no restriction reads it."""
 
     n_rows: int
     n_cols: int
@@ -88,6 +97,44 @@ class DeviceELLW:
     nnz: int = 0                             # nonzeros of the sliced form
     # host copy of slot_ptr: the frozen shape a value refill must keep
     slot_ptr_host: Optional[np.ndarray] = None
+    trow_ptr: Optional[torch.Tensor] = None  # (n_cols + 1,) int32
+    tcol: Optional[torch.Tensor] = None      # (nnz,) int32: rows of A
+    tval: Optional[torch.Tensor] = None      # (nnz,)
+    tgroup: int = 0                          # lanes per row of A^T
+
+
+# lanes per row of A^T that the restriction kernels can take
+GROUPS = (4, 8, 16, 32)
+_INDEX_LIMIT = 1 << 31  # entries an int32 offset can address
+
+
+def lanes_per_row(mean_row: float) -> int:
+    """Lanes that share a row of A^T in K5/K6b: about a quarter of the
+    mean row length, as a power of two in :data:`GROUPS` (rows of 30
+    entries: 8 lanes, each summing about 4)."""
+    if mean_row <= 0:
+        return GROUPS[0]
+    g = 1 << max(0, int(round(np.log2(mean_row / 4.0))))
+    return min(max(g, GROUPS[0]), GROUPS[-1])
+
+
+def transposed_csr(cols: np.ndarray, vals: np.ndarray, n_cols: int):
+    """The CSR of A^T from a row-major ELL of A's nonzeros (``vals !=
+    0``): row j of A^T holds the entries of column j of A in ascending
+    order of their row (a stable sort of the row-major nonzeros by
+    column), the order in which K5/K6b's lanes take them.  Returns
+    ``(row_ptr int64 (n_cols + 1,), col int32, val, lanes per row)``;
+    raises ``ValueError`` where the nonzeros are more than an int32 can
+    address."""
+    rows, ks = np.nonzero(vals != 0)
+    if len(rows) >= _INDEX_LIMIT:
+        raise ValueError(f"{len(rows)} nonzeros: more than an int32 can address")
+    c = cols[rows, ks].astype(np.int64)
+    order = np.argsort(c, kind="stable")
+    row_ptr = np.zeros(n_cols + 1, np.int64)
+    np.cumsum(np.bincount(c, minlength=n_cols), out=row_ptr[1:])
+    group = lanes_per_row(len(rows) / max(n_cols, 1))
+    return (row_ptr, rows[order].astype(np.int32), vals[rows[order], ks[order]], group)
 
 
 def sliced_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
@@ -173,9 +220,10 @@ class ELLW:
         return cols.astype(np.int32), vals
 
     def device(self, dtype, device, row_major: bool = True,
-               sliced: bool = False) -> DeviceELLW:
-        """Upload the forms asked for: the row-major ELL and/or the sliced
-        ELL (:func:`sliced_ell`)."""
+               sliced: bool = False, transposed: bool = False) -> DeviceELLW:
+        """Upload the forms asked for: the row-major ELL, the sliced ELL
+        (:func:`sliced_ell`) and/or the CSR of A^T
+        (:func:`transposed_csr`)."""
         cols, vals = self.to_ell()
         idt = A.index_dtype(device)
         out = DeviceELLW(self.n_rows, self.n_cols, self.C, self.K, self.NCH, self.Wr,
@@ -189,12 +237,19 @@ class ELLW:
             out.slot_ptr = torch.as_tensor(ptr.astype(np.int32), device=device)
             out.scol = torch.as_tensor(scol, dtype=idt, device=device)
             out.sval = torch.as_tensor(sval, dtype=dtype, device=device)
+        if transposed:
+            ptr, tcol, tval, out.tgroup = transposed_csr(cols, vals, self.n_cols)
+            out.trow_ptr = torch.as_tensor(ptr.astype(np.int32), device=device)
+            out.tcol = torch.as_tensor(tcol, dtype=idt, device=device)
+            out.tval = torch.as_tensor(tval, dtype=dtype, device=device)
         return out
 
     def refill_arrays(self, dev: DeviceELLW):
         """[(device tensor, host array)] that carry this layout's values
         into ``dev``, a device form of a layout of the same shape (a
-        refreshed hierarchy).  Host numpy only; raises ``ValueError``
+        refreshed hierarchy): the row-major and sliced forms; the
+        transposed form belongs to a transfer, frozen with its hierarchy,
+        and is never refilled.  Host numpy only; raises ``ValueError``
         where the sliced form's frozen slices cannot hold a row."""
         cols, vals = self.to_ell()
         out = []
@@ -344,16 +399,14 @@ def build_ellw(A, Wr_cap: int = 128, far_frac_max: float = 0.10,
 # ---------------------------------------------------------------------------
 # applies on the device form
 # ---------------------------------------------------------------------------
-def _check_layout(e: DeviceELLW, v: torch.Tensor, name: str, length: int,
-                  batch: bool):
-    A._check_value(v, name)
-    if v.dim() != (2 if batch else 1) or v.shape[-1] != length:
-        want = f"(B, {length})" if batch else f"({length},)"
-        raise ValueError(f"{name} has shape {tuple(v.shape)}, expected {want}")
+def _check_row_major(e: DeviceELLW, x: torch.Tensor):
+    A._check_value(x, "x")
+    if x.dim() != 1 or x.shape[0] != e.n_cols:
+        raise ValueError(f"x has shape {tuple(x.shape)}, expected ({e.n_cols},)")
     if e.cols is None:
         raise ValueError("this layout has no row-major form on the device")
-    A._check(e.cols, "cols", v, (e.n_rows, e.K), index=True)
-    A._check(e.vals, "vals", v, (e.n_rows, e.K))
+    A._check(e.cols, "cols", x, (e.n_rows, e.K), index=True)
+    A._check(e.vals, "vals", x, (e.n_rows, e.K))
 
 
 def _check_sliced(e: DeviceELLW, X: torch.Tensor):
@@ -372,6 +425,28 @@ def _check_sliced(e: DeviceELLW, X: torch.Tensor):
     A._check(e.sval, "sval", X, tuple(e.scol.shape))
 
 
+def _check_transposed(e: DeviceELLW, R: torch.Tensor, name: str, batch: bool):
+    A._check_value(R, name)
+    if R.dim() != (2 if batch else 1) or R.shape[-1] != e.n_rows or 0 in R.shape:
+        want = f"(B, {e.n_rows})" if batch else f"({e.n_rows},)"
+        raise ValueError(f"{name} has shape {tuple(R.shape)}, expected {want}")
+    if e.trow_ptr is None:
+        raise ValueError("this layout has no transposed form on the device: "
+                         "upload it with ELLW.device(..., transposed=True)")
+    if e.trow_ptr.dtype != torch.int32 or tuple(e.trow_ptr.shape) != (e.n_cols + 1,):
+        raise TypeError(f"trow_ptr must be int32 of shape ({e.n_cols + 1},)")
+    A._check(e.trow_ptr, "trow_ptr", R, index=True)
+    A._check(e.tcol, "tcol", R, index=True)
+    A._check(e.tval, "tval", R, tuple(e.tcol.shape))
+
+
+def _transposed_rows(e: DeviceELLW) -> torch.Tensor:
+    """The row of A^T (a column of A) of every entry of the transposed form."""
+    ptr = e.trow_ptr.long()
+    return torch.repeat_interleave(torch.arange(e.n_cols, device=ptr.device),
+                                   ptr[1:] - ptr[:-1])
+
+
 def ellw_matvec_plain(e: DeviceELLW, x):
     return A.ell_matvec_plain(e.cols, e.vals, x)
 
@@ -380,32 +455,32 @@ def ellw_matvec(e: DeviceELLW, x):
     """K4.  y = A x; x (n_cols,) -> y (n_rows,).  The row-major device form
     is plain ELL, so this is :func:`assembly.ell_matvec` and counts as its
     launch."""
-    _check_layout(e, x, "x", e.n_cols, batch=False)
+    _check_row_major(e, x)
     return A.ell_matvec(e.cols, e.vals, x)
 
 
 def ellw_rmatvec_plain(e: DeviceELLW, r):
-    ye = e.vals * r[:, None]
-    y = torch.zeros(e.n_cols, dtype=r.dtype, device=r.device)
-    return y.index_add_(0, e.cols.reshape(-1).long(), ye.reshape(-1))
+    return ellw_rmatvec_batch_plain(e, r[None])[0]
 
 
 def ellw_rmatvec(e: DeviceELLW, r):
-    """K5.  y = A^T r from the layout of A: y[cols[i, k]] += vals[i, k] r[i].
+    """K5.  y = A^T r from the transposed form of A: y[j] = sum over the
+    entries s of row j of A^T of tval[s] r[tcol[s]].
 
     Replaces ``knpemi_tpu/ops/pallas_ell.py:_make_scatter_kernel`` (via
-    ``ellw_rmatvec``).  Bound on the H100: bytes — cols, vals, r read
-    once, y written once (``csrc/mg.cu``).  Design: one thread per row,
-    exact loads, one ``atomicAdd`` per nonzero slot into a zeroed y
-    (padded slots, value 0, are skipped: they would all hit one address).
+    ``ellw_rmatvec``).  Bound on the H100: bytes — an index and a value
+    per nonzero, r read once, y written once (``csrc/mg.cu``).  Design:
+    the B = 1 instance of K6b's gather: ``tgroup`` lanes per output row,
+    no atomics and no memset, the same bits from every launch.
 
     r (n_rows,) -> y (n_cols,)."""
-    _check_layout(e, r, "r", e.n_rows, batch=False)
+    _check_transposed(e, r, "r", batch=False)
     if not r.is_cuda:
         return ellw_rmatvec_plain(e, r)
-    y = torch.zeros(e.n_cols, dtype=r.dtype, device=r.device)
-    A._launch("ell_rmatvec", r, e.cols.data_ptr(), e.vals.data_ptr(),
-              r.data_ptr(), y.data_ptr(), e.n_rows, e.K)
+    y = torch.empty(e.n_cols, dtype=r.dtype, device=r.device)
+    A._launch("csr_gather_batch", r, e.trow_ptr.data_ptr(), e.tcol.data_ptr(),
+              e.tval.data_ptr(), r.data_ptr(), y.data_ptr(), e.n_cols, e.n_rows, 1,
+              e.tgroup)
     ellw_rmatvec.launches += 1
     return y
 
@@ -460,33 +535,36 @@ ellw_matvec_batch.launches = 0
 
 
 def ellw_rmatvec_batch_plain(e: DeviceELLW, R):
-    B = R.shape[0]
-    Ye = e.vals[None] * R[:, :, None]
-    Y = torch.zeros(B, e.n_cols, dtype=R.dtype, device=R.device)
-    return Y.index_add_(1, e.cols.reshape(-1).long(), Ye.reshape(B, -1))
+    """Each row of A^T summed over its entries in their stored order."""
+    Y = torch.zeros(R.shape[0], e.n_cols, dtype=R.dtype, device=R.device)
+    return Y.index_add_(1, _transposed_rows(e), e.tval * R[:, e.tcol.long()])
 
 
 def ellw_rmatvec_batch(e: DeviceELLW, R):
-    """K6b.  Y[b] = A^T R[b] for B vectors from the layout of A, indices
-    and values read once.
+    """K6b.  Y[b] = A^T R[b] for B vectors from the transposed form of A,
+    each entry's index and value read once for all B.
 
     Replaces ``knpemi_tpu/ops/pallas_ell.py:_make_scatter_kernel_batch``
-    (via ``ellw_rmatvec_batch``).  Bound on the H100: bytes — cols, vals,
-    R read once, Y written once (``csrc/mg.cu``).  Design: one thread per
-    row holds its B values of R in registers and adds B atomics per
-    nonzero slot; more than 8 vectors go through in groups of 8.
+    (via ``ellw_rmatvec_batch``).  Bound on the H100: bytes — an index
+    and a value per nonzero, R read once, Y written once
+    (``csrc/mg.cu``).  Design: a CSR gather from A^T, built once per
+    hierarchy (P is frozen): ``tgroup`` lanes own a row, stride over its
+    entries with coalesced loads, keep B sums each and reduce them by
+    warp shuffles in a fixed order; one plain store per output, so no
+    atomics and no memset (Y is ``torch.empty``).  More than 8 vectors
+    go through in groups of 8.
 
     R (B, n_rows) -> Y (B, n_cols)."""
-    _check_layout(e, R, "R", e.n_rows, batch=True)
+    _check_transposed(e, R, "R", batch=True)
     if not R.is_cuda:
         return ellw_rmatvec_batch_plain(e, R)
     B = R.shape[0]
-    Y = torch.zeros(B, e.n_cols, dtype=R.dtype, device=R.device)
+    Y = torch.empty(B, e.n_cols, dtype=R.dtype, device=R.device)
     for b0 in range(0, B, A.BATCH_MAX):
         nb = min(A.BATCH_MAX, B - b0)
-        A._launch("ell_rmatvec_batch", R, e.cols.data_ptr(), e.vals.data_ptr(),
-                  R[b0:].data_ptr(), Y[b0:].data_ptr(), e.n_rows, e.K,
-                  e.n_cols, nb)
+        A._launch("csr_gather_batch", R, e.trow_ptr.data_ptr(), e.tcol.data_ptr(),
+                  e.tval.data_ptr(), R[b0:].data_ptr(), Y[b0:].data_ptr(), e.n_cols,
+                  e.n_rows, nb, e.tgroup)
         ellw_rmatvec_batch.launches += 1
     return Y
 

@@ -500,12 +500,13 @@ class MGHierarchy:
     perm: Optional[np.ndarray] = None
 
     def device(self, dtype, device, band_dtype=None, batched: bool = False) -> "DeviceMG":
-        """Upload to ``device`` in ``dtype``.  ``batched``: the cycle runs on
-        B vectors at once (the ion-batched KNP solve), so every windowed-ELL
-        layout that it applies forward (A, P, AP) gets the sliced form K6a
-        reads, and A and AP lose the row-major one that nothing then reads
-        (P keeps it where the restriction scatters through the same
-        layout).  ``band_dtype`` is the STORAGE
+        """Upload to ``device`` in ``dtype``.  A windowed-ELL layout gets
+        the device forms its applies read: the transposed form (the CSR
+        of P^T that K5/K6b gather from) where the cycle restricts through
+        it; the row-major form where a single-vector cycle applies it
+        forward (K4); with ``batched`` (the cycle runs on B vectors at
+        once: the ion-batched KNP solve) the sliced form K6a reads
+        instead.  ``band_dtype`` is the STORAGE
         type of the fine-level smoothing slab's packed values
         (``torch.bfloat16`` halves their bytes; default ``dtype``): the
         kernel upcasts each value after the read and never rounds the
@@ -518,24 +519,27 @@ class MGHierarchy:
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         iperm = np.argsort(self.perm) if self.perm is not None else None
         dev_band = lambda band, slab_dt=None: _device_band(band, dtype, device, slab_dt)
-        # the forms each layout needs: p_ellw and pt_ellw are often one
-        # layout, gathered forward and scattered transposed
+        # the forms each layout needs (row-major, sliced, transposed):
+        # p_ellw and pt_ellw are often one layout, applied forward and
+        # transposed
         need = {}
         for lv in self.levels:
             for w in ("a", "ap", "p", "pt"):
                 e = getattr(lv, w + "_ellw")
                 if e is not None:
-                    rm, sl = need.get(id(e), (False, False))
-                    need[id(e)] = (rm or not batched or w == "pt",
-                                   sl or (batched and w != "pt"))
+                    rm, sl, tr = need.get(id(e), (False, False, False))
+                    fwd = w != "pt"
+                    need[id(e)] = (rm or (fwd and not batched), sl or (fwd and batched),
+                                   tr or not fwd)
         ellw_done = {}
 
         def dev_ellw(e):
             if e is None:
                 return None
             if id(e) not in ellw_done:
-                rm, sl = need[id(e)]
-                ellw_done[id(e)] = e.device(dtype, device, row_major=rm, sliced=sl)
+                rm, sl, tr = need[id(e)]
+                ellw_done[id(e)] = e.device(dtype, device, row_major=rm, sliced=sl,
+                                            transposed=tr)
             return ellw_done[id(e)]
 
         out = []
@@ -852,8 +856,9 @@ class DeviceMG:
         (safe on a worker thread): the diagonals, smoother weights, the
         lagged operators' ELL, windowed-ELL (both device forms) and packed
         band values, AP's, and the coarse factors; the transfers are
-        frozen.  A packed band window keeps the slots it was built with:
-        a refreshed nonzero without a slot is dropped and counted in
+        frozen, and with them the transposed forms K5/K6b read.  A packed
+        band window keeps the slots it was built with: a refreshed
+        nonzero without a slot is dropped and counted in
         ``stats`` (``band_dropped``, ``band_dropped_frac`` of the level's
         |A| mass), and more than ``max_drop_frac`` raises ``ValueError``."""
         iperm = None if hier.perm is None else np.argsort(hier.perm)
@@ -920,8 +925,8 @@ class DeviceMG:
                     for win in v["windows"]:
                         out += [win.slot_ptr, win.off, win.val, win.w0]
                 elif isinstance(v, ell_ops.DeviceELLW):
-                    out += [t for t in (v.cols, v.vals, v.slot_ptr, v.scol, v.sval)
-                            if t is not None]
+                    out += [t for t in (v.cols, v.vals, v.slot_ptr, v.scol, v.sval,
+                                        v.trow_ptr, v.tcol, v.tval) if t is not None]
         return out
 
     def layout(self):
@@ -955,8 +960,8 @@ class DeviceMG:
             return _banded_mv(lv[which + "_band"], x, batch)
         ellw = lv[which + "_ellw"]
         if ellw is not None:
-            # the stored layout is always of P; restriction applies it
-            # transposed
+            # the stored layout is always of P; restriction gathers from
+            # its transposed form
             if which == "pt":
                 mv = ell_ops.ellw_rmatvec_batch if batch else ell_ops.ellw_rmatvec
             else:

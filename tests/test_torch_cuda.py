@@ -7,7 +7,9 @@ order than the plain versions: 1e-5 max|y| in float32, 1e-12 max|y| in
 float64.  K7/K8 run on the packed band windows (``ops/banded.py``), K6a
 on the sliced form of a windowed-ELL layout (``ops/ell.py``); K1, K3 and
 K11 apply a subdomain's assembled P1 operator (``ops/p1op.py``), whose
-per-solve values K1f and K11f fill.
+per-solve values K1f and K11f fill; K5/K6b gather from the transposed
+form of a transfer layout, with no atomics: float64 to 1e-13 max|y|, and
+two launches give the same bits.
 """
 
 import pytest
@@ -325,3 +327,77 @@ def test_packed_band_wrappers_raise_rather_than_fall_back(sim_banded):
     assert TB.banded_matvec.launches == before
     TB.banded_matvec(win, x, n)
     assert TB.banded_matvec.launches == before + 1
+
+
+@pytest.fixture(scope="module")
+def sims_res2():
+    """The 3-D res-2 scenario and its box of twice the length (l = 4) with
+    mg_banded=True: the hierarchies whose transfers take windowed-ELL
+    layouts at the main path's shapes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+
+    return {f"l={l}": build_idealized(dim=3, resolution=2, l=l, g_syn_bar=10.0,
+                                      dtype=torch.float32, device="cuda",
+                                      solver_options=SolverOptions(mg_banded=True))
+            for l in (2, 4)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_restriction_matches_plain_on_every_transfer_layout(sims_res2, dtype):
+    """K5 and K6b (B = 1, 2, 3, 8) on every layout the EMI and KNP cycles
+    of both boxes restrict through, against their plain versions, each
+    launched twice with the same bits."""
+    import chip_smoke
+
+    total = 0
+    for name, sim in sims_res2.items():
+        mgs = {"EMI": sim.emi_solver.mg,
+               **{f"KNP tag {t}": mg for t, mg in sim.knp_solver.mg.items()}}
+        layouts = chip_smoke._pt_layouts(mgs)
+        assert layouts or name != "l=4"
+        total += len(layouts)
+        if not layouts:
+            continue
+        cases = chip_smoke.restrict_cases(layouts, dtype, (None, 1, 2, 3, 8), timed=False)
+        rows = chip_smoke.check_cases(cases, dtype, time_them=False)
+        assert len(rows) == 5 * len(layouts) and all(r["deterministic"] for r in rows)
+        assert all(r["shape"]["G"] in (4, 8, 16, 32) and not r["shape"]["row_major_kept"]
+                   for r in rows if r["shape"]["source"].startswith("KNP"))
+    assert total > 0
+
+
+def test_restriction_raises_rather_than_fall_back():
+    """On the card K5/K6b refuse a layout without its transposed form and
+    a vector of the wrong length; nine vectors go through in two launches,
+    each as bitwise repeatable as one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+    import scipy.sparse as sp
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    rng = np.random.default_rng(1)
+    n, nc = 30000, 4000
+    rows = np.repeat(np.arange(n), 4)
+    cols = np.clip(rows * nc // n + rng.integers(-20, 21, len(rows)), 0, nc - 1)
+    P = sp.coo_matrix((rng.standard_normal(len(rows)), (rows, cols)), shape=(n, nc)).tocsr()
+    host = TE.build_ellw(P)
+    e = host.device(torch.float32, "cuda", transposed=True)
+    bare = host.device(torch.float32, "cuda", sliced=True)
+    R = torch.as_tensor(rng.standard_normal((9, n)), dtype=torch.float32, device="cuda")
+    before = TE.ellw_rmatvec.launches, TE.ellw_rmatvec_batch.launches
+    with pytest.raises(ValueError):
+        TE.ellw_rmatvec(bare, R[0])
+    with pytest.raises(ValueError):
+        TE.ellw_rmatvec_batch(bare, R)
+    with pytest.raises(ValueError):
+        TE.ellw_rmatvec_batch(e, R[:, :-1].contiguous())
+    assert (TE.ellw_rmatvec.launches, TE.ellw_rmatvec_batch.launches) == before
+    Y = TE.ellw_rmatvec_batch(e, R)
+    assert TE.ellw_rmatvec_batch.launches == before[1] + 2
+    assert torch.equal(Y, TE.ellw_rmatvec_batch(e, R))
+    Ys = torch.as_tensor((P.T @ R.double().cpu().numpy().T).T)
+    assert float((Y.double().cpu() - Ys).abs().max()) <= 1e-5 * float(Ys.abs().max())

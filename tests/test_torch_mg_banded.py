@@ -251,8 +251,8 @@ def test_ellw_plain_f32_vs_jax_interpret(case, transpose, B):
     host = TE.build_ellw(A, **kw)
     V = np.random.default_rng(B).standard_normal(
         (B, A.shape[0] if transpose else A.shape[1])).astype(np.float32)
-    y = _ell_apply_port(host.device(torch.float32, "cpu", sliced=True), torch.as_tensor(V),
-                        transpose)
+    y = _ell_apply_port(host.device(torch.float32, "cpu", sliced=True, transposed=True),
+                        torch.as_tensor(V), transpose)
     y_jax = _ell_apply_jax(JE.build_ellw(A, **kw).device(jnp.float32),
                            jnp.asarray(V), transpose)
     close(y, y_jax, TOL32)
@@ -264,7 +264,7 @@ def test_ellw_plain_f32_vs_jax_interpret(case, transpose, B):
 def test_ellw_plain_f64_vs_scipy(case, transpose, B):
     make, kw = ELL_CASES[case]
     A = make()
-    e = TE.build_ellw(A, **kw).device(torch.float64, "cpu", sliced=True)
+    e = TE.build_ellw(A, **kw).device(torch.float64, "cpu", sliced=True, transposed=True)
     V = np.random.default_rng(10 + B).standard_normal(
         (B, A.shape[0] if transpose else A.shape[1]))
     y = _ell_apply_port(e, torch.as_tensor(V), transpose)
@@ -385,7 +385,7 @@ def test_bf16_slab_is_storage_only():
 def test_new_wrappers_take_plain_path_on_cpu_and_check_inputs():
     A = BAND_CASES["tridiag_far"]()
     n = A.shape[0]
-    e = TE.build_ellw(A).device(torch.float32, "cpu", sliced=True)
+    e = TE.build_ellw(A).device(torch.float32, "cpu", sliced=True, transposed=True)
     (sT, w0, W), = tmg._csr_to_banded(A, R=256, dtype=np.float32)[0][:1]
     win = TB.pack_window(sT, w0, W, torch.float32, "cpu")
     x = torch.ones(n)
