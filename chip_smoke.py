@@ -30,8 +30,11 @@ and 4 come in two groups):
    timed beside K6a's kernel on the sliced ELL of the same P^T), and the
    single-ion KNP
    operator K11 (the same apply with two value streams) and its drift
-   fill K11f on every subdomain of the astrocyte flagship and of the
-   l = 4 box, K11 also row by row against K3; K3 on every subdomain of
+   fill K11f on every subdomain of the astrocyte flagship, the l = 4 box
+   and res 2, K11 also row by row against K3 (K1 and K1f too on every
+   subdomain of all three; the fills, row by row from the operator's
+   incidence list, held to 1e-13 of max|y| in float64 and bitwise across
+   two launches); K3 on every subdomain of
    both at B = 1, 2, 3, full and mass-only; K6a on every sliced layout and
    K6b on every restriction layout of the l = 4 box's KNP hierarchies,
    K5 on the EMI hierarchy's; before each of the three flagship
@@ -44,10 +47,13 @@ and 4 come in two groups):
    flushed, by torch.profiler) of kernel, plain version and the PyTorch
    call that computes the same function (torch.mv / torch.sparse.mm on
    its CSR; for K1 and K11 the CSR of the same P1 operator, for K2, K3
-   assembled from the port's host COO helpers), the kernel's time from
+   assembled from the port's host COO helpers, for K1f and K11f the CSR
+   of the fill's frozen linear map), the kernel's time from
    100 calls replayed as one CUDA graph, beside the bound, and each
    call's time with the host's; K1, K3 and K11 also with the bound of
-   their slots and that of the earlier cell-loop formulation's bytes;
+   their slots and that of the earlier cell-loop formulation's bytes,
+   K1f and K11f with the bound of the bytes their row fill reads
+   (``nbytes_layout``: the incidence list and the gathered inputs once);
    after phase 3 the cost per solve (fill + applies) against the
    cell-loop kernels' recorded times, with the recorded times of the
    designs K3 and K6a replaced beside it (not measured in the run);
@@ -125,6 +131,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # peak rates outside the tensor cores (NVIDIA H100 SXM data sheet)
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, x max|y|
+# the fills sum each row in the plain version's order, without atomics
+FILL_TOL = {"float32": 1e-5, "float64": 1e-13}
 CELL_KERNELS = ("K1", "K1f", "K3", "K4")  # of the assembly kernels; the others: facets
 P1_KERNELS = ("K1", "K1f")  # of the cell kernels: the P1 operator's
 # device ms (L2 flushed) of the cell-loop K1 (l = 4 box, tag 0) and K11
@@ -324,6 +332,52 @@ def _knp_csr(cells, grads, vols, w, coefs, n: int, dtype):
                                  host(w.double()), coefs, n), (N, N), dtype, cells.device)
 
 
+def _fill_map_csr(op, grads, vols=None):
+    """A fill's frozen linear map as a CSR on the card, the library
+    yardstick of K1f and K11f: K1f's is slots x nc, g_ci . g_cj at (the
+    slot of (v_i, v_j), c) for i != j, so that vals = S wv; K11f's (with
+    ``vols``) is slots x nc dim, vol_c g_cid / k (k times that at the
+    diagonal slot) at (the slot of (v_i, v_j), c dim + d), so that Dr =
+    S vec(w)."""
+    import torch
+
+    nc, k = op.cells.shape
+    dim, dev = grads.shape[-1], grads.device
+    v = op.cells.long()[:, :, None]
+    slots = op.slot_ptr.long()[v // 32] + 32 * op.pos.long() + v % 32  # (nc, k, k)
+    cell = torch.arange(nc, device=dev)
+    if vols is None:
+        off = ~torch.eye(k, dtype=torch.bool, device=dev)
+        rows = slots[:, off]
+        vals = (grads[:, :, None, :] * grads[:, None, :, :]).sum(-1)[:, off]
+        cols, n_cols = cell[:, None].expand_as(rows), nc
+    else:
+        scale = 1.0 + (k - 1) * torch.eye(k, dtype=grads.dtype, device=dev)
+        rows = slots[..., None].expand(nc, k, k, dim)
+        vals = (vols[:, None, None, None] / k) * grads[:, :, None, :] * scale[None, :, :, None]
+        cols = (cell[:, None, None, None] * dim
+                + torch.arange(dim, device=dev)).expand(nc, k, k, dim)
+        n_cols = nc * dim
+    rows, order = rows.reshape(-1).sort()
+    crow = torch.zeros(op.slots + 1, dtype=torch.int64, device=dev)
+    crow[1:] = torch.bincount(rows, minlength=op.slots).cumsum(0)
+    return torch.sparse_csr_tensor(crow, cols.reshape(-1)[order], vals.reshape(-1)[order],
+                                   size=(op.slots, n_cols))
+
+
+def _fill_extra(op, es, *inputs, scratch: int = 0):
+    """What a fill case records beside its bound: the bytes the row fill
+    reads and writes (the incidence list, the gathered inputs once, every
+    slot written, a scratch array written and read once), the gate
+    (FILL_TOL), two launches compared bit for bit, and the list's size."""
+    return dict(nbytes_layout=_nbytes(op.inc_ptr, op.inc, op.pos, op.slot_ptr, *inputs)
+                + op.slots * es + 2 * scratch,
+                tol=FILL_TOL, repeat=True,
+                shape=dict(nc=op.cells.shape[0], slots=op.slots, kmax=op.kmax,
+                           incidence_entries=op.inc.numel(),
+                           incidence_bytes=_nbytes(op.inc_ptr, op.inc)))
+
+
 def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
     """The seven assembly kernels at the main path's shapes — the cell
     kernels K1, K1f, K3, K4 on subdomain ``tag`` (with its own diffusion
@@ -406,11 +460,13 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
              bytes_cell_loop=_nbytes(cells, grads, wv) + 2 * n * es,
              shape=dict(n=n, nc=nc, nnz=op.nnz, slots=op.slots,
                         slots_per_nonzero=op.slots / op.nnz, pattern_bytes=op.nbytes)),
-        case("K1f emi_fill", P.emi_fill, P.emi_fill_plain, None, (op, grads, wv),
-             op.slots, nc * k * k * (2 * dim + 1),
+        case("K1f emi_fill", P.emi_fill, P.emi_fill_plain,
+             _lazy(lambda: _fill_map_csr(op, grads), lambda csr: torch.mv(csr, wv)),
+             (op, grads, wv), op.slots, nc * k * k * (2 * dim + 1),
              nbytes=_nbytes(op.cells, op.pos, grads, wv) + op.nnz * es,
              nbytes_slots=_nbytes(op.cells, op.pos, op.slot_ptr, grads, wv) + op.slots * es,
-             shape=dict(nc=nc, slots=op.slots)),
+             # K1f stages the cells' pair values: k (k - 1) / 2 a cell
+             **_fill_extra(op, es, grads, wv, scratch=nc * k * (k - 1) // 2 * es)),
         case("K2 facet_mass", A.facet_mass, A.facet_mass_plain, lib_k2,
              (xm, fd, fwv), n_mem, nf * 4 * kf),
         case("K3 knp_apply_batch", P.knp_apply_batch, P.knp_apply_batch_plain, lib_k3,
@@ -589,12 +645,14 @@ def k11_cases(sim, dtype, phi_scale: float):
             kern=lambda op=op, grads=grads, vols=vols, w=w: P.drift_fill(op, grads, vols, w),
             plain=lambda op=op, grads=grads, vols=vols, w=w: P.drift_fill_plain(
                 op, grads, vols, w),
-            lib=None,
+            lib=_lazy(lambda op=op, grads=grads, vols=vols: _fill_map_csr(op, grads, vols),
+                      lambda csr, w=w: torch.mv(csr, w.reshape(-1))),
             nbytes=_nbytes(op.cells, op.pos, grads, vols, w) + op.nnz * es,
             nbytes_slots=_nbytes(op.cells, op.pos, op.slot_ptr, grads, vols, w)
             + op.slots * es,
             ops=nc * k * (2 * dim + 1 + k),
-            shape=dict(nc=nc, slots=op.slots)))
+            # K11f stages the cells' drift values: k a cell
+            **_fill_extra(op, es, grads, vols, w, scratch=nc * k * es)))
     return cases
 
 
@@ -1050,9 +1108,12 @@ def check_cases(cases, dtype, time_them: bool):
             )
             for key, out in (("bytes_dense_slab", "dense_slab_bound_ms"),
                              ("nbytes_slots", "bound_slots_ms"),
+                             ("nbytes_layout", "bound_layout_ms"),
                              ("bytes_cell_loop", "cell_loop_bound_ms")):
                 if key in c:
                     row[out] = c[key] / HBM_BYTES_PER_S * 1e3
+            if "nbytes_layout" in c:
+                row["nbytes_layout"] = c["nbytes_layout"]
             for route, fn in c.get("routes", {}).items():
                 row[f"ms_{route}"] = dev_ms(fn)
             for key, fn in c.get("also_time", {}).items():
@@ -1073,6 +1134,14 @@ def check_mg_kernels(sim, dtype, time_them: bool, all_bands: bool = False):
 
 def check_k11(sim, dtype, time_them: bool, phi_scale: float):
     return check_cases(k11_cases(sim, dtype, phi_scale), dtype, time_them)
+
+
+def p1_elsewhere(sim, dtype):
+    """K1 and K1f on every subdomain of ``sim`` but the first (which
+    :func:`check_kernels` holds), untimed."""
+    return check_cases(
+        [c for t in sorted(sim.knp_sys.sub)[1:] for c in kernel_cases(sim, dtype, tag=t)
+         if c["name"].split()[0] in P1_KERNELS], dtype, time_them=False)
 
 
 def check_all_operators(sim, dtype, time_them: bool):
@@ -1682,18 +1751,55 @@ def _async_refresh(build_idealized, SolverOptions, sync_state):
     return rec
 
 
+def per_solve_ecs(sim, launches):
+    """The P1 operator's cost per solve on the flagship's ECS (tag 0), for
+    the package ``sim`` comes from, by its own wrappers on random inputs
+    (device ms, L2 flushed): K1f + applies x K1 (the EMI solve) and K11f
+    + applies x K3 + K3's mass-only apply (the batched KNP solve), the
+    applies per fill from ``launches``, the counts of the profiled
+    steps."""
+    import torch
+
+    from knpemi_tpu_torch.ops import p1op as P
+
+    s, ks = sim.emi_sys.sub[0], sim.knp_sys.sub[0]
+    op, grads, vols = s["op"], s["grads"], s["vols"]
+    dev = sim.device
+    g = torch.Generator(device=dev).manual_seed(4)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev)
+    wv, w = vols * (1.0 + torch.rand(vols.shape, generator=g, device=dev)), rnd(
+        vols.shape[0], grads.shape[-1])
+    V, Dr = P.emi_fill(op, grads, wv), P.drift_fill(op, grads, vols, w)
+    x, X = rnd(s["n_dofs"]), rnd(sim.knp_sys.n_solved, s["n_dofs"])
+    coef, M, Kst = ks["coef"], ks["M"], ks["kst"]
+    t = {k: device_ms(fn) for k, fn in (
+        ("K1f", lambda: P.emi_fill(op, grads, wv)),
+        ("K11f", lambda: P.drift_fill(op, grads, vols, w)),
+        ("K1", lambda: P.emi_stiffness(x, op, V)),
+        ("K3", lambda: P.knp_apply_batch(X, op, coef, M, Kst, Dr)),
+        ("K3 mass-only", lambda: P.knp_apply_batch(X, op, coef, M)))}
+    _FLUSH.pop("buf", None)
+    emi = launches["K1 emi_stiffness"] / launches["K1f emi_fill"]
+    knp = launches["K3 knp_apply_batch"] / launches["K11f drift_fill"] - 1.0
+    return dict(ms=t, emi_applies_per_fill=emi, knp_applies_per_fill=knp,
+                emi=t["K1f"] + emi * t["K1"],
+                knp_batched=t["K11f"] + knp * t["K3"] + t["K3 mass-only"])
+
+
 def step_profile(warm: int = 12, steps: int = 2):
     """The port's kernels inside the flagship's step, for the
     ``knpemi_tpu_torch`` on ``sys.path``: batched and banded (float32, the
     tuned options), ``warm`` steps, then ``steps`` under torch.profiler;
-    device ms and device kernels per step, the iterations of the last
-    step and, for every kernel of the port (those in ``ops/csrc``),
-    device ms and launches per step.  Yields one record per run."""
+    device ms and device kernels per step, peak device memory of those
+    steps, the iterations of the last step and, for every kernel of the
+    port (those in ``ops/csrc``), device ms and launches per step; on the
+    batched run also :func:`per_solve_ecs`.  Yields one record per run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import knpemi_tpu_torch as kt
+    from knpemi_tpu_torch import ops
 
     dev_t = lambda e: getattr(e, "self_device_time_total", 0) or 0
     for banded in (False, True):
@@ -1703,10 +1809,15 @@ def step_profile(warm: int = 12, steps: int = 2):
                                  solver_options=kt.SolverOptions(mg_banded=banded, **TUNED))
         state, *_ = sim.run(sim.init_state(), warm)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 state = sim.step(state)
             torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        launches = ops.launch_counts()
+        solve = None if banded else per_solve_ecs(sim, launches)
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                   and not e.key.startswith("step/")]
         yield dict(package=str(Path(kt.__file__).parent), mg_banded=banded,
@@ -1714,7 +1825,8 @@ def step_profile(warm: int = 12, steps: int = 2):
                    device_kernel_ms_per_step=sum(dev_t(e) for e in events) / 1e3 / steps,
                    kernels_per_step=sum(e.count for e in events) / steps,
                    emi_iters=int(state.emi_iters), knp_iters=int(state.knp_iters),
-                   port_kernels={e.key[:90]: [dev_t(e) / 1e3 / steps, e.count / steps]
+                   peak_mb=peak / 2**20, per_solve_ecs=solve,
+                   port_kernels={e.key[:120]: [dev_t(e) / 1e3 / steps, e.count / steps]
                                  for e in events
                                  if e.key.startswith("void (anonymous namespace)::")},
                    seconds=time.perf_counter() - t0)
@@ -1785,6 +1897,13 @@ def main(argv=None) -> int:
         check = check_mg_kernels if banded else check_kernels
         r32 = check(sim, torch.float32, time_them=True)
         r64 = check(sim, torch.float64, time_them=False)
+        if not banded:
+            # the P1 operator's kernels, the fills among them, on every
+            # subdomain (K11 / K11f with phi in V)
+            r32 += p1_elsewhere(sim, torch.float32) + check_k11(
+                sim, torch.float32, False, phi_scale=1e-3)
+            r64 += p1_elsewhere(sim, torch.float64) + check_k11(
+                sim, torch.float64, False, phi_scale=1e-3)
         emit(dict(phase=1, path=label, setup_seconds_res2=setup_s, float32=r32,
                   float64=r64, seconds=time.perf_counter() - t1))
         # -- phases 3 and 4: the slice at res 2, float32 ------------------------
@@ -1806,18 +1925,15 @@ def main(argv=None) -> int:
                           solver_options=SolverOptions(mg_banded=True))
     setup_s = time.perf_counter() - t0
     t1 = time.perf_counter()
-    p1_elsewhere = lambda dtype: check_cases(
-        [c for t in sorted(sim.knp_sys.sub)[1:] for c in kernel_cases(sim, dtype, tag=t)
-         if c["name"].split()[0] in P1_KERNELS], dtype, time_them=False)
     rows32 = (check_kernels(sim, torch.float32, time_them=True)
               + check_mg_kernels(sim, torch.float32, time_them=True, all_bands=True)
-              + p1_elsewhere(torch.float32)
+              + p1_elsewhere(sim, torch.float32)
               + check_k11(sim, torch.float32, False, phi_scale=1e-3)
               + check_cases(k3_cases(sim, torch.float32, 1e-3, timed={(0, 2, True)}),
                             torch.float32, time_them=True))
     r64 = (check_kernels(sim, torch.float64, time_them=False)
            + check_mg_kernels(sim, torch.float64, time_them=False, all_bands=True)
-           + p1_elsewhere(torch.float64)
+           + p1_elsewhere(sim, torch.float64)
            + check_k11(sim, torch.float64, False, phi_scale=1e-3)
            + check_cases(k3_cases(sim, torch.float64, 1e-3), torch.float64,
                          time_them=False))
@@ -1915,7 +2031,9 @@ def main(argv=None) -> int:
              **{k: r[k] for k in ("graph_ms", "call_ms", "library_call_ms", "ms_staged",
                                   "ms_l2", "dense_slab_bound_ms", "bound_slots_ms",
                                   "cell_loop_bound_ms", "k3_b1_ms", "fill_ms",
-                                  "sliced_transpose_ms", "deterministic") if k in r})
+                                  "sliced_transpose_ms", "deterministic", "nbytes_layout",
+                                  "bound_layout_ms")
+                if k in r})
         for name, r in sorted(first.items(),
                               key=lambda kv: list(KERNEL_SOURCES).index(kv[0].split()[0]))
     ]})

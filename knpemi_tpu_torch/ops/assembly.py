@@ -60,9 +60,9 @@ _SIGS = {
     "p1_apply_batch": ("cells", "knp_p1_apply_batch",
                        [_c_int] + [_c_ptr] * 8 + [_c_int] * 2 + [_c_ptr]),
     "emi_fill": ("cells", "knp_emi_fill",
-                 [_c_int] + [_c_ptr] * 6 + [_c_int] * 3 + [_c_ptr]),
+                 [_c_int] + [_c_ptr] * 8 + [_c_int] * 5 + [_c_ptr]),
     "drift_fill": ("cells", "knp_drift_fill",
-                   [_c_int] + [_c_ptr] * 7 + [_c_int] * 3 + [_c_ptr]),
+                   [_c_int] + [_c_ptr] * 9 + [_c_int] * 5 + [_c_ptr]),
     # ops/ell.py and ops/banded.py
     "sliced_matvec_batch": ("mg", "knp_sliced_matvec_batch",
                             [_c_int] + [_c_ptr] * 5 + [_c_int] * 3 + [_c_ptr]),

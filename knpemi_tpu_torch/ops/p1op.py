@@ -17,6 +17,11 @@ it), built on the host in numpy:
 * ``pos`` (nc, k, k) uint8: for every cell c and vertex pair (i, j), the
   slot k of column v_j within row v_i -- with ``cells`` and ``slot_ptr``
   it locates the pair's slot, in 16 bytes a tetrahedron.
+* ``inc_ptr``, ``inc``: the incidence list, every row's (cell c, local
+  vertex i) pairs with ``cells[c, i]`` = the row, c ascending, packed as
+  ``c << 2 | i`` in the same 32-row sliced order (slice s holds L[s]
+  entries a row, entry-major, then row; padding -1), so that the fills
+  K1f and K11f walk it one thread per row and write each slot once.
 * values, one per slot: constant ones summed once on the host in
   float64 from per-pair values (:meth:`P1Operator.assemble`; the systems
   that own the physics give it the COO helpers' element matrices), and
@@ -49,14 +54,17 @@ per stream, and writes each row once without atomics.  The geometry is
 read once per solve, by the fills.
 
 On a CUDA tensor a wrapper launches its kernel (``csrc/cells.cu``) or
-raises; the plain twin runs only for CPU tensors.  The fills sum with
-atomics, so filled values agree with the plain fills to a few ulps, not
-bit for bit; the apply sums each row's slots in slot order with fused
-multiply-adds, the plain version with ``index_add_``.
+raises; the plain twin runs only for CPU tensors.  No kernel here uses
+atomics: the fills add each row's incidences in the list's order (c
+ascending) in shared memory and store every slot once, the applies sum
+each row's slots in slot order with fused multiply-adds, so two
+launches give the same bits; the plain versions sum in the same orders
+with ``index_add_`` and agree to a few ulps (fused multiply-adds).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict
 
 import numpy as np
@@ -74,12 +82,18 @@ class P1Operator:
 
     Device tensors: ``slot_ptr`` (NS + 1,) int32, NS = ceil(n / 32);
     ``col`` (slots,) index; ``cells`` (nc, k) index; ``pos`` (nc, k, k)
-    uint8.  Host: ``diag_slot`` (n,) int64, the slot of every row's
-    diagonal, and the arrays :meth:`assemble` and :meth:`scipy_csr` need."""
+    uint8; ``inc_ptr`` (NS + 1,) int32 and ``inc`` int32, the incidence
+    list (:meth:`_incidence`).  Host: ``diag_slot`` (n,) int64, the slot
+    of every row's diagonal, ``kmax`` the widest slice's slots a row,
+    ``incidence_seconds`` the time the list took, and the arrays
+    :meth:`assemble` and :meth:`scipy_csr` need."""
 
     def __init__(self, cells, n: int, device):
         cells = np.asarray(cells)
         nc, k = cells.shape
+        if k > 4 or nc >= 1 << 29:
+            raise ValueError(f"{nc} cells of {k} vertices: the incidence list packs "
+                             "c << 2 | i in an int32 (k <= 4, nc < 2^29)")
         self.n, self.k, self.device = int(n), int(k), torch.device(device)
         # every (v_i, v_j) pair of every cell as one int64 key, row-major
         r = np.repeat(cells, k, axis=1).reshape(-1).astype(np.int64)
@@ -119,7 +133,40 @@ class P1Operator:
         self.col = torch.as_tensor(col, dtype=idt, device=device)
         self.cells = torch.as_tensor(cells, dtype=idt, device=device)
         self.pos = torch.as_tensor(self._pos, device=device)
+        self.kmax = int(K.max())
+        t0 = time.perf_counter()
+        inc_ptr, inc = self._incidence()
+        self.inc_ptr = torch.as_tensor(inc_ptr, device=device)
+        self.inc = torch.as_tensor(inc, device=device)
+        self.incidence_seconds = time.perf_counter() - t0
         self._plain_cache = {}
+
+    def _incidence(self):
+        """The (cell c, local vertex i) pairs of every row, c ascending,
+        packed as ``c << 2 | i`` in the pattern's 32-row slices: slice s
+        holds L[s] entries a row (its longest list), entry e of row r at
+        ``inc_ptr[r // 32] + 32 e + r % 32``, padding -1.  (inc_ptr, inc)
+        as int32 numpy arrays."""
+        n, (nc, k) = self.n, self._cells.shape
+        flat = self._cells.reshape(-1).astype(np.int64)  # entry c k + i
+        order = np.argsort(flat, kind="stable")  # by row, then c ascending
+        deg = np.bincount(flat, minlength=n)
+        NS = self._slot_ptr.shape[0] - 1
+        L = np.zeros(NS * SLICE, np.int64)
+        L[:n] = deg
+        L = L.reshape(NS, SLICE).max(axis=1)
+        inc_ptr = np.zeros(NS + 1, np.int64)
+        np.cumsum(SLICE * L, out=inc_ptr[1:])
+        if inc_ptr[-1] >= 1 << 31:
+            raise ValueError(f"{inc_ptr[-1]} incidence slots: more than an int32 addresses")
+        start = np.zeros(n + 1, np.int64)
+        np.cumsum(deg, out=start[1:])
+        r = flat[order]
+        e = np.arange(order.shape[0]) - start[r]
+        inc = np.full(inc_ptr[-1], -1, np.int32)
+        inc[inc_ptr[r // SLICE] + SLICE * e + r % SLICE] = \
+            ((order // k) << 2 | order % k).astype(np.int32)
+        return inc_ptr.astype(np.int32), inc
 
     # -- host side ------------------------------------------------------
     def _slot_rows_host(self) -> np.ndarray:
@@ -172,25 +219,31 @@ class P1Operator:
 
     @property
     def nbytes(self) -> int:
-        """Device bytes of the pattern (slot_ptr, col, cells, pos)."""
-        return sum(t.numel() * t.element_size()
-                   for t in (self.slot_ptr, self.col, self.cells, self.pos))
+        """Device bytes of the pattern (slot_ptr, col, cells, pos) and of
+        the incidence list (inc_ptr, inc)."""
+        return sum(t.numel() * t.element_size() for t in
+                   (self.slot_ptr, self.col, self.cells, self.pos, self.inc_ptr, self.inc))
 
     # -- for the plain versions -------------------------------------------
     def _plain(self, key: str):
-        """``slot_rows`` (slots,) or ``pair_slots`` (nc, k, k) as int64,
-        from the device tensors; kept only for a CPU operator (on the card
-        the kernels need neither)."""
+        """From the device tensors, as int64: ``slot_rows`` (slots,), the
+        row of every slot; ``incidence`` (c, i, row) of every entry of
+        the incidence list in its order, padding left out.
+        Kept only for a CPU operator (on the card the kernels need
+        neither)."""
         t = self._plain_cache.get(key)
         if t is None:
-            ptr = self.slot_ptr.long()
+            ptr = self.slot_ptr.long() if key == "slot_rows" else self.inc_ptr.long()
+            size = int(ptr[-1])
+            slice_of = torch.repeat_interleave(
+                torch.arange(ptr.shape[0] - 1, device=ptr.device), ptr[1:] - ptr[:-1])
+            rows = slice_of * SLICE + torch.arange(size, device=ptr.device) % SLICE
             if key == "slot_rows":
-                slice_of = torch.repeat_interleave(
-                    torch.arange(ptr.shape[0] - 1, device=ptr.device), ptr[1:] - ptr[:-1])
-                t = slice_of * SLICE + torch.arange(self.slots, device=ptr.device) % SLICE
+                t = rows
             else:
-                v = self.cells.long()[:, :, None]
-                t = ptr[v // SLICE] + SLICE * self.pos.long() + v % SLICE
+                at = torch.nonzero(self.inc >= 0).reshape(-1)
+                ent = self.inc.long()[at]
+                t = (ent >> 2, ent & 3, rows[at])
             if self.device.type == "cpu":
                 self._plain_cache[key] = t
         return t
@@ -228,7 +281,15 @@ def _check_fill(op: P1Operator, grads, *cellwise):
     dim = grads.shape[-1]
     A._check_mesh(k, dim)
     _check_op(op, grads)
+    if op.inc_ptr.dtype != torch.int32 or op.inc.dtype != torch.int32:
+        raise TypeError("inc_ptr and inc must be int32")
+    if op.inc.device != grads.device:
+        raise ValueError(f"the incidence list is on {op.inc.device}, the gradients on "
+                         f"{grads.device}")
     A._check(grads, "grads", grads, (nc, k, dim))
+    if grads.is_cuda and grads.data_ptr() % 16:
+        raise ValueError("grads must be 16-byte aligned: the fills load a cell's "
+                         "gradients as vectors")
     for name, t, shape in cellwise:
         A._check(t, name, grads, shape)
     return nc, k, dim
@@ -411,16 +472,42 @@ knp_apply_batch.launches = 0
 # ---------------------------------------------------------------------------
 # K1f / K11f: the fills
 # ---------------------------------------------------------------------------
-def _fill_plain(op: P1Operator, pair_vals):
-    out = torch.zeros(op.slots, dtype=pair_vals.dtype, device=pair_vals.device)
-    return out.index_add_(0, op._plain("pair_slots").reshape(-1), pair_vals.reshape(-1))
+def _incidence_slots(op: P1Operator):
+    """(c, i, slots (E, k)) of the incidence list's entries in its order:
+    slots[e, j] is the slot of column v_j of the entry's cell in the
+    entry's row, the row read from the entry's place in the list (so
+    that a misplaced entry writes a wrong slot)."""
+    c, i, r = op._plain("incidence")
+    base = op.slot_ptr.long()[r // SLICE] + r % SLICE
+    return c, i, base[:, None] + SLICE * op.pos.long()[c, i]
+
+
+def _off_diagonal(op: P1Operator, i):
+    """(E, k) mask of the columns j != i of every entry."""
+    return torch.arange(op.k, device=i.device) != i[:, None]
+
+
+def _fill_plain(op: P1Operator, slots, v):
+    out = torch.zeros(op.slots, dtype=v.dtype, device=v.device)
+    return out.index_add_(0, slots, v)
+
+
+def _launch_fill(kernel: str, op: P1Operator, vals, per_cell: int, *inputs):
+    """A fill's kernels into ``vals``: the first pass stages ``per_cell``
+    values a cell in a scratch array, the second walks the incidence
+    list.  ``inputs``: the kernel's input tensors in its order."""
+    nc, k = op.cells.shape
+    scratch = torch.empty(nc * per_cell, dtype=vals.dtype, device=vals.device)
+    A._launch(kernel, vals, op.inc_ptr.data_ptr(), op.inc.data_ptr(), op.pos.data_ptr(),
+              op.slot_ptr.data_ptr(), *(t.data_ptr() for t in inputs), scratch.data_ptr(),
+              vals.data_ptr(), op.n, nc, op.kmax, k, 3 if k == 4 else 2)
 
 
 def emi_fill_plain(op: P1Operator, grads, wv):
-    g = grads
-    off = 1.0 - torch.eye(op.k, dtype=g.dtype, device=g.device)  # row sums 0
-    return _fill_plain(op, wv[:, None, None] * (g[:, :, None, :] * g[:, None, :, :]).sum(-1)
-                       * off)
+    c, i, slots = _incidence_slots(op)
+    v = wv[c, None] * (grads[c] * grads[c, i][:, None, :]).sum(-1)  # (E, k)
+    off = _off_diagonal(op, i)  # the diagonal slots keep the row sums' 0
+    return _fill_plain(op, slots[off], v[off])
 
 
 def emi_fill(op: P1Operator, grads, wv):
@@ -434,17 +521,26 @@ def emi_fill(op: P1Operator, grads, wv):
     reads on every apply is read here once per solve.
     Bound on the H100: bytes — cells, pos, grads, wv read once, the
     values written once (``csrc/cells.cu``).
-    Design: one thread per cell, k (k - 1) atomic adds into a values
-    array that L2 holds; zeroed first.
+    Design: two kernels.  One thread per cell writes the cell's k (k - 1)
+    / 2 pair values wv_c (g_ci . g_cj) to a scratch array (coalesced, 24
+    bytes a tetrahedron in float32: small enough for L2).  Then one thread
+    per row, one warp per 32-row slice, walks the row's entries of the
+    incidence list (``op.inc``, coalesced like the slots), eight in
+    flight, gathering each entry's slot positions and its cell's pair
+    values; the slice's K[s] x 32 sums live in shared memory, slot-major,
+    one column per thread, and are stored once with coalesced writes,
+    padding zeros included: no atomics, no memset, the same bits every
+    launch.  (Gathering the cell's gradients in one pass instead read
+    48 bytes a cell from device memory per entry: twice as long on the
+    H100 with two entries in flight, and still slower with sixteen:
+    PERF.md.)
 
     op, grads (nc, k, dim), wv (nc,) -> vals (slots,)."""
     nc, k, dim = _check_fill(op, grads, ("wv", wv, (op.cells.shape[0],)))
     if not grads.is_cuda:
         return emi_fill_plain(op, grads, wv)
-    vals = torch.zeros(op.slots, dtype=grads.dtype, device=grads.device)
-    A._launch("emi_fill", grads, op.cells.data_ptr(), op.pos.data_ptr(),
-              op.slot_ptr.data_ptr(), grads.data_ptr(), wv.data_ptr(),
-              vals.data_ptr(), nc, k, dim)
+    vals = torch.empty(op.slots, dtype=grads.dtype, device=grads.device)
+    _launch_fill("emi_fill", op, vals, k * (k - 1) // 2, grads, wv)
     emi_fill.launches += 1
     return vals
 
@@ -453,11 +549,12 @@ emi_fill.launches = 0
 
 
 def drift_fill_plain(op: P1Operator, grads, vols, w):
-    k = grads.shape[1]
-    q = (vols / k)[:, None] * (w[:, None, :] * grads).sum(-1)  # (nc, k)
-    # q into the k - 1 off-diagonal slots of row v_i, k q (the row's sum) into its diagonal
-    scale = 1.0 + (k - 1) * torch.eye(k, dtype=q.dtype, device=q.device)
-    return _fill_plain(op, q[:, :, None] * scale)
+    c, i, slots = _incidence_slots(op)
+    k = op.k
+    q = (vols[c] / k) * (w[c] * grads[c, i]).sum(-1)  # (E,)
+    # q into the k - 1 off-diagonal slots of the row, k q (the row's sum) into its diagonal
+    v = torch.where(_off_diagonal(op, i), q[:, None], k * q[:, None])
+    return _fill_plain(op, slots.reshape(-1), v.reshape(-1))
 
 
 def drift_fill(op: P1Operator, grads, vols, w):
@@ -472,18 +569,24 @@ def drift_fill(op: P1Operator, grads, vols, w):
     TPU kernel reads on every apply.
     Bound on the H100: bytes — cells, pos, grads, vols, w read once, the
     values written once (``csrc/cells.cu``).
-    Design: one thread per cell, k^2 atomic adds into a values array that
-    L2 holds; zeroed first.
+    Design: :func:`emi_fill`'s two kernels.  One thread per cell writes
+    the cell's k values q_ci to a scratch array (16 bytes a tetrahedron
+    in float32), then one thread per row walks the incidence list,
+    sixteen entries in flight, gathering each entry's slot positions and
+    q_ci, and adds q into its row's k - 1 off-diagonal sums and k q into
+    the diagonal one, in shared memory: each diagonal has one owner
+    thread (the cell-parallel form serialised ~21 atomics on it), no
+    memset, the same bits every launch.  (Gathering g_ci, w_c and vol_c
+    per entry in one pass took three times as long on the H100 with four
+    entries in flight, and was still slower with sixteen: PERF.md.)
 
     op, grads (nc, k, dim), vols (nc,), w (nc, dim) -> Dr (slots,)."""
     nc, k, dim = _check_fill(op, grads, ("vols", vols, (op.cells.shape[0],)),
                              ("w", w, (op.cells.shape[0], grads.shape[-1])))
     if not grads.is_cuda:
         return drift_fill_plain(op, grads, vols, w)
-    vals = torch.zeros(op.slots, dtype=grads.dtype, device=grads.device)
-    A._launch("drift_fill", grads, op.cells.data_ptr(), op.pos.data_ptr(),
-              op.slot_ptr.data_ptr(), grads.data_ptr(), vols.data_ptr(),
-              w.data_ptr(), vals.data_ptr(), nc, k, dim)
+    vals = torch.empty(op.slots, dtype=grads.dtype, device=grads.device)
+    _launch_fill("drift_fill", op, vals, k, grads, vols, w)
     drift_fill.launches += 1
     return vals
 

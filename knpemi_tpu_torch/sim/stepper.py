@@ -130,6 +130,10 @@ class Simulation:
         # one P1 operator pattern per subdomain, for both systems
         p1ops = p1_operators(geom, self.device)
         t0 = self._lap("p1_operators", t0)
+        # of which the fills' incidence lists
+        inc = sum(op.incidence_seconds for op in p1ops.values())
+        self.setup_seconds["p1_operators"] -= inc
+        self.setup_seconds["p1_incidence"] = inc
         self.emi_sys = EMISystem(geom, ions, params, splitting_scheme,
                                  dtype=dtype, device=self.device, p1ops=p1ops)
         t0 = self._lap("emi_system", t0)
