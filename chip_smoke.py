@@ -5,10 +5,11 @@
     python3 chip_smoke.py --step-profile ROOT   # the port's kernels in the
                                                 # flagship's step, for the
                                                 # package under ROOT
+    python3 chip_smoke.py --step-diff FILE      # the A/B of such lines
 
 The second form compares two trees in one call when run for each in
 turns (parent, change, change, parent): ``step_profile``'s device ms per
-step and per kernel of the port.  The rest of this text is the first.
+step and per device kernel.  The rest of this text is the first.
 
 Phases, each printing JSON lines tagged with its number (the two
 multigrid paths run one after the other, so the lines of phases 1, 3
@@ -21,7 +22,10 @@ and 4 come in two groups):
    packed windows, also with bfloat16 values) — the seven assembly
    kernels of the batched step (K1 and K3 are applies of a subdomain's
    assembled P1 operator, K1f the fill of K1's values once per EMI
-   solve) at the shapes of the 3-D res-2 mesh, the five multigrid
+   solve, K2 the apply of a membrane's surface mass on its own P1
+   operator, K10 a row walk of that operator's incidence list; K2 and
+   K10 held to 1e-13 of max|y| in float64 and bitwise across two
+   launches) at the shapes of the 3-D res-2 mesh, the five multigrid
    kernels at the shapes of the res-2 banded hierarchies' own operators
    (EMI for K4/K5/K7, KNP tag 0 at B = 2 and once at B = 1 and 8 for
    K6a/K6b/K8; K6a on the sliced form of a layout the batched cycle
@@ -46,14 +50,17 @@ and 4 come in two groups):
    KNP hierarchies, by both routes of reading x); device times (L2
    flushed, by torch.profiler) of kernel, plain version and the PyTorch
    call that computes the same function (torch.mv / torch.sparse.mm on
-   its CSR; for K1 and K11 the CSR of the same P1 operator, for K2, K3
+   its CSR; for K1, K2 and K11 the CSR of the same P1 operator, for K3
    assembled from the port's host COO helpers, for K1f and K11f the CSR
-   of the fill's frozen linear map), the kernel's time from
+   of the fill's frozen linear map; index_add_ for K10), the kernel's time from
    100 calls replayed as one CUDA graph, beside the bound, and each
    call's time with the host's; K1, K3 and K11 also with the bound of
    their slots and that of the earlier cell-loop formulation's bytes,
    K1f and K11f with the bound of the bytes their row fill reads
-   (``nbytes_layout``: the incidence list and the gathered inputs once);
+   (``nbytes_layout``: the incidence list and the gathered inputs once),
+   K2 with that of M_Gamma's slots, which its apply reads; the launch
+   floor (``floor_ms``: the flushed device time of a one-element fill),
+   which every row of the kernels line carries beside its bound;
    after phase 3 the cost per solve (fill + applies) against the
    cell-loop kernels' recorded times, with the recorded times of the
    designs K3 and K6a replaced beside it (not measured in the run);
@@ -100,9 +107,11 @@ and 4 come in two groups):
    phi_M of the two runs at step 22 must agree within 1e-3 relative L2;
    last the batched flagship with mg_banded=True for 12 + 5 steps; the
    timed legs keep mg_refresh_every off, and after the timed steps of
-   each batched run one refresh of the EMI hierarchy, its host payload
-   and its install timed, with one step's EMI iterations before and
-   after;
+   each batched run two steps from the state reached, compared bit for
+   bit in every tensor of the state (where they differ, the first
+   operation of the step whose output differs), then one refresh of the
+   EMI hierarchy, its host payload and its install timed, with one
+   step's EMI iterations before and after;
 4. profile, per res-2 path and per flagship run: the
    step's four phases timed by host clock over 2 steps, their kernel
    counts in one step, then 2 steps under
@@ -131,9 +140,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # peak rates outside the tensor cores (NVIDIA H100 SXM data sheet)
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 TOL = {"float32": 1e-5, "float64": 1e-12}  # kernel vs plain, x max|y|
-# the fills sum each row in the plain version's order, without atomics
+# the fills, K2 and K10 sum each row in the plain version's order, without atomics
 FILL_TOL = {"float32": 1e-5, "float64": 1e-13}
-CELL_KERNELS = ("K1", "K1f", "K3", "K4")  # of the assembly kernels; the others: facets
+CELL_KERNELS = ("K1", "K1f", "K3", "K4")  # of the assembly kernels; the others: membranes
 P1_KERNELS = ("K1", "K1f")  # of the cell kernels: the P1 operator's
 # device ms (L2 flushed) of the cell-loop K1 (l = 4 box, tag 0) and K11
 # (flagship ECS, first ion) that the P1 operator's kernels replaced, as
@@ -389,12 +398,16 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
     each), ``nbytes_slots`` the pattern's slots with their padding,
     ``bytes_cell_loop`` what the earlier one-thread-per-cell K1 read and
     wrote; K1f's bound writes one value per nonzero, ``nbytes_slots`` one
-    per slot."""
+    per slot.  K2 applies the membrane's surface mass M_Gamma (the EMI
+    system's values, times C_phi); its bound counts the smaller of the
+    facet form's bytes (facet dofs and weights) and M_Gamma's nonzeros,
+    ``nbytes_layout`` the apply's own (M_Gamma's slots).  K10 walks the membrane operator's incidence list; its
+    bound reads V and the list once and writes Y once.  K2 and K10 sum
+    without atomics: FILL_TOL, and two launches give the same bits."""
     import torch
 
     from knpemi_tpu_torch.ops import assembly as A
     from knpemi_tpu_torch.ops import p1op as P
-    from knpemi_tpu_torch.solvers import direct as D
 
     dev = sim.device
     g = torch.Generator(device=dev).manual_seed(0)
@@ -405,12 +418,12 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
 
     es_, ks = sim.emi_sys.sub[tag], sim.knp_sys.sub[tag]
     mb_e = sim.emi_sys.mem[mem]
-    op = es_["op"]
+    op, op_m = es_["op"], mb_e["op"]
     cells, grads, vols = op.cells, f(es_["grads"]), f(es_["vols"])
     nc, k = cells.shape
     dim = grads.shape[-1]
     n = es_["n_dofs"]
-    fd = mb_e["facet_dofs"]
+    fd = op_m.cells  # the facets' dofs
     nf, kf = fd.shape
     n_mem = mb_e["n_mem"]
     Ns = sim.knp_sys.n_solved
@@ -425,7 +438,7 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
     X, coef = rnd(Ns, n), f(ks["coef"])
     w = A.ell_matvec_plain(gcols, gvals, phi).reshape(nc, dim)
     Dr = P.drift_fill_plain(op, grads, vols, w)  # K3's drift values for this w
-    xm, fwv = rnd(n_mem), f(mb_e["wv"])
+    xm, Mg, C_phi = rnd(n_mem), f(mb_e["M"]), sim.params.C_phi
     Xm, V = rnd(F, n_mem), rnd(2 * Ns, nf, kf)
     csr = torch.sparse_csr_tensor(
         torch.arange(0, gcols.numel() + 1, gcols.shape[1], device=dev),
@@ -441,14 +454,12 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
                     plain=lambda: plain(*inputs), lib=lib,
                     nbytes=nbytes or _nbytes(*inputs) + n_out * es, ops=ops, **extra)
 
-    # the library yardsticks: torch.mv on the CSR of each operator, made
-    # from the port's host COO helpers (K3: block-diagonal over the ions)
+    # the library yardsticks: torch.mv on the CSR of each operator (K1, K2:
+    # the same P1 operator's; K3: from the port's host COO helpers,
+    # block-diagonal over the ions)
     host = lambda t: t.detach().cpu().numpy()
-    csr_on = lambda N: lambda r, c, v: _device_csr(r, c, v, (N, N), dtype, dev)
     lib_k1 = _lazy(lambda: _p1_csr(op, vals), lambda csr: torch.mv(csr, x))
-    lib_k2 = _lazy(lambda: csr_on(n_mem)(*D._facet_mass_coo(
-                       host(fd), host(fd), host(fwv.double()) * kf * (kf + 1))),
-                   lambda csr: torch.mv(csr, xm))
+    lib_k2 = _lazy(lambda: _p1_csr(op_m, C_phi * Mg), lambda csr: torch.mv(csr, xm))
     lib_k3 = _lazy(lambda: _knp_csr(cells, grads, vols, w, host(coef.double()), n, dtype),
                    lambda csr: torch.mv(csr, X.reshape(-1)).reshape(Ns, n))
     k3_in = (X, op, coef, f(ks["M"]), f(ks["kst"]), Dr)
@@ -467,8 +478,17 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
              nbytes_slots=_nbytes(op.cells, op.pos, op.slot_ptr, grads, wv) + op.slots * es,
              # K1f stages the cells' pair values: k (k - 1) / 2 a cell
              **_fill_extra(op, es, grads, wv, scratch=nc * k * (k - 1) // 2 * es)),
-        case("K2 facet_mass", A.facet_mass, A.facet_mass_plain, lib_k2,
-             (xm, fd, fwv), n_mem, nf * 4 * kf),
+        case("K2 surface_mass", P.surface_mass, P.surface_mass_plain, lib_k2,
+             (xm, op_m, Mg, C_phi), n_mem, 2 * op_m.nnz,
+             # the function's least bytes: x read and y written once, and the
+             # smaller of the facet form (facet_dofs and one weight a facet)
+             # and M_Gamma's nonzeros (a column and a value each), which the
+             # apply reads (nbytes_layout)
+             nbytes=2 * n_mem * es + min(nf * (4 * kf + es), op_m.nnz * (4 + es)),
+             nbytes_layout=op_m.nnz * (4 + es) + _nbytes(op_m.slot_ptr) + 2 * n_mem * es,
+             tol=FILL_TOL, repeat=True,
+             shape=dict(n=n_mem, nf=nf, k=kf, nnz=op_m.nnz, slots=op_m.slots,
+                        pattern_bytes=op_m.nbytes)),
         case("K3 knp_apply_batch", P.knp_apply_batch, P.knp_apply_batch_plain, lib_k3,
              k3_in, Ns * n, 2 * Ns * op.nnz * 4, **_k3_bytes(op, Ns, n, es, False),
              # K3 without its drift term, for the share the term carries
@@ -480,9 +500,12 @@ def kernel_cases(sim, dtype, tag: int = 0, mem: int = 1):
              2 * gcols.numel()),
         case("K9 facet_gather", A.facet_gather, A.facet_gather_plain,
              lambda: Xm[:, fdl], (Xm, fd), F * nf * kf, 0),
-        case("K10 facet_scatter", lambda *a: A.facet_scatter(*a, n_mem),
-             lambda *a: A.facet_scatter_plain(*a, n_mem), scat, (V, fd),
-             2 * Ns * n_mem, 2 * Ns * nf * kf),
+        case("K10 facet_scatter", A.facet_scatter, A.facet_scatter_plain, scat,
+             (V, op_m), 2 * Ns * n_mem, 2 * Ns * nf * kf,
+             nbytes=_nbytes(V, op_m.inc_ptr, op_m.inc) + 2 * Ns * n_mem * es,
+             tol=FILL_TOL, repeat=True,
+             shape=dict(n=n_mem, nf=nf, k=kf, F=2 * Ns,
+                        incidence_entries=op_m.inc.numel())),
     ]
 
 
@@ -1350,7 +1373,7 @@ def profile_steps(sim, state, n_steps: int, ms_per_step: float):
 KERNEL_SOURCES = {
     "K1": ("cells", "knpemi_tpu/ops/pallas_assembly.py:364"),
     "K1f": ("cells", "knpemi_tpu/ops/pallas_assembly.py:364"),
-    "K2": ("facets", "knpemi_tpu/ops/pallas_assembly.py:653"),
+    "K2": ("cells", "knpemi_tpu/ops/pallas_assembly.py:653"),
     "K3": ("cells", "knpemi_tpu/ops/pallas_assembly.py:444"),
     "K4": ("cells", "knpemi_tpu/ops/pallas_ell.py:330"),
     "K5": ("mg", "knpemi_tpu/ops/pallas_ell.py:347"),
@@ -1597,6 +1620,8 @@ def flagship(build_astrocyte, baseline, SolverOptions):
         rec = runs[label] = run_slice(sim, label, case, n_steps, setup_s, warm=warm,
                                       keep_at=10 if label == "flagship batched" else 0)
         if batched:
+            emit(dict(phase=3, path=label, case="two steps from one saved state",
+                      **step_determinism(sim, rec["state"])))
             # the timed legs ran without refreshes (mg_refresh_every 0, as
             # the earlier flagship numbers did); now one, as the astrocyte
             # script's cadence would make every 100 steps
@@ -1677,6 +1702,122 @@ def refresh_once(sim, state):
                 emi_iters_before=int(before.emi_iters), emi_iters_after=int(after.emi_iters),
                 knp_iters_before=int(before.knp_iters), knp_iters_after=int(after.knp_iters),
                 peak_device_bytes=peak)
+
+
+def _fingerprint(t):
+    """A 0-d device tensor of a floating tensor's bits (the sum of its
+    words as integers): equal bits give equal sums, in any order."""
+    import torch
+
+    words = {2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()]
+    return t.detach().reshape(-1).view(words).sum(dtype=torch.int64)
+
+
+def _record_step(sim, state):
+    """One step of ``sim`` from ``state`` with every operation recorded in
+    its order: (name, [fingerprints of its floating outputs]) for each
+    ATen operation (allocations left out: their contents are undefined),
+    and (name of the port kernel, None) at each launch of the port's."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    from knpemi_tpu_torch.ops import assembly as A
+
+    seq = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            name = str(func)
+            if "empty" not in name:
+                seq.append((name, [_fingerprint(t) for t in tree_leaves(out)
+                                   if isinstance(t, torch.Tensor) and t.is_floating_point()]))
+            return out
+
+    launch = A._launch
+
+    def traced(kernel, ref, *args):
+        seq.append((f"port kernel {kernel}", None))
+        return launch(kernel, ref, *args)
+
+    A._launch = traced
+    try:
+        with Record():
+            sim.step(state)
+    finally:
+        A._launch = launch
+    return seq
+
+
+def first_difference(sim, state):
+    """The first operation whose output differs between two recorded steps
+    from ``state`` (:func:`_record_step`), with the three entries before it
+    (a port kernel among them wrote an input the recorder cannot see), or
+    None where every recorded output is equal."""
+    import torch
+
+    a, b = _record_step(sim, state), _record_step(sim, state)
+    # the operations agree up to d; a difference in an output comes first
+    d = next((i for i, ((na, _), (nb, _)) in enumerate(zip(a, b)) if na != nb),
+             min(len(a), len(b)))
+    pairs = [(i, x, y) for i, ((_, fa), (_, fb)) in enumerate(zip(a[:d], b[:d])) if fa
+             for x, y in zip(fa, fb)]
+    if pairs:
+        # (an operation on host tensors leaves its fingerprint on the host)
+        stack = lambda fps: torch.stack([x.to(sim.device) for x in fps])
+        bad = torch.nonzero(stack([x for _, x, _ in pairs])
+                            != stack([y for _, _, y in pairs])).reshape(-1)
+        if bad.numel():
+            i = pairs[int(bad[0])][0]
+            return dict(index=i, op=a[i][0], ops=len(a),
+                        before=[n for n, _ in a[max(0, i - 3):i]],
+                        differing_outputs=int(bad.numel()))
+    if d < max(len(a), len(b)):
+        return dict(index=d, op=a[d][0] if d < len(a) else None,
+                    other_op=b[d][0] if d < len(b) else None, ops=[len(a), len(b)],
+                    note="the two steps ran different operations from here")
+    return None
+
+
+def step_determinism(sim, state):
+    """Two steps of ``sim`` from one saved state: whether every tensor of
+    the two states has the same bits and, where one does not, which
+    fields differ and the first operation of the step whose output
+    differs (:func:`first_difference`)."""
+    import dataclasses
+
+    import torch
+
+    t0 = time.perf_counter()
+    a, b = sim.step(state), sim.step(state)
+    differ = []
+    for fld in dataclasses.fields(a):
+        x, y = getattr(a, fld.name), getattr(b, fld.name)
+        items = x.items() if isinstance(x, dict) else [(None, x)]
+        for key, v in items:
+            w = y[key] if key is not None else y
+            if not torch.equal(v, w):
+                differ.append(fld.name if key is None else f"{fld.name}[{key}]")
+    rec = dict(identical=not differ, differing_fields=differ,
+               emi_iters=[int(a.emi_iters), int(b.emi_iters)],
+               knp_iters=[int(a.knp_iters), int(b.knp_iters)])
+    if differ:
+        rec["first_difference"] = first_difference(sim, state)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def launch_floor_ms():
+    """The launch floor: the flushed device time (:func:`device_ms`) of the
+    smallest launch, a fill of one element."""
+    import torch
+
+    one = torch.empty(1, device="cuda")
+    ms = device_ms(lambda: one.fill_(1.0))
+    if ms is None:
+        raise RuntimeError("the profiler reported no device time for the launch floor")
+    return ms
 
 
 def parity_refresh(build_idealized, SolverOptions):
@@ -1791,9 +1932,11 @@ def step_profile(warm: int = 12, steps: int = 2):
     ``knpemi_tpu_torch`` on ``sys.path``: batched and banded (float32, the
     tuned options), ``warm`` steps, then ``steps`` under torch.profiler;
     device ms and device kernels per step, peak device memory of those
-    steps, the iterations of the last step and, for every kernel of the
-    port (those in ``ops/csrc``), device ms and launches per step; on the
-    batched run also :func:`per_solve_ecs`.  Yields one record per run."""
+    steps, the EMI and KNP iterations of every step (warm-up and
+    profiled) and, for every device kernel by name (the port's, in the
+    anonymous namespace of ``ops/csrc``, and PyTorch's), device ms and
+    launches per step; on the batched run also :func:`per_solve_ecs`.
+    Yields one record per run."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1807,38 +1950,90 @@ def step_profile(warm: int = 12, steps: int = 2):
         sim = kt.build_astrocyte({**kt.ASTROCYTE_BASELINE, "mesh_n": MESH_N},
                                  dtype=torch.float32,
                                  solver_options=kt.SolverOptions(mg_banded=banded, **TUNED))
-        state, *_ = sim.run(sim.init_state(), warm)
+        state, it_e, it_k, _ = sim.run(sim.init_state(), warm)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         ops.reset_launch_counts()
+        iters = []
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 state = sim.step(state)
+                iters.append([state.emi_iters, state.knp_iters])
             torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
         launches = ops.launch_counts()
         solve = None if banded else per_solve_ecs(sim, launches)
         events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
                   and not e.key.startswith("step/")]
+        # every device kernel (PyTorch's too), by name: what a change adds or removes
+        every = {}
+        for e in events:
+            v = every.setdefault(e.key[:120], [0.0, 0.0])
+            v[0] += dev_t(e) / 1e3 / steps
+            v[1] += e.count / steps
         yield dict(package=str(Path(kt.__file__).parent), mg_banded=banded,
                    steps=[warm + 1, warm + steps],
                    device_kernel_ms_per_step=sum(dev_t(e) for e in events) / 1e3 / steps,
                    kernels_per_step=sum(e.count for e in events) / steps,
                    emi_iters=int(state.emi_iters), knp_iters=int(state.knp_iters),
+                   iters_per_step=[[int(e), int(k)] for e, k in zip(it_e, it_k)]
+                   + [[int(e), int(k)] for e, k in iters],
                    peak_mb=peak / 2**20, per_solve_ecs=solve,
-                   port_kernels={e.key[:120]: [dev_t(e) / 1e3 / steps, e.count / steps]
-                                 for e in events
-                                 if e.key.startswith("void (anonymous namespace)::")},
+                   all_kernels=every,
                    seconds=time.perf_counter() - t0)
         del sim, state
         torch.cuda.empty_cache()
+
+
+def step_diff(path, top: int = 12):
+    """The A/B of a file of ``step_profile`` lines (parent, change,
+    change, parent; the first package named is the parent's), per
+    multigrid path: each leg's device ms a step, the change's mean less
+    the parent's, the parent's own spread, and by device kernel name
+    (each tree's legs averaged) the ``top`` largest moves in ms a step,
+    with the net of the kernels whose count a step moved and of those
+    whose count did not."""
+    legs = [json.loads(ln) for ln in open(path)
+            if ln.startswith('{"phase": "step_profile"')]
+    parent = legs[0]["package"]
+    for banded in (False, True):
+        trees = ([L for L in legs if L["mg_banded"] == banded and (L["package"] == parent) == p]
+                 for p in (True, False))
+        means = []
+        for tree in trees:
+            m = {}
+            for L in tree:
+                for name, (ms, n) in L["all_kernels"].items():
+                    a = m.setdefault(name, [0.0, 0.0, [L["device_kernel_ms_per_step"]]])
+                    a[0] += ms / len(tree)
+                    a[1] += n / len(tree)
+            means.append((tree, m))
+        (p_legs, p), (c_legs, c) = means
+        zero = (0.0, 0.0)
+        moves = sorted(((c.get(k, zero)[0] - p.get(k, zero)[0], k,
+                         p.get(k, zero)[:2], c.get(k, zero)[:2]) for k in set(p) | set(c)),
+                       key=lambda r: -abs(r[0]))
+        ms = lambda legs: [L["device_kernel_ms_per_step"] for L in legs]
+        emit(dict(
+            phase="step_diff", mg_banded=banded, parent_ms=ms(p_legs), change_ms=ms(c_legs),
+            change_less_parent_ms=(sum(ms(c_legs)) / len(c_legs)
+                                   - sum(ms(p_legs)) / len(p_legs)),
+            parent_spread_ms=max(ms(p_legs)) - min(ms(p_legs)),
+            net_count_moved_ms=sum(d for d, _, a, b in moves if a[1] != b[1]),
+            net_count_equal_ms=sum(d for d, _, a, b in moves if a[1] == b[1]),
+            top=[dict(name=k[:100], ms=d, parent=a, change=b) for d, k, a, b in moves[:top]]))
 
 
 def main(argv=None) -> int:
     """No arguments: the smoke run.  ``--step-profile ROOT``: only
     :func:`step_profile` for the package under ROOT (a checkout of this
     or another commit); run it for two trees in turns to compare them in
-    one call."""
+    one call.  ``--step-diff FILE``: :func:`step_diff` of such a call's
+    output, on the host."""
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--step-diff"] and len(argv) == 2:
+        step_diff(argv[1])
+        return 0
     try:
         import torch
     except ImportError:
@@ -1847,7 +2042,6 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    argv = sys.argv[1:] if argv is None else argv
     repo = Path(__file__).resolve().parent
     profile_root = None
     if argv[:1] == ["--step-profile"]:
@@ -1882,6 +2076,11 @@ def main(argv=None) -> int:
     emit(dict(phase=0, nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, build_seconds=_build.build_seconds,
               ptxas=ptxas, seconds=time.perf_counter() - t0))
+    # the launch floor, beside every kernel's bound in the kernels line
+    floor = launch_floor_ms()
+    _FLUSH.pop("buf", None)
+    emit(dict(phase=1, case="launch floor: the flushed device time of a one-element fill",
+              floor_ms=floor))
 
     launches = {}
     for banded in (False, True):
@@ -2025,7 +2224,7 @@ def main(argv=None) -> int:
              launches_flagship_per_ion=launches["flagship per-ion"][name],
              launches_flagship_banded=launches["flagship banded"][name],
              max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+             bound_ms=r["bound_ms"], bound_by=r["bound_by"], floor_ms=floor,
              library_ms=r["library_ms"], variant=r.get("variant"),
              shape=r.get("shape"), bytes_padded=r.get("bytes_padded"),
              **{k: r[k] for k in ("graph_ms", "call_ms", "library_call_ms", "ms_staged",

@@ -1,5 +1,5 @@
-"""The cell and facet assembly kernels of the coupled step, with plain twins,
-and the launch helpers every kernel module of the port shares.
+"""The coefficient-map and facet kernels of the coupled step, with plain
+twins, and the launch helpers every kernel module of the port shares.
 
 Each wrapper below launches a hand-written CUDA kernel (``ops/csrc``,
 built by :mod:`._build`) for CUDA tensors and uses its plain PyTorch
@@ -8,9 +8,10 @@ On a CUDA tensor it launches or raises; there is no fallback.  Every
 wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``) and checks device, dtype, shape and contiguity.
 
-Here: K4 (ELL SpMV of the frozen dof -> cell coefficient maps), K2, K9,
-K10 (membrane facets).  K1, K3 and K11, the EMI, ion-batched KNP and
-single-ion KNP operators, are applied as an assembled P1 operator by
+Here: K4 (ELL SpMV of the frozen dof -> cell coefficient maps), K9 and
+K10 (facet gather and scatter of the membrane fields).  K1, K2, K3 and
+K11 — the EMI, membrane surface mass, ion-batched KNP and single-ion
+KNP operators — are applied as an assembled P1 operator by
 :mod:`.p1op`; the multigrid kernels are in :mod:`.ell` and
 :mod:`.banded`.
 
@@ -18,15 +19,13 @@ The JAX package's TPU kernels compute the same operators through one-hot
 MXU products, bf16 split passes, 128-lane alignment, Morton windows and
 an XLA tail of outlier cells (``knpemi_tpu/ops/pallas_assembly.py:1-36``,
 ``pallas_ell.py:1-42``) — all of it a way around slow random gathers on
-the TPU.  On Hopper a gather is a load: the facet kernels take one
-thread per facet, which reads its k vertex values, does a few flops in
-registers and atomically adds k results; K4 takes one thread per row.  None of the kernels does enough arithmetic per byte to
-be compute-bound; the least time each can take is the bytes it must
-move over the card's 3.35 TB/s.
-
-Sums taken with ``atomicAdd`` are order-dependent: a kernel agrees with
-its plain version to ~1e-5 max|y| in float32 and ~1e-12 max|y| in
-float64, not bit for bit.
+the TPU.  On Hopper a gather is a load: K4 takes one thread per row, K9
+one per output element, and K10 one per membrane dof, which walks its
+row of the membrane operator's incidence list and sums the slots there
+in the list's order.  No kernel here uses atomics, so each gives the
+same bits on every launch.  None does enough arithmetic per byte to be
+compute-bound; the least time each can take is the bytes it must move
+over the card's 3.35 TB/s.
 
 Index tensors: int32 on CUDA (the kernels' type), int32 or int64 on the
 CPU.
@@ -38,7 +37,6 @@ import ctypes
 
 import torch
 
-from . import kernels as K
 from . import _build
 
 _c_int = ctypes.c_int
@@ -48,12 +46,10 @@ _c_ptr = ctypes.c_void_p
 _SIGS = {
     "ell_matvec": ("cells", "knp_ell_matvec",
                    [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
-    "facet_mass": ("facets", "knp_facet_mass",
-                   [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
     "facet_gather": ("facets", "knp_facet_gather",
                      [_c_int] + [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr]),
     "facet_scatter": ("facets", "knp_facet_scatter",
-                      [_c_int] + [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr]),
+                      [_c_int] + [_c_ptr] * 4 + [_c_int] * 4 + [_c_ptr]),
     # ops/p1op.py
     "p1_apply": ("cells", "knp_p1_apply",
                  [_c_int] + [_c_ptr] * 6 + [ctypes.c_double] * 2 + [_c_int, _c_ptr]),
@@ -124,6 +120,16 @@ def _check_value(x: torch.Tensor, name: str):
         raise TypeError(f"{name} must be float32 or float64, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _check_incidence(op, like: torch.Tensor):
+    """The incidence list of a P1 operator (``ops/p1op.py``), which the
+    fills and K10 walk: int32, on ``like``'s device."""
+    if op.inc_ptr.dtype != torch.int32 or op.inc.dtype != torch.int32:
+        raise TypeError("inc_ptr and inc must be int32")
+    if op.inc.device != like.device:
+        raise ValueError(f"the incidence list is on {op.inc.device}, the input on "
+                         f"{like.device}")
 
 
 def _check_mesh(k: int, dim: int):
@@ -214,45 +220,6 @@ def cell_gradient_ell(cells, grads, n_dofs):
 
 
 # ---------------------------------------------------------------------------
-# K2: membrane surface mass
-# ---------------------------------------------------------------------------
-def facet_mass_plain(x, facet_dofs, wv):
-    f = facet_dofs.long()
-    xe = x[f]
-    vals = wv[:, None] * (xe.sum(dim=1, keepdim=True) + xe)
-    return K.scatter_add(x.shape[0], f, vals)
-
-
-def facet_mass(x, facet_dofs, wv):
-    """K2.  y = M_Gamma x in membrane numbering: per facet f,
-    y_i += wv_f (sum_j x_j + x_i) with wv_f = area_f / (k(k+1)); the caller
-    applies C_phi.
-
-    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_facet_mass_kernel``
-    (via ``facet_mass_blocked``).  Bound on the H100: bytes — x,
-    facet_dofs, wv read once, y written once (``csrc/facets.cu``).
-    Design: one thread per facet, k gathers, k atomic adds.
-
-    x (n_mem,), facet_dofs (nf, k), wv (nf,) -> y (n_mem,)."""
-    _check_value(x, "x")
-    nf, k = facet_dofs.shape
-    if k not in (2, 3):
-        raise ValueError(f"facets must be edges or triangles, got k={k}")
-    _check(facet_dofs, "facet_dofs", x, index=True)
-    _check(wv, "wv", x, (nf,))
-    if not x.is_cuda:
-        return facet_mass_plain(x, facet_dofs, wv)
-    y = torch.zeros_like(x)
-    _launch("facet_mass", x, x.data_ptr(), facet_dofs.data_ptr(),
-            wv.data_ptr(), y.data_ptr(), nf, k)
-    facet_mass.launches += 1
-    return y
-
-
-facet_mass.launches = 0
-
-
-# ---------------------------------------------------------------------------
 # K9 / K10: facet gather and scatter of F membrane fields
 # ---------------------------------------------------------------------------
 def facet_gather_plain(X, facet_dofs):
@@ -285,31 +252,41 @@ def facet_gather(X, facet_dofs):
 facet_gather.launches = 0
 
 
-def facet_scatter_plain(V, facet_dofs, n_mem):
-    return K.scatter_add_rows(n_mem, facet_dofs.long(), V)
+def facet_scatter_plain(V, op):
+    c, i, rows = op._plain("incidence")  # the list's entries in its order
+    F = V.shape[0]
+    Y = torch.zeros(F, op.n, dtype=V.dtype, device=V.device)
+    return Y.index_add_(1, rows, V.reshape(F, -1)[:, c * op.k + i])
 
 
-def facet_scatter(V, facet_dofs, n_mem: int):
+def facet_scatter(V, op):
     """K10.  Y[c, facet_dofs[f, j]] += V[c, f, j]: the inverse of
-    :func:`facet_gather` for F channels of per-slot values.
+    :func:`facet_gather` for F channels of per-slot values, on the
+    membrane's P1 operator ``op`` (:func:`.p1op.membrane_operators`),
+    whose rows are the membrane dofs and whose incidence list holds each
+    row's (facet f, vertex j) slots, f ascending.
 
     Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_facet_scatter_kernel``
     (via ``facet_scatter_blocked``).  Bound on the H100: bytes — V and
-    facet_dofs read once, Y written once (``csrc/facets.cu``).  Design: one
-    thread per input element, one atomic add each.
+    the incidence list read once, Y written once (``csrc/facets.cu``).
+    Design: one thread per membrane dof, one warp per 32-row slice of the
+    list (read coalesced); each entry decoded once to its slot f k + j
+    and gathered for all F channels (V lives in L2), the sums kept in
+    registers in the list's order and Y written once into
+    ``torch.empty``: no atomics, no memset, the same bits every launch.
 
-    V (F, nf, k), facet_dofs (nf, k) -> Y (F, n_mem)."""
+    V (F, nf, k), op -> Y (F, n_mem)."""
     _check_value(V, "V")
+    nf, k = op.cells.shape
     F = V.shape[0]
-    nf, k = facet_dofs.shape
-    _check(facet_dofs, "facet_dofs", V, index=True)
     if tuple(V.shape) != (F, nf, k):
         raise ValueError(f"V has shape {tuple(V.shape)}, expected {(F, nf, k)}")
+    _check_incidence(op, V)
     if not V.is_cuda:
-        return facet_scatter_plain(V, facet_dofs, n_mem)
-    Y = torch.zeros(F, n_mem, dtype=V.dtype, device=V.device)
-    _launch("facet_scatter", V, V.data_ptr(), facet_dofs.data_ptr(),
-            Y.data_ptr(), F, nf, k, n_mem)
+        return facet_scatter_plain(V, op)
+    Y = torch.empty(F, op.n, dtype=V.dtype, device=V.device)
+    _launch("facet_scatter", V, V.data_ptr(), op.inc_ptr.data_ptr(), op.inc.data_ptr(),
+            Y.data_ptr(), F, op.n, nf, k)
     facet_scatter.launches += 1
     return Y
 
@@ -320,7 +297,6 @@ facet_scatter.launches = 0
 # (wrapper, plain version) of this module's kernels; ops.kernel_table() merges
 # every module's table
 KERNELS = {
-    "K2 facet_mass": (facet_mass, facet_mass_plain),
     "K4 ell_matvec": (ell_matvec, ell_matvec_plain),
     "K9 facet_gather": (facet_gather, facet_gather_plain),
     "K10 facet_scatter": (facet_scatter, facet_scatter_plain),

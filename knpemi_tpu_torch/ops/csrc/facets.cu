@@ -1,14 +1,16 @@
-// Membrane-facet assembly kernels for Hopper (sm_90a): K2 (P1 surface
-// mass in membrane numbering), K9 (facet gather of F membrane fields)
-// and K10 (facet scatter-add of F channels).  Plain C interface, loaded
-// with ctypes by knpemi_tpu_torch/ops/assembly.py.
+// Membrane-facet kernels for Hopper (sm_90a): K9 (facet gather of F
+// membrane fields) and K10 (facet scatter-add of F channels).  Plain C
+// interface, loaded with ctypes by knpemi_tpu_torch/ops/assembly.py.
+// K2, the membrane surface mass, is the P1 operator's apply of cells.cu
+// on the membrane's operator (ops/p1op.py::surface_mass).
 //
 // They replace the TPU kernels of knpemi_tpu/ops/pallas_assembly.py
-// (_make_facet_mass_kernel, _make_facet_gather_kernel,
-// _make_facet_scatter_kernel), which gather through one-hot MXU products
-// because random gathers are slow there.  Here gathers are exact loads
-// and the scatters are atomic adds; every kernel is bound by the bytes
-// it moves.
+// (_make_facet_gather_kernel, _make_facet_scatter_kernel), which gather
+// through one-hot MXU products because random gathers are slow there.
+// Here gathers are exact loads.  K10 is a gather too: one thread per
+// membrane dof walks its row of the membrane operator's incidence list
+// and sums, so no kernel here uses atomics and each gives the same bits
+// on every launch.  Both are bound by the bytes they move.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -19,28 +21,6 @@ constexpr int kThreads = 256;
 
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-}
-
-// K2: y[v_i] += wv_f (sum_j x_j + x_i), wv_f = area_f / (K(K+1)).
-template <typename T, int K>
-__global__ void facet_mass_kernel(const T* __restrict__ x,
-                                  const int* __restrict__ fd,
-                                  const T* __restrict__ wv,
-                                  T* __restrict__ y, int nf) {
-  const int f = blockIdx.x * blockDim.x + threadIdx.x;
-  if (f >= nf) return;
-  int v[K];
-  T xe[K];
-  T xs = T(0);
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    v[i] = fd[static_cast<int64_t>(f) * K + i];
-    xe[i] = x[v[i]];
-    xs += xe[i];
-  }
-  const T w = wv[f];
-#pragma unroll
-  for (int i = 0; i < K; ++i) atomicAdd(&y[v[i]], w * (xs + xe[i]));
 }
 
 // K9: G[c, f, j] = X[c, fd[f, j]] over F channels c.
@@ -57,35 +37,54 @@ __global__ void facet_gather_kernel(const T* __restrict__ X,
   G[idx] = X[ch * n_mem + fd[e]];
 }
 
-// K10: Y[c, fd[f, j]] += V[c, f, j] over F channels c.
-template <typename T>
-__global__ void facet_scatter_kernel(const T* __restrict__ V,
-                                     const int* __restrict__ fd,
-                                     T* __restrict__ Y, int64_t total,
-                                     int64_t slots, int n_mem) {
-  const int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  if (idx >= total) return;
-  const int64_t ch = idx / slots;
-  const int64_t e = idx - ch * slots;
-  atomicAdd(&Y[ch * n_mem + fd[e]], V[idx]);
-}
-
-template <typename T>
-int facet_mass_t(const void* x, const int* fd, const void* wv, void* y,
-                 int nf, int k, cudaStream_t s) {
-  const T* xt = static_cast<const T*>(x);
-  const T* wt = static_cast<const T*>(wv);
-  T* yt = static_cast<T*>(y);
-  if (k == 3)
-    facet_mass_kernel<T, 3><<<blocks_for(nf), kThreads, 0, s>>>(xt, fd, wt,
-                                                                 yt, nf);
-  else if (k == 2)
-    facet_mass_kernel<T, 2><<<blocks_for(nf), kThreads, 0, s>>>(xt, fd, wt,
-                                                                 yt, nf);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+// K10: Y[c, r] = sum of V[c, f, j] over the (facet f, vertex j) slots of
+// membrane dof r, for F channels c.  One thread per row r of the
+// membrane's P1 operator walks its entries of the incidence list
+// (ops/p1op.py: entry e of row r at inc_ptr[r / 32] + 32 e + r % 32,
+// packed f << 2 | j, f ascending, padding -1 after the row's last), so a
+// warp reads entry e of its 32 rows in one coalesced load; IN_FLIGHT
+// entries are loaded before their values.  Each entry is decoded once to
+// its slot f k + j and gathered for up to FB channels (V, a few MB, lives
+// in L2), the FB sums kept in registers in the list's order, and Y[c, r]
+// written once: no atomics, no zeroed output.  More than FB channels go
+// through in groups, the row's entries read again from L1.  Replaces
+// _make_facet_scatter_kernel.  Bound by bytes: V and the list read once,
+// Y written once.
+template <typename T, int FB = 8, int IN_FLIGHT = 8>
+__global__ void facet_scatter_rows_kernel(const T* __restrict__ V,
+                                          const int* __restrict__ inc_ptr,
+                                          const int* __restrict__ inc,
+                                          T* __restrict__ Y, int F, int n,
+                                          int64_t slots, int k) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n) return;
+  const int beg = __ldg(inc_ptr + (r >> 5)) + (r & 31);
+  const int end = __ldg(inc_ptr + (r >> 5) + 1);
+  for (int c0 = 0; c0 < F; c0 += FB) {
+    const T* Vc = V + c0 * slots;
+    T acc[FB];
+#pragma unroll
+    for (int c = 0; c < FB; ++c) acc[c] = T(0);
+    for (int e0 = beg; e0 < end; e0 += IN_FLIGHT * 32) {
+      int64_t slot[IN_FLIGHT];
+#pragma unroll
+      for (int u = 0; u < IN_FLIGHT; ++u) {
+        const int s = e0 + u * 32;
+        const int e = s < end ? __ldg(inc + s) : -1;
+        slot[u] = e < 0 ? -1 : static_cast<int64_t>(e >> 2) * k + (e & 3);
+      }
+#pragma unroll
+      for (int u = 0; u < IN_FLIGHT; ++u) {
+        if (slot[u] < 0) continue;
+#pragma unroll
+        for (int c = 0; c < FB; ++c)
+          if (c0 + c < F) acc[c] += __ldg(Vc + c * slots + slot[u]);
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < FB; ++c)
+      if (c0 + c < F) Y[static_cast<int64_t>(c0 + c) * n + r] = acc[c];
+  }
 }
 
 }  // namespace
@@ -94,14 +93,6 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = float64.  Each entry point launches on the
 // given stream, allocates nothing and returns cudaGetLastError().
-int knp_facet_mass(int dtype, const void* x, const int* fd, const void* wv,
-                   void* y, int nf, int k, void* stream) {
-  if (nf == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? facet_mass_t<float>(x, fd, wv, y, nf, k, s)
-                    : facet_mass_t<double>(x, fd, wv, y, nf, k, s);
-}
-
 int knp_facet_gather(int dtype, const void* X, const int* fd, void* G,
                      int F, int nf, int k, int n_mem, void* stream) {
   const int64_t slots = static_cast<int64_t>(nf) * k;
@@ -119,20 +110,23 @@ int knp_facet_gather(int dtype, const void* X, const int* fd, void* G,
   return static_cast<int>(cudaGetLastError());
 }
 
-int knp_facet_scatter(int dtype, const void* V, const int* fd, void* Y,
-                      int F, int nf, int k, int n_mem, void* stream) {
+// K10: Y (F, n) from V (F, nf, k) and the membrane operator's incidence
+// list (inc_ptr: ceil(n / 32) + 1 offsets); every element of Y written.
+int knp_facet_scatter(int dtype, const void* V, const int* inc_ptr,
+                      const int* inc, void* Y, int F, int n, int nf, int k,
+                      void* stream) {
+  if (F == 0 || n == 0) return 0;
+  if (k < 2 || k > 4) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t slots = static_cast<int64_t>(nf) * k;
-  const int64_t total = slots * F;
-  if (total == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    facet_scatter_kernel<float><<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const float*>(V), fd, static_cast<float*>(Y), total,
-        slots, n_mem);
+    facet_scatter_rows_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const float*>(V), inc_ptr, inc, static_cast<float*>(Y), F,
+        n, slots, k);
   else
-    facet_scatter_kernel<double><<<blocks_for(total), kThreads, 0, s>>>(
-        static_cast<const double*>(V), fd, static_cast<double*>(Y), total,
-        slots, n_mem);
+    facet_scatter_rows_kernel<double><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const double*>(V), inc_ptr, inc, static_cast<double*>(Y),
+        F, n, slots, k);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,17 +2,15 @@
 
 Counterpart of the parts of ``knpemi_tpu/ops/kernels.py`` (the JAX
 package's XLA assembly path) that the port still applies element by
-element: the scatters the plain versions of the facet kernels in
-:mod:`knpemi_tpu_torch.ops.assembly` reuse, the Jacobi diagonals and the
-source load vector (the operators themselves are assembled on the P1
-graph, :mod:`knpemi_tpu_torch.ops.p1op`).  All forms are P1-exact:
+element: the Jacobi diagonals and the source load vector (the operators
+themselves are assembled on the P1 graph,
+:mod:`knpemi_tpu_torch.ops.p1op`).  All forms are P1-exact:
 
 * stiffness with a P1 coefficient kappa: ``mean(kappa_vertices) * vol *
   (g_i . g_j)``,
 * mass: ``vol * (1 + delta_ij) / ((d+1)(d+2))``,
 * drift ``coef * u * (w . grad v)`` with cellwise-constant w:
-  ``coef * (w . g_i) * vol / (d+1)``,
-* interface facet mass: ``area * (1 + delta_ab) / ((d_f+1)(d_f+2))``.
+  ``coef * (w . g_i) * vol / (d+1)``.
 
 Index tensors are int64 here (``index_add_`` and advanced indexing take
 int64 without a copy).
@@ -27,13 +25,6 @@ def scatter_add(n_dofs: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Ten
     """Accumulate (..., k) values into a length-n vector at (..., k) indices."""
     out = torch.zeros(n_dofs, dtype=vals.dtype, device=vals.device)
     return out.index_add_(0, idx.reshape(-1), vals.reshape(-1))
-
-
-def scatter_add_rows(n_dofs: int, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
-    """Row-batched :func:`scatter_add`: vals (F, ...) at idx (...) -> (F, n)."""
-    F = vals.shape[0]
-    out = torch.zeros(F, n_dofs, dtype=vals.dtype, device=vals.device)
-    return out.index_add_(1, idx.reshape(-1), vals.reshape(F, -1))
 
 
 def stiffness_diag(n_dofs, cells, grads, vols, coef_vertex=None, coef_cell=1.0):

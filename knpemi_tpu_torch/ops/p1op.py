@@ -1,12 +1,15 @@
-"""The assembled P1 operator of a subdomain: K1, K3 and K11 as row-parallel
-applies of values filled once per solve (K1f, K11f).
+"""The assembled P1 operator of a subdomain or a membrane: K1, K2, K3 and
+K11 as row-parallel applies of values filled once per solve (K1f, K11f)
+or summed once at setup (K2's surface mass).
 
 Every cell operator of one subdomain -- the EMI weighted stiffness, the
 unit stiffness of the EMI right-hand side, the P1 mass and each solved
 ion's KNP operator (1/dt) M + D_b K + z_b psi D_b Drift(grad phi) --
 lives on one sparsity pattern, the P1 graph of the cells.  :class:`P1Operator` holds
 that pattern once per subdomain (``EMISystem`` and ``KNPSystem`` share
-it), built on the host in numpy:
+it), and once per membrane on its facets (:func:`membrane_operators`:
+the pattern of the surface mass M_Gamma, whose incidence list the facet
+scatter K10 of :mod:`.assembly` walks), built on the host in numpy:
 
 * ``slot_ptr``, ``col``: a sliced ELL.  The rows are cut into slices of
   32; slice s stores K[s] slots per row (its longest row), ordered slot,
@@ -255,6 +258,15 @@ def p1_operators(geom, device) -> Dict[int, P1Operator]:
             for t, s in geom.subdomains.items()}
 
 
+def membrane_operators(geom, device) -> Dict[int, P1Operator]:
+    """{membrane tag: P1Operator} of a geometry: the P1 graph of each
+    membrane's facets (edges in 2-D, triangles in 3-D) in membrane
+    numbering, the pattern of its surface mass M_Gamma (K2) and, in its
+    incidence list, the row structure of the facet scatter K10."""
+    return {m: P1Operator(sp.facet_dofs, sp.n_dofs, device)
+            for m, sp in geom.membranes.items()}
+
+
 # ---------------------------------------------------------------------------
 # checks
 # ---------------------------------------------------------------------------
@@ -281,11 +293,7 @@ def _check_fill(op: P1Operator, grads, *cellwise):
     dim = grads.shape[-1]
     A._check_mesh(k, dim)
     _check_op(op, grads)
-    if op.inc_ptr.dtype != torch.int32 or op.inc.dtype != torch.int32:
-        raise TypeError("inc_ptr and inc must be int32")
-    if op.inc.device != grads.device:
-        raise ValueError(f"the incidence list is on {op.inc.device}, the gradients on "
-                         f"{grads.device}")
+    A._check_incidence(op, grads)
     A._check(grads, "grads", grads, (nc, k, dim))
     if grads.is_cuda and grads.data_ptr() % 16:
         raise ValueError("grads must be 16-byte aligned: the fills load a cell's "
@@ -384,13 +392,53 @@ knp_apply.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# K2: the membrane surface mass
+# ---------------------------------------------------------------------------
+def surface_mass_plain(x, op: P1Operator, vals, scale: float = 1.0):
+    return _apply_plain(op, x, vals, float(scale))
+
+
+def surface_mass(x, op: P1Operator, vals, scale: float = 1.0):
+    """K2.  y = scale * (M_Gamma x) in membrane numbering: the surface
+    mass of one membrane on its P1 operator (:func:`membrane_operators`),
+    ``vals`` = :func:`mass_values` of its facets and areas, area (1 +
+    delta_ij) / (k (k + 1)) per facet pair, summed once at setup in the
+    row-sum form; ``scale`` = C_phi, the EMI coupling's factor.
+
+    Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_facet_mass_kernel``
+    (via ``facet_mass_blocked``).  Bound on the H100: bytes — each of
+    M_Gamma's nonzeros (a column and a value) read once, x read once, y
+    written once (``csrc/cells.cu``).  Design: K1's apply
+    (:func:`emi_stiffness`) on the membrane's operator: one thread per
+    row, slots streamed coalesced, the scale applied in registers, y
+    written once into ``torch.empty``: no atomics, no memset, the same
+    bits every launch.  (The facet form, one thread per facet adding k
+    results with atomics into a zeroed y, reads fewer bytes and waits on
+    one dependent load fewer, so its kernel alone is faster; with the
+    zeroing kernel and the separate C_phi multiply it needs, the two cost
+    about the same device time a call: PERF.md.)
+
+    x (n_mem,), op, vals (slots,) -> y (n_mem,)."""
+    _check_apply(op, x, vals)
+    if not x.is_cuda:
+        return surface_mass_plain(x, op, vals, scale)
+    y = _launch_apply(x, op, vals, scale, None, 0.0)
+    surface_mass.launches += 1
+    return y
+
+
+surface_mass.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K3: the batched KNP apply
 # ---------------------------------------------------------------------------
 def mass_values(op: P1Operator, cells, vols, dtype) -> torch.Tensor:
     """The unit P1 mass on ``op`` in the row-sum form (the diagonal slot
     holds the row's sum, vol/k per cell vertex), summed on the host in
     float64 from the COO helper's element matrices and cast to
-    ``dtype``: K3's first value stream."""
+    ``dtype``: K3's first value stream, and with a membrane's facets and
+    areas K2's M_Gamma (the facet mass has the same element matrix)."""
     from ..solvers import direct
 
     Me = direct._mass_coo(np.asarray(cells), np.asarray(vols, np.float64))[2]
@@ -598,6 +646,7 @@ drift_fill.launches = 0
 KERNELS = {
     "K1 emi_stiffness": (emi_stiffness, emi_stiffness_plain),
     "K1f emi_fill": (emi_fill, emi_fill_plain),
+    "K2 surface_mass": (surface_mass, surface_mass_plain),
     "K3 knp_apply_batch": (knp_apply_batch, knp_apply_batch_plain),
     "K11 knp_apply": (knp_apply, knp_apply_plain),
     "K11f drift_fill": (drift_fill, drift_fill_plain),

@@ -43,7 +43,7 @@ from scipy.sparse.csgraph import reverse_cuthill_mckee
 
 from ..models.engine import MembraneModel, update_ode_variables
 from ..ops.geometry import DiscreteGeometry
-from ..ops.p1op import p1_operators
+from ..ops.p1op import membrane_operators, p1_operators
 from ..solvers import direct
 from ..solvers.api import EMISolver, KNPSolver
 from ..solvers.mg import build_hierarchy_cached, refresh_hierarchy
@@ -134,12 +134,19 @@ class Simulation:
         inc = sum(op.incidence_seconds for op in p1ops.values())
         self.setup_seconds["p1_operators"] -= inc
         self.setup_seconds["p1_incidence"] = inc
+        # one per membrane: K2's surface mass pattern, K10's incidence list
+        memops = membrane_operators(geom, self.device)
+        t0 = self._lap("membrane_operators", t0)
+        inc = sum(op.incidence_seconds for op in memops.values())
+        self.setup_seconds["membrane_operators"] -= inc
+        self.setup_seconds["membrane_incidence"] = inc
         self.emi_sys = EMISystem(geom, ions, params, splitting_scheme,
-                                 dtype=dtype, device=self.device, p1ops=p1ops)
+                                 dtype=dtype, device=self.device, p1ops=p1ops,
+                                 memops=memops)
         t0 = self._lap("emi_system", t0)
         self.knp_sys = KNPSystem(geom, ions, params, splitting_scheme,
                                  dtype=dtype, device=self.device, p1ops=p1ops,
-                                 per_ion=not opts.knp_batched,
+                                 memops=memops, per_ion=not opts.knp_batched,
                                  kst={t: s["kst"] for t, s in self.emi_sys.sub.items()})
         t0 = self._lap("knp_system", t0)
         # compensated Krylov inner products in float32

@@ -12,8 +12,10 @@ concentrations.  Each subdomain's stiffness is an assembled P1 operator
 (:class:`ops.p1op.P1Operator`, shared with the KNP system).  Per solve,
 K4 (:func:`ops.assembly.ell_matvec`) forms the per-cell mean-vertex
 kappa and K1f (:func:`ops.p1op.emi_fill`) fills the operator's values;
-per matvec, K1 (:func:`ops.p1op.emi_stiffness`) applies them and K2 the
-membrane surface mass in membrane-dof space, with one gather and one
+per matvec, K1 (:func:`ops.p1op.emi_stiffness`) applies them and K2
+(:func:`ops.p1op.surface_mass`) the membrane surface mass C_phi M_Gamma
+in membrane-dof space, on the membrane's P1 operator (shared with the
+KNP system) with M_Gamma summed once at setup, with one gather and one
 scatter through ``flat_idx`` (``emi.py:321-326``).  The right-hand
 side's unit-weight stiffness is assembled once.  The system is pure
 Neumann with the constant null vector.
@@ -36,9 +38,11 @@ from .types import Ion, PhysicalParams, resolve_device
 class EMISystem:
     def __init__(self, geom: DiscreteGeometry, ions: List[Ion],
                  params: PhysicalParams, splitting_scheme: bool = True,
-                 dtype=torch.float64, device=None, *, p1ops):
+                 dtype=torch.float64, device=None, *, p1ops, memops):
         """``p1ops``: {tag: P1Operator} of ``geom`` on ``device``
-        (:func:`ops.p1op.p1_operators`), shared with the KNP system."""
+        (:func:`ops.p1op.p1_operators`), ``memops`` {membrane tag:
+        P1Operator} (:func:`ops.p1op.membrane_operators`), both shared
+        with the KNP system."""
         device = resolve_device(device)
         self.geom = geom
         self.ions = ions
@@ -66,15 +70,14 @@ class EMISystem:
             )
         self.mem = {}
         for m, sp in geom.membranes.items():
-            kf = sp.facet_dofs.shape[1]
             flat_idx = np.concatenate([
                 self.offsets[0] + sp.mem_to_ecs,
                 self.offsets[sp.cell_tag] + sp.mem_to_ics,
             ])
             self.mem[m] = dict(
-                n_mem=sp.n_dofs, cell_tag=sp.cell_tag,
-                facet_dofs=as_i(sp.facet_dofs),
-                wv=as_f(np.asarray(sp.areas) / (kf * (kf + 1))),
+                n_mem=sp.n_dofs, cell_tag=sp.cell_tag, op=memops[m],
+                # K2's values: the surface mass M_Gamma on the membrane's operator
+                M=P.mass_values(memops[m], sp.facet_dofs, sp.areas, dtype),
                 flat_idx=as_i(flat_idx, torch.int64),
             )
         self.nullvec = torch.full((self.n,), 1.0 / np.sqrt(self.n),
@@ -125,7 +128,7 @@ class EMISystem:
         for mb in self.mem.values():
             n_m = mb["n_mem"]
             u2 = x[mb["flat_idx"]]  # [R_e x | R_i x]
-            w = C_phi * A.facet_mass(u2[n_m:] - u2[:n_m], mb["facet_dofs"], mb["wv"])
+            w = P.surface_mass(u2[n_m:] - u2[:n_m], mb["op"], mb["M"], C_phi)
             y = y.index_add(0, mb["flat_idx"], torch.cat([-w, w]))
         return y
 
@@ -151,6 +154,6 @@ class EMISystem:
             g = phi_M[m]
             if not self.splitting_scheme:
                 g = g - (1.0 / C_phi) * I_ch[m].sum(dim=0)
-            w = C_phi * A.facet_mass(g.contiguous(), mb["facet_dofs"], mb["wv"])
+            w = P.surface_mass(g.contiguous(), mb["op"], mb["M"], C_phi)
             b = b.index_add(0, mb["flat_idx"], torch.cat([-w, w]))
         return b

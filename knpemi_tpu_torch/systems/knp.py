@@ -24,7 +24,8 @@ time), so its load vector is assembled once.
 The membrane Robin right-hand side runs in membrane-dof space: K9 gathers
 the stacked fields to the facet vertex slots, the quadrature algebra of
 ``_robin_facet_values`` (``knp.py:359``) runs in PyTorch, and K10
-scatters the result back.
+scatters the result back, row by row from the incidence list of the
+membrane's P1 operator (shared with the EMI system).
 """
 
 from __future__ import annotations
@@ -60,9 +61,12 @@ def ion_operator_values(op: P.P1Operator, cells, grads, vols, dt_inv: float,
 class KNPSystem:
     def __init__(self, geom: DiscreteGeometry, ions: List[Ion],
                  params: PhysicalParams, splitting_scheme: bool = True,
-                 dtype=torch.float64, device=None, *, p1ops, kst, per_ion: bool = False):
+                 dtype=torch.float64, device=None, *, p1ops, memops, kst,
+                 per_ion: bool = False):
         """``p1ops``: {tag: P1Operator} of ``geom`` on ``device``
-        (:func:`ops.p1op.p1_operators`), shared with the EMI system;
+        (:func:`ops.p1op.p1_operators`) and ``memops`` {membrane tag:
+        P1Operator} (:func:`ops.p1op.membrane_operators`), shared with the
+        EMI system;
         ``per_ion``: assemble each solved ion's operator values for the
         per-ion solve (K11), which the batched one (K3) never reads;
         ``kst``: {tag: the unit stiffness's values on that operator}, the
@@ -107,8 +111,8 @@ class KNPSystem:
         self.mem = {}
         for m, sp in geom.membranes.items():
             self.mem[m] = dict(
-                n_mem=sp.n_dofs, cell_tag=sp.cell_tag,
-                facet_dofs=as_i(sp.facet_dofs), areas=as_f(sp.areas),
+                # op.cells: the facets' dofs, K9's index map
+                n_mem=sp.n_dofs, cell_tag=sp.cell_tag, op=memops[m], areas=as_f(sp.areas),
                 mem_to_ecs=as_i(sp.mem_to_ecs, torch.int64),
                 mem_to_ics=as_i(sp.mem_to_ics, torch.int64),
             )
@@ -234,9 +238,9 @@ class KNPSystem:
             c[0][:, m2e], c[ct][:, m2i],
             (phi[ct][m2i] - phi[0][m2e])[None], phi_M_m[None], I_ch_m,
         ], dim=0)  # (F, n_mem)
-        G = A.facet_gather(X, mb["facet_dofs"])
+        G = A.facet_gather(X, mb["op"].cells)
         vals = self._robin_facet_values(ct, G, mb["areas"])
-        Y = A.facet_scatter(vals.contiguous(), mb["facet_dofs"], mb["n_mem"])
+        Y = A.facet_scatter(vals.contiguous(), mb["op"])
         return Y[: self.n_solved], Y[self.n_solved:]
 
     def rhs(self, c, phi, phi_M, I_ch=None, source_gate=1.0) -> Dict[int, torch.Tensor]:

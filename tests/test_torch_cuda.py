@@ -2,15 +2,15 @@
 
 Skipped where there is no CUDA device (the CPU test machines); on the
 GPU run ``python -m pytest tests/test_torch_cuda.py -q --noconftest``.  Tolerances:
-the kernels sum with atomics or with fused multiply-adds, in another
-order than the plain versions: 1e-5 max|y| in float32, 1e-12 max|y| in
-float64.  K7/K8 run on the packed band windows (``ops/banded.py``), K6a
+the kernels sum with fused multiply-adds or in another order than the
+plain versions: 1e-5 max|y| in float32, 1e-12 max|y| in float64.  K7/K8 run on the packed band windows (``ops/banded.py``), K6a
 on the sliced form of a windowed-ELL layout (``ops/ell.py``); K1, K3 and
 K11 apply a subdomain's assembled P1 operator (``ops/p1op.py``), whose
 per-solve values K1f and K11f fill row by row from its incidence list;
-K5/K6b gather from the transposed form of a transfer layout.  The fills
-and K5/K6b use no atomics: float64 to 1e-13 max|y|, and two launches
-give the same bits.
+K5/K6b gather from the transposed form of a transfer layout; K2 applies
+a membrane's surface mass on the membrane's P1 operator and K10 walks
+that operator's incidence list.  The fills, K2, K10 and K5/K6b use no
+atomics: float64 to 1e-13 max|y|, and two launches give the same bits.
 """
 
 import pytest
@@ -180,6 +180,64 @@ def test_p1_wrappers_raise_rather_than_fall_back(sim_astro):
     with pytest.raises(TypeError):
         P.emi_fill(op, s["grads"], s["vols"].double())
     assert (P.emi_stiffness.launches, P.emi_fill.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k2_and_k10_match_plain_on_every_membrane(sim_astro, dtype):
+    """K2 (the surface mass, scaled by C_phi) and K10 (F = 4 channels) on
+    both membranes of the tissue mesh: against their plain versions on
+    the same inputs to 1e-5 / 1e-13 of max|y|, and the same bits on a
+    second launch."""
+    from knpemi_tpu_torch.ops import assembly as A
+    from knpemi_tpu_torch.ops import p1op as P
+
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}[dtype]
+    g = torch.Generator(device="cuda").manual_seed(1)
+    C_phi = sim_astro.params.C_phi
+    assert sorted(sim_astro.emi_sys.mem) == [1, 2]
+    for m, mb in sim_astro.emi_sys.mem.items():
+        op, M = mb["op"], mb["M"].to(dtype)
+        x = torch.randn(op.n, generator=g, device="cuda", dtype=dtype)
+        V = torch.randn(4, *op.cells.shape, generator=g, device="cuda", dtype=dtype)
+        for kern, plain, args in ((P.surface_mass, P.surface_mass_plain, (x, op, M, C_phi)),
+                                  (A.facet_scatter, A.facet_scatter_plain, (V, op))):
+            before = kern.launches
+            y, y_ref = kern(*args), plain(*args)
+            torch.cuda.synchronize()
+            assert kern.launches == before + 1
+            assert float((y - y_ref).abs().max()) <= tol * float(y_ref.abs().max())
+            assert torch.equal(kern(*args), y)
+
+
+def test_k2_and_k10_raise_rather_than_fall_back(sim_astro):
+    """On the card K2 and K10 launch or raise: a CPU or int64 incidence
+    list, values of another dtype or length, V of another shape."""
+    import copy
+
+    from knpemi_tpu_torch.ops import assembly as A
+    from knpemi_tpu_torch.ops import p1op as P
+
+    mb = sim_astro.emi_sys.mem[1]
+    op, M = mb["op"], mb["M"]
+    x = torch.ones(op.n, device="cuda")
+    V = torch.ones(4, *op.cells.shape, device="cuda")
+    bad = copy.copy(op)
+    bad.inc = op.inc.long()
+    before = P.surface_mass.launches, A.facet_scatter.launches
+    with pytest.raises(TypeError):
+        P.surface_mass(x, op, M.double())
+    with pytest.raises(ValueError):
+        P.surface_mass(x, op, M[:-1])
+    with pytest.raises(ValueError):
+        P.surface_mass(x, op, M.cpu())
+    with pytest.raises(TypeError):
+        A.facet_scatter(V, bad)
+    with pytest.raises(ValueError):
+        A.facet_scatter(V[:, :-1].contiguous(), op)
+    bad.inc = op.inc.cpu()
+    with pytest.raises(ValueError):
+        A.facet_scatter(V, bad)
+    assert (P.surface_mass.launches, A.facet_scatter.launches) == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -75,7 +75,7 @@ def test_code_names_knpemi_tpu_only_as_the_port():
 def test_simulation_without_device_needs_cuda(monkeypatch):
     from knpemi_tpu_torch.mesh import idealized_2d_mesh
     from knpemi_tpu_torch.ops.geometry import build_geometry
-    from knpemi_tpu_torch.ops.p1op import p1_operators
+    from knpemi_tpu_torch.ops.p1op import membrane_operators, p1_operators
     from knpemi_tpu_torch.sim import build_idealized
     from knpemi_tpu_torch.systems.coupling import set_initial_conditions
     from knpemi_tpu_torch.systems.emi import EMISystem
@@ -103,14 +103,15 @@ def test_simulation_without_device_needs_cuda(monkeypatch):
     params = PhysicalParams(dt=1e-4, rho={0: 0.0, 1: 0.0})
     with pytest.raises(RuntimeError, match="CUDA"):
         set_initial_conditions(geom, ions)
-    p1ops = p1_operators(geom, "cpu")
+    p1ops, memops = p1_operators(geom, "cpu"), membrane_operators(geom, "cpu")
     # (KNPSystem also takes the EMI system's unit stiffness values)
     for cls, kw in ((EMISystem, {}), (KNPSystem, {"kst": {}})):
         with pytest.raises(RuntimeError, match="CUDA"):
-            cls(geom, ions, params, p1ops=p1ops, **kw)
+            cls(geom, ions, params, p1ops=p1ops, memops=memops, **kw)
     c = set_initial_conditions(geom, ions, device="cpu")
     assert all(v.device.type == "cpu" for v in c.values())
-    assert EMISystem(geom, ions, params, device="cpu", p1ops=p1ops).device == torch.device("cpu")
+    assert EMISystem(geom, ions, params, device="cpu", p1ops=p1ops,
+                     memops=memops).device == torch.device("cpu")
 
 
 def test_kernel_sources_present():

@@ -1,10 +1,12 @@
 """The port's assembly kernel functions against the JAX package's.
 
-For each kernel of ``knpemi_tpu_torch/ops/assembly.py``, and K1 and K3
-of ``ops/p1op.py`` (the EMI stiffness and the ion-batched KNP operator
-as an assembled P1 operator: K1 the values K1f fills, K3 the unit mass,
-the unit stiffness and the drift K11f fills, then the apply), the plain
-PyTorch version (what the wrapper runs on CPU tensors) is held
+For each kernel of ``knpemi_tpu_torch/ops/assembly.py`` (K10 on the
+membrane's P1 operator), and K1, K2 and K3 of ``ops/p1op.py`` (the EMI
+stiffness, the membrane surface mass and the ion-batched KNP operator
+as an assembled P1 operator: K1 the values K1f fills, K2 the surface
+mass summed at setup, K3 the unit mass, the unit stiffness and the
+drift K11f fills, then the apply), the plain PyTorch version (what the
+wrapper runs on CPU tensors) is held
 
 * in float32 against the JAX Pallas wrapper in interpret mode, at
   5e-6 max|y| — the JAX kernels gather through bf16 split passes and
@@ -62,6 +64,19 @@ def k1(x, sub, wv):
     operator from wv, K1 applies it."""
     op = P.P1Operator(sub.cells, sub.n_dofs, "cpu")
     return P.emi_stiffness(x, op, P.emi_fill(op, t(sub.grads, x.dtype), wv))
+
+
+def k2(x, sp, scale=1.0):
+    """K2 as the EMI system applies it: the membrane's surface mass summed
+    on its P1 operator at setup, then the apply."""
+    op = P.P1Operator(sp.facet_dofs, sp.n_dofs, "cpu")
+    return P.surface_mass(x, op, P.mass_values(op, sp.facet_dofs, sp.areas, x.dtype), scale)
+
+
+def k10(V, sp):
+    """K10 as the KNP system applies it: the row walk of the membrane
+    operator's incidence list."""
+    return A.facet_scatter(V, P.P1Operator(sp.facet_dofs, sp.n_dofs, "cpu"))
 
 
 def k3(X, sub, w, coef, mass_only=False):
@@ -131,8 +146,7 @@ def test_k2_facet_mass_vs_pallas(mesh):
         wv_lane = jnp.asarray(bkm.vols_lane / (kf * (kf + 1)), jnp.float32)
         y_jax = PA.facet_mass_blocked(jnp.asarray(g, jnp.float32), bkm, wv_lane,
                                       interpret=True)
-        y = A.facet_mass(t(g), ti(sp.facet_dofs), t(sp.areas / (kf * (kf + 1))))
-        close(y, y_jax, TOL32)
+        close(k2(t(g), sp), y_jax, TOL32)
 
 
 def _k3_vs_pallas(mesh, B, mass_only):
@@ -261,8 +275,7 @@ def test_k10_facet_scatter_vs_pallas(mesh):
             Vb[b, h, :, j * bkm.C + c] = V[:, f, j].T
         Y_jax = PA.facet_scatter_blocked(jnp.asarray(Vb, jnp.float32), bkm,
                                          interpret=True)
-        Y = A.facet_scatter(t(V), ti(sp.facet_dofs), sp.n_dofs)
-        close(Y, Y_jax, TOL32)
+        close(k10(t(V), sp), Y_jax, TOL32)
 
 
 # ---------------------------------------------------------------------------
@@ -297,13 +310,13 @@ def _f64_case(kernel, geom):
     kf = fd.shape[1]
     X = rng.standard_normal((3, n_m))
     if kernel == "K2":
-        y = A.facet_mass(f64(X[0]), ti(fd), f64(sp.areas / (kf * (kf + 1))))
+        y = k2(f64(X[0]), sp)
         y_ref = JK.scatter_add(n_m, Ji(fd), JK.facet_mass_values(J(X[0])[Ji(fd)], J(sp.areas)))
         return [(y, y_ref)]
     if kernel == "K9":
         return [(A.facet_gather(f64(X), ti(fd)), J(X)[:, Ji(fd)])]
     V = rng.standard_normal((3, sp.n_facets, kf))
-    Y = A.facet_scatter(f64(V), ti(fd), n_m)
+    Y = k10(f64(V), sp)
     return [(Y[i], JK.scatter_add(n_m, Ji(fd), J(V[i]))) for i in range(3)]
 
 
@@ -371,6 +384,10 @@ def test_wrappers_take_plain_path_on_cpu_and_check_inputs():
         P.emi_stiffness(x, op, vals.double())
     with pytest.raises(ValueError):
         P.emi_stiffness(x, op, vals[:-1])
+    sp = geom.membranes[1]
+    mop = P.P1Operator(sp.facet_dofs, sp.n_dofs, "cpu")
+    mvals = P.mass_values(mop, sp.facet_dofs, sp.areas, torch.float32)
     with pytest.raises(ValueError):
-        A.facet_mass(x[::2], ti(geom.membranes[1].facet_dofs),
-                     t(geom.membranes[1].areas))
+        P.surface_mass(t(np.ones(2 * sp.n_dofs))[::2], mop, mvals)
+    with pytest.raises(ValueError):
+        A.facet_scatter(t(np.ones((2, sp.n_facets + 1, 2))), mop)
