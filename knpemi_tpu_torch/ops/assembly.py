@@ -1,5 +1,5 @@
-"""The coefficient-map and facet kernels of the coupled step, with plain
-twins, and the launch helpers every kernel module of the port shares.
+"""The facet kernels of the coupled step, with plain twins, and the
+launch helpers every kernel module of the port shares.
 
 Each wrapper below launches a hand-written CUDA kernel (``ops/csrc``,
 built by :mod:`._build`) for CUDA tensors and uses its plain PyTorch
@@ -8,21 +8,21 @@ On a CUDA tensor it launches or raises; there is no fallback.  Every
 wrapper counts its launches in a plain integer attribute
 (``wrapper.launches``) and checks device, dtype, shape and contiguity.
 
-Here: K4 (ELL SpMV of the frozen dof -> cell coefficient maps), K9 and
-K10 (facet gather and scatter of the membrane fields).  K1, K2, K3 and
-K11 — the EMI, membrane surface mass, ion-batched KNP and single-ion
-KNP operators — are applied as an assembled P1 operator by
-:mod:`.p1op`; the multigrid kernels are in :mod:`.ell` and
-:mod:`.banded`.
+Here: K9 and K10 (facet gather and scatter of the membrane fields).
+K1, K2, K3 and K11 — the EMI, membrane surface mass, ion-batched KNP
+and single-ion KNP operators — are applied as an assembled P1 operator
+by :mod:`.p1op`; K4, which applies the multigrid operators and the
+frozen dof -> cell coefficient maps, and the other multigrid kernels
+are in :mod:`.ell` and :mod:`.banded`.
 
 The JAX package's TPU kernels compute the same operators through one-hot
 MXU products, bf16 split passes, 128-lane alignment, Morton windows and
 an XLA tail of outlier cells (``knpemi_tpu/ops/pallas_assembly.py:1-36``,
 ``pallas_ell.py:1-42``) — all of it a way around slow random gathers on
-the TPU.  On Hopper a gather is a load: K4 takes one thread per row, K9
-one per output element, and K10 one per membrane dof, which walks its
-row of the membrane operator's incidence list and sums the slots there
-in the list's order.  No kernel here uses atomics, so each gives the
+the TPU.  On Hopper a gather is a load: K9 takes one thread per four
+facet slots, and K10 one per membrane dof, which walks its row of the
+membrane operator's incidence list and sums the slots there in the
+list's order.  No kernel here uses atomics, so each gives the
 same bits on every launch.  None does enough arithmetic per byte to be
 compute-bound; the least time each can take is the bytes it must move
 over the card's 3.35 TB/s.
@@ -44,8 +44,6 @@ _c_ptr = ctypes.c_void_p
 
 # C signatures of ops/csrc/*.cu: (library, entry point, argument types)
 _SIGS = {
-    "ell_matvec": ("cells", "knp_ell_matvec",
-                   [_c_int] + [_c_ptr] * 4 + [_c_int] * 2 + [_c_ptr]),
     "facet_gather": ("facets", "knp_facet_gather",
                      [_c_int] + [_c_ptr] * 3 + [_c_int] * 4 + [_c_ptr]),
     "facet_scatter": ("facets", "knp_facet_scatter",
@@ -60,6 +58,8 @@ _SIGS = {
     "drift_fill": ("cells", "knp_drift_fill",
                    [_c_int] + [_c_ptr] * 9 + [_c_int] * 5 + [_c_ptr]),
     # ops/ell.py and ops/banded.py
+    "sliced_matvec": ("mg", "knp_sliced_matvec",
+                      [_c_int] + [_c_ptr] * 5 + [_c_int, _c_ptr]),
     "sliced_matvec_batch": ("mg", "knp_sliced_matvec_batch",
                             [_c_int] + [_c_ptr] * 5 + [_c_int] * 3 + [_c_ptr]),
     "csr_gather_batch": ("mg", "knp_csr_gather_batch",
@@ -138,88 +138,6 @@ def _check_mesh(k: int, dim: int):
 
 
 # ---------------------------------------------------------------------------
-# K4: ELL SpMV of the frozen dof -> cell coefficient maps
-# ---------------------------------------------------------------------------
-def ell_matvec_plain(cols, vals, x):
-    return (vals * x[cols.long()]).sum(dim=1)
-
-
-def ell_matvec(cols, vals, x):
-    """K4.  y = A x for A in ELL form: y[r] = sum_k vals[r, k] x[cols[r, k]]
-    (padded slots hold value 0).  The port's per-solve coefficient maps
-    are such matrices: mean-vertex kappa per cell and grad(phi) per cell
-    (see :func:`cell_mean_ell` / :func:`cell_gradient_ell`).
-
-    Replaces ``knpemi_tpu/ops/pallas_ell.py:_make_gather_kernel`` (via
-    ``ellw_matvec``), without its windows, bf16 passes or far-COO spill:
-    the GPU gathers exactly.  Bound on the H100: bytes — cols, vals, x
-    read once, y written once (``csrc/cells.cu``).  Design: one thread per
-    row.
-
-    cols (R, K) index, vals (R, K), x (m,) -> y (R,)."""
-    _check_value(x, "x")
-    R, Kw = cols.shape
-    _check(cols, "cols", x, index=True)
-    _check(vals, "vals", x, (R, Kw))
-    if not x.is_cuda:
-        return ell_matvec_plain(cols, vals, x)
-    y = torch.empty(R, dtype=x.dtype, device=x.device)
-    _launch("ell_matvec", x, cols.data_ptr(), vals.data_ptr(), x.data_ptr(),
-            y.data_ptr(), R, Kw)
-    ell_matvec.launches += 1
-    return y
-
-
-ell_matvec.launches = 0
-
-
-def _ell_from_cells(weights, cells, n_dofs):
-    """Host ELL (cols, vals) of the dof -> cell map with per-slot
-    ``weights`` (nc, R, k): row (c, r) is sum_j weights[c, r, j] x[cells[c, j]].
-    Built through a scipy CSR (duplicates summed, columns sorted, zeros
-    dropped) — the matrix ``pallas_assembly.py::build_interp_ellw``
-    freezes; short rows are padded with value 0 at column 0."""
-    import numpy as np
-    import scipy.sparse as sp
-
-    nc, R, k = weights.shape
-    rows = np.broadcast_to(np.arange(nc * R).reshape(nc, R, 1), weights.shape)
-    cols = np.broadcast_to(cells[:, None, :], weights.shape)
-    A = sp.coo_matrix(
-        (weights.ravel().astype(np.float64), (rows.ravel(), cols.ravel())),
-        shape=(nc * R, n_dofs),
-    ).tocsr()
-    A.eliminate_zeros()
-    nnz = np.diff(A.indptr)
-    Kw = max(int(nnz.max()) if len(nnz) else 1, 1)
-    r = np.repeat(np.arange(A.shape[0]), nnz)
-    pos = np.arange(A.nnz) - np.repeat(A.indptr[:-1], nnz)
-    ec = np.zeros((A.shape[0], Kw), np.int32)
-    ev = np.zeros((A.shape[0], Kw), np.float64)
-    ec[r, pos] = A.indices
-    ev[r, pos] = A.data
-    return ec, ev
-
-
-def cell_mean_ell(cells, n_dofs):
-    """ELL of the map kappa (n,) -> mean-vertex kappa per cell (nc,)."""
-    import numpy as np
-
-    k = cells.shape[1]
-    w = np.full((cells.shape[0], 1, k), 1.0 / k)
-    return _ell_from_cells(w, cells, n_dofs)
-
-
-def cell_gradient_ell(cells, grads, n_dofs):
-    """ELL of the map phi (n,) -> grad(phi) per cell, rows (c, d) in
-    (nc, dim) order."""
-    import numpy as np
-
-    w = np.swapaxes(np.asarray(grads, np.float64), 1, 2)  # (nc, dim, k)
-    return _ell_from_cells(w, cells, n_dofs)
-
-
-# ---------------------------------------------------------------------------
 # K9 / K10: facet gather and scatter of F membrane fields
 # ---------------------------------------------------------------------------
 def facet_gather_plain(X, facet_dofs):
@@ -232,8 +150,14 @@ def facet_gather(X, facet_dofs):
 
     Replaces ``knpemi_tpu/ops/pallas_assembly.py:_make_facet_gather_kernel``
     (via ``facet_gather_blocked``).  Bound on the H100: bytes — X and
-    facet_dofs read once, G written once (``csrc/facets.cu``).  Design: one
-    thread per output element, writes coalesced.
+    facet_dofs read once, G written once (``csrc/facets.cu``).  Design:
+    each thread owns four consecutive facet slots, reads their dof ids
+    with one 16-byte load (one at a time where ``facet_dofs`` is not
+    16-byte aligned), gathers them for every channel and writes each
+    channel's four values with one 16-byte store (four plain stores
+    where the address is not aligned, and for the last slots); no
+    integer division, the index map read once per launch.  A copy: the
+    output bits are the input bits.
 
     X (F, n_mem), facet_dofs (nf, k) -> G (F, nf, k)."""
     _check_value(X, "X")
@@ -297,7 +221,6 @@ facet_scatter.launches = 0
 # (wrapper, plain version) of this module's kernels; ops.kernel_table() merges
 # every module's table
 KERNELS = {
-    "K4 ell_matvec": (ell_matvec, ell_matvec_plain),
     "K9 facet_gather": (facet_gather, facet_gather_plain),
     "K10 facet_scatter": (facet_scatter, facet_scatter_plain),
 }

@@ -1,13 +1,12 @@
 // Cell kernels for Hopper (sm_90a): the P1 operator of a subdomain
 // (the K1 / K11 apply, the ion-batched K3 apply and the K1f / K11f
-// fills) and K4 (ELL SpMV of the frozen dof -> cell coefficient maps).
-// Plain C interface, loaded with ctypes by knpemi_tpu_torch/ops/p1op.py
-// and ops/assembly.py, which hold the plain PyTorch version of each
-// kernel, the input checks and the launch counters.
+// fills).  Plain C interface, loaded with ctypes by
+// knpemi_tpu_torch/ops/p1op.py, which holds the plain PyTorch version of
+// each kernel, the input checks and the launch counters.
 //
 // All replace TPU kernels whose one-hot MXU factoring exists only
 // because random gathers are slow on the TPU
-// (knpemi_tpu/ops/pallas_assembly.py, pallas_ell.py); here every gather
+// (knpemi_tpu/ops/pallas_assembly.py); here every gather
 // is exact.  K1, K11 and K3 apply the subdomain's P1 operator assembled
 // on its P1 graph, stored as a sliced ELL (ops/p1op.py): one thread per
 // row streams the row's slots, a warp reading slot k of its 32 rows in
@@ -356,20 +355,6 @@ fill_rows_kernel(const int* __restrict__ inc_ptr, const int* __restrict__ inc,
   for (int k = 0; k < ks; ++k) out[32 * k] = acc[32 * k];
 }
 
-// K4: y[r] = sum_k vals[r, k] x[cols[r, k]] (padded slots carry zeros).
-template <typename T>
-__global__ void ell_matvec_kernel(const int* __restrict__ cols,
-                                  const T* __restrict__ vals,
-                                  const T* __restrict__ x,
-                                  T* __restrict__ y, int R, int K) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= R) return;
-  const int64_t base = static_cast<int64_t>(r) * K;
-  T acc = T(0);
-  for (int k = 0; k < K; ++k) acc += vals[base + k] * x[cols[base + k]];
-  y[r] = acc;
-}
-
 template <typename T>
 int p1_apply_t(const int* slot_ptr, const int* col, const void* v1,
                const void* v2, const void* x, void* y, double a, double b,
@@ -556,21 +541,6 @@ int knp_drift_fill(int dtype, const int* inc_ptr, const int* inc,
                                           w, scratch, vals, n, nc, kmax, k, dim, s)
                     : drift_fill_t<double>(inc_ptr, inc, pos, slot_ptr, grads, vols,
                                            w, scratch, vals, n, nc, kmax, k, dim, s);
-}
-
-int knp_ell_matvec(int dtype, const int* cols, const void* vals,
-                   const void* x, void* y, int R, int K, void* stream) {
-  if (R == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    ell_matvec_kernel<float><<<blocks_for(R), kThreads, 0, s>>>(
-        cols, static_cast<const float*>(vals), static_cast<const float*>(x),
-        static_cast<float*>(y), R, K);
-  else
-    ell_matvec_kernel<double><<<blocks_for(R), kThreads, 0, s>>>(
-        cols, static_cast<const double*>(vals),
-        static_cast<const double*>(x), static_cast<double*>(y), R, K);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

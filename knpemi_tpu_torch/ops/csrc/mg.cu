@@ -1,11 +1,12 @@
-// Multigrid V-cycle kernels for Hopper (sm_90a): K5, K6b (the
-// restriction y = A^T r, for one vector and for B vectors, gathered from
-// the CSR of A^T), K6a (the B-vector gather from the sliced form of a
-// windowed-ELL operator) and K7, K8 (block-banded operators, read as the
-// packed nonzeros of their slabs).  Plain C interface, loaded with
-// ctypes by knpemi_tpu_torch/ops/ell.py and ops/banded.py, which hold
-// the plain PyTorch version of each kernel, the input checks and the
-// launch counters.
+// Multigrid V-cycle kernels for Hopper (sm_90a): K4 and K6a (the gather
+// y = A x from the sliced form of a windowed-ELL operator, for one
+// vector and for B vectors; K4 also applies the step's coefficient
+// maps), K5, K6b (the restriction y = A^T r, for one vector and for B
+// vectors, gathered from the CSR of A^T) and K7, K8 (block-banded
+// operators, read as the packed nonzeros of their slabs).  Plain C
+// interface, loaded with ctypes by knpemi_tpu_torch/ops/ell.py and
+// ops/banded.py, which hold the plain PyTorch version of each kernel,
+// the input checks and the launch counters.
 //
 // They replace the TPU kernels of knpemi_tpu/ops/pallas_ell.py and
 // pallas_banded.py.  Those gather and scatter through one-hot matrix
@@ -13,7 +14,7 @@
 // align every start to the (8, 128) tiling; here a gather is a load,
 // exact in the vector's type, a scatter is turned into a gather from the
 // transposed operator, and no alignment is asked of the layout.  All
-// five are bound by the bytes they move: the ELL kernels by indices +
+// six are bound by the bytes they move: the ELL kernels by indices +
 // values, the banded kernels by the nonzeros of the slabs.  None uses
 // atomics: each output element is summed by one thread (or, in K5/K6b,
 // one group of lanes) in a fixed order and stored once, so a launch
@@ -265,6 +266,60 @@ sliced_matvec_batch_kernel(const int* __restrict__ slot_ptr,
 }
 
 // ---------------------------------------------------------------------
+// K4: y[r] = sum over the slots s of row r of val[s] x[col[s]], for one
+// vector, from the same sliced form as K6a: a multigrid level operator,
+// prolongator or A P product of a single-vector V-cycle, or a frozen
+// dof -> cell coefficient map of the step.
+//
+// Replaces _make_gather_kernel (pallas_ell.py:330).  A row-major
+// (R, K) form pads every row to K, the widest row rounded up to a power
+// of two of at least 8 (2.26 slots a nonzero on the flagship's level-0
+// P), and puts slot k of 32 rows K*4 bytes apart.  Here:
+// * one warp per 32-row slice: slot k of its 32 rows is one coalesced
+//   load of columns and one of values, padded only to the slice's
+//   longest row;
+// * kK4InFlight slots' columns and values are loaded, then their x
+//   (read through the read-only path: it lives in L2), then summed;
+//   eight in flight, and no x load for a slot past the slice's end
+//   (chosen on the card among 4, 8 and 16 in flight, with and without
+//   that guard; K6a's kernel at B = 1 is timed beside it: PERF.md);
+// * one fused multiply-add per slot, in slot order; y stored once into
+//   an unzeroed output.  No atomics, the same bits every launch.
+// Bound by bytes: a column and a value per nonzero, x and y once.
+// ---------------------------------------------------------------------
+constexpr int kK4InFlight = 8;
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+sliced_matvec_kernel(const int* __restrict__ slot_ptr,
+                     const int* __restrict__ col, const T* __restrict__ val,
+                     const T* __restrict__ x, T* __restrict__ y, int R) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const int end = __ldg(slot_ptr + (r >> 5) + 1);
+  T acc = T(0);
+  for (int s0 = __ldg(slot_ptr + (r >> 5)) + (r & 31); s0 < end;
+       s0 += kK4InFlight * 32) {
+    int c[kK4InFlight];
+    T v[kK4InFlight];
+#pragma unroll
+    for (int u = 0; u < kK4InFlight; ++u) {
+      const int s = s0 + u * 32;
+      const bool in = s < end;
+      c[u] = in ? __ldg(col + s) : 0;
+      v[u] = in ? __ldg(val + s) : T(0);
+    }
+    T xv[kK4InFlight];
+#pragma unroll
+    for (int u = 0; u < kK4InFlight; ++u)
+      xv[u] = s0 + u * 32 < end ? __ldg(x + c[u]) : T(0);
+#pragma unroll
+    for (int u = 0; u < kK4InFlight; ++u) acc = fma_t(v[u], xv[u], acc);
+  }
+  y[r] = acc;
+}
+
+// ---------------------------------------------------------------------
 // K5 (B = 1) and K6b: Y[b, r] = sum over the entries s of row r of A^T
 // of val[s] X[b, col[s]], for B <= 8 vectors, from the CSR of A^T
 // (ops/ell.py::transposed_csr): row r owns entries row_ptr[r] ..
@@ -474,6 +529,23 @@ int knp_sliced_matvec_batch(int dtype, const int* slot_ptr, const int* col,
                                                    m, nb, s)
                     : sliced_matvec_batch_t<double>(slot_ptr, col, val, X, Y,
                                                     R, m, nb, s);
+}
+
+// K4: y (R,) = A x from the sliced form.
+int knp_sliced_matvec(int dtype, const int* slot_ptr, const int* col,
+                      const void* val, const void* x, void* y, int R,
+                      void* stream) {
+  if (R == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    sliced_matvec_kernel<float><<<blocks_for(R), kThreads, 0, s>>>(
+        slot_ptr, col, static_cast<const float*>(val),
+        static_cast<const float*>(x), static_cast<float*>(y), R);
+  else
+    sliced_matvec_kernel<double><<<blocks_for(R), kThreads, 0, s>>>(
+        slot_ptr, col, static_cast<const double*>(val),
+        static_cast<const double*>(x), static_cast<double*>(y), R);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K5 (nb = 1) and K6b: Y (nb, R) = X (nb, m) A from the CSR of A^T

@@ -1,4 +1,5 @@
-"""Windowed-ELL sparse operators of the multigrid V-cycle (K4, K5, K6a, K6b).
+"""Sparse operators of the multigrid V-cycle and of the coefficient maps
+(K4, K5, K6a, K6b).
 
 Counterpart of ``knpemi_tpu/ops/pallas_ell.py``.  Two halves:
 
@@ -16,14 +17,13 @@ Counterpart of ``knpemi_tpu/ops/pallas_ell.py``.  Two halves:
   into the free slots of their rows** (a row has at most K nonzeros,
   ``build_ellw``), so each is exactly A with no second pass:
 
-  - a row-major ELL ``cols, vals`` of shape (n_rows, K), padded slots
-    value 0 — what the single-vector gather K4 reads;
   - a *sliced* ELL of the nonzeros (``slot_ptr``, ``scol``, ``sval``;
     :func:`sliced_ell`): rows in slices of 32, slice s holding K[s]
     slots per row (its longest row's nonzeros), slot-major inside the
     slice, so that slot k of the slice's 32 rows lies in 32 consecutive
-    words — the layout K6a reads, as K1/K11 (``ops/p1op.py``) and K7/K8
-    (``ops/banded.py``) do;
+    words — the layout every forward apply reads, K4 on one vector and
+    K6a on B, as K1/K11 (``ops/p1op.py``) and K7/K8 (``ops/banded.py``)
+    do;
   - the *transposed* form, the CSR of A^T (``trow_ptr``, ``tcol``,
     ``tval``; :func:`transposed_csr`): A's nonzeros grouped by column,
     within a column by ascending row, with ``tgroup`` lanes per row of
@@ -32,17 +32,21 @@ Counterpart of ``knpemi_tpu/ops/pallas_ell.py``.  Two halves:
     so this form is built once per upload and never refilled.
 
   A layout gets the forms its applies need (``solvers/mg.py``): the
-  sliced one where the ion-batched KNP V-cycle applies it forward, the
-  row-major one where a single-vector path does, the transposed one
-  where a cycle restricts through it.  The
-  windows, the (G, 128) group layout and the 8-group-aligned ``q`` exist
-  on the TPU to turn a gather into one-hot matrix products over a short
-  axis; on Hopper a gather is a load, so none of it reaches the device.
+  sliced one where a cycle applies it forward, the transposed one where
+  a cycle restricts through it.  The windows, the (G, 128) group layout
+  and the 8-group-aligned ``q`` exist on the TPU to turn a gather into
+  one-hot matrix products over a short axis; on Hopper a gather is a
+  load, so none of it reaches the device.
+
+The frozen dof -> cell coefficient maps of the step (mean-vertex kappa
+per cell, grad(phi) per cell: :func:`cell_mean_ell`,
+:func:`cell_gradient_ell`) are built here in the same sliced form and
+applied by the same K4.
 
 The four applies, each with a plain PyTorch twin on the same tensors:
 
 =====================  ====  ======================================
-``ellw_matvec``        K4    y = A x        (``assembly.ell_matvec``)
+``ellw_matvec``        K4    y = A x        one vector, sliced form
 ``ellw_rmatvec``       K5    y = A^T r      gather, transposed form
 ``ellw_matvec_batch``  K6a   Y = X A^T      B vectors, sliced form
 ``ellw_rmatvec_batch`` K6b   Y = R A        B vectors, transposed form
@@ -59,7 +63,7 @@ match to ~1e-6 max|y| in float32 and ~1e-15 max|y| in float64.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -75,22 +79,20 @@ SLICE = 32  # rows per slice of the sliced form: one warp
 
 @dataclasses.dataclass
 class DeviceELLW:
-    """The device forms of an :class:`ELLW`, far entries folded in;
-    ``C, K, NCH, Wr`` are the host layout's statics.  ``cols, vals``: the
-    row-major form, None where no apply of this layout reads it;
-    ``slot_ptr, scol, sval``: the sliced form (:func:`sliced_ell`), None
-    where K6a does not apply it; ``trow_ptr, tcol, tval``: the CSR of
-    A^T (:func:`transposed_csr`) with ``tgroup`` lanes per row, None
-    where no restriction reads it."""
+    """The device forms of a sparse operator, far entries folded in.
+    ``slot_ptr, scol, sval``: the sliced form (:func:`sliced_ell`) that
+    K4 and K6a read, None where no forward apply reads it;
+    ``trow_ptr, tcol, tval``: the CSR of A^T (:func:`transposed_csr`)
+    with ``tgroup`` lanes per row, None where no restriction reads it.
+    ``C, K, NCH, Wr``: the host windowed-ELL layout's statics (a
+    coefficient map has no windows: ``K`` its widest row, the rest 0)."""
 
     n_rows: int
     n_cols: int
-    C: int
-    K: int
-    NCH: int
-    Wr: int
-    cols: Optional[torch.Tensor]  # (n_rows, K) int32 on CUDA, int64 on the CPU
-    vals: Optional[torch.Tensor]  # (n_rows, K)
+    C: int = 0
+    K: int = 0
+    NCH: int = 0
+    Wr: int = 0
     slot_ptr: Optional[torch.Tensor] = None  # (NS + 1,) int32
     scol: Optional[torch.Tensor] = None      # (slots,) index
     sval: Optional[torch.Tensor] = None      # (slots,)
@@ -101,6 +103,9 @@ class DeviceELLW:
     tcol: Optional[torch.Tensor] = None      # (nnz,) int32: rows of A
     tval: Optional[torch.Tensor] = None      # (nnz,)
     tgroup: int = 0                          # lanes per row of A^T
+
+
+# lanes per row of A^T
 
 
 # lanes per row of A^T that the restriction kernels can take
@@ -137,31 +142,68 @@ def transposed_csr(cols: np.ndarray, vals: np.ndarray, n_cols: int):
     return (row_ptr, rows[order].astype(np.int32), vals[rows[order], ks[order]], group)
 
 
+class Sliced(NamedTuple):
+    """:func:`sliced_ell`'s host arrays and what a refill dropped."""
+
+    slot_ptr: np.ndarray   # (NS + 1,) int64
+    col: np.ndarray        # (slots,) int32
+    val: np.ndarray        # (slots,)
+    nnz: int               # nonzeros stored
+    dropped: int = 0       # nonzeros a refill had no slot for
+    dropped_frac: float = 0.0  # their share of the matrix's |value| mass
+
+
 def sliced_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
-               slot_ptr: Optional[np.ndarray] = None):
+               slot_ptr: Optional[np.ndarray] = None,
+               max_drop_frac: float = 0.0) -> Sliced:
     """The sliced ELL of a row-major ELL's nonzeros (``vals != 0``): per
     slice of 32 rows, K[s] slots per row, slot k of row r at
     ``slot_ptr[r // 32] + 32 k + r % 32``, a row's nonzeros in its slot
     order; padding slots hold value 0 at column min(r, n_cols - 1).
-    Returns ``(slot_ptr int64, col int32, val, nnz)``.  With ``slot_ptr``
-    given (a refill of a frozen shape) raises ``ValueError`` where a row
-    has more nonzeros than its slice holds."""
+
+    With ``slot_ptr`` given (a refill of a frozen shape, the hierarchy
+    refresh), a row with more nonzeros than its slice holds keeps its
+    largest in magnitude, in slot order, and drops the rest, counted in
+    ``dropped`` and ``dropped_frac`` (float32 kappa rounding makes and
+    unmakes exact zeros of the Galerkin products); raises ``ValueError``
+    where they carry more than ``max_drop_frac`` of the matrix's |value|
+    mass, or where ``slot_ptr`` does not fit the rows."""
     n, K = cols.shape
     NS = -(-n // SLICE)
     nz = vals != 0
     count = np.zeros(NS * SLICE, np.int64)
     count[:n] = nz.sum(axis=1)
-    width = count.reshape(NS, SLICE).max(axis=1)
+    dropped, frac = 0, 0.0
     if slot_ptr is None:
+        width = count.reshape(NS, SLICE).max(axis=1)
         slot_ptr = np.zeros(NS + 1, np.int64)
         np.cumsum(SLICE * width, out=slot_ptr[1:])
         if slot_ptr[-1] >= 1 << 31:
             raise ValueError(f"{slot_ptr[-1]} slots: more than an int32 can address")
     else:
         slot_ptr = np.asarray(slot_ptr, np.int64)
-        if slot_ptr.shape != (NS + 1,) or (width > np.diff(slot_ptr) // SLICE).any():
-            raise ValueError("sliced ELL refill: a row has more nonzeros than its "
-                             "slice holds: sparsity pattern drifted")
+        if slot_ptr.shape != (NS + 1,):
+            raise ValueError(f"sliced ELL refill: slot_ptr of shape {slot_ptr.shape} "
+                             f"for {NS} slices")
+        hold = np.repeat(np.diff(slot_ptr) // SLICE, SLICE)[:n]
+        over = np.flatnonzero(count[:n] > hold)
+        if len(over):
+            # rank each over-full row's nonzeros by magnitude; keep the first
+            mag = np.where(nz[over], np.abs(vals[over]), -1.0)
+            rank = np.empty_like(mag, np.int64)
+            np.put_along_axis(rank, np.argsort(-mag, axis=1, kind="stable"),
+                              np.arange(K)[None], axis=1)
+            cut = nz[over] & (rank >= hold[over, None])
+            dropped = int(cut.sum())
+            frac = float(np.abs(vals[over][cut]).sum()) / max(
+                float(np.abs(vals).sum()), 1e-300)
+            if frac > max_drop_frac:
+                raise ValueError(
+                    f"sliced ELL refill dropped {dropped} nonzeros, {frac:.2e} of the "
+                    f"|A| mass (> {max_drop_frac:.0e}): no slot in their slice, "
+                    "sparsity pattern drifted")
+            nz = nz.copy()
+            nz[over] &= ~cut
     rows, ks = np.nonzero(nz)
     pos = np.cumsum(nz, axis=1)[rows, ks] - 1  # rank of the slot among the row's nonzeros
     slot = slot_ptr[rows // SLICE] + SLICE * pos + rows % SLICE
@@ -173,7 +215,17 @@ def sliced_ell(cols: np.ndarray, vals: np.ndarray, n_cols: int,
     col[slot] = cols[rows, ks]
     val = np.zeros(total, vals.dtype)
     val[slot] = vals[rows, ks]
-    return slot_ptr, col, val, int(rows.shape[0])
+    return Sliced(slot_ptr, col, val, int(rows.shape[0]), dropped, frac)
+
+
+def _upload_sliced(out: DeviceELLW, cols, vals, dtype, device) -> DeviceELLW:
+    """Give ``out`` the sliced form of the row-major ELL ``cols, vals``."""
+    s = sliced_ell(cols, vals, out.n_cols)
+    out.slot_ptr_host, out.nnz = s.slot_ptr, s.nnz
+    out.slot_ptr = torch.as_tensor(s.slot_ptr.astype(np.int32), device=device)
+    out.scol = torch.as_tensor(s.col, dtype=A.index_dtype(device), device=device)
+    out.sval = torch.as_tensor(s.val, dtype=dtype, device=device)
+    return out
 
 
 @dataclasses.dataclass
@@ -219,46 +271,34 @@ class ELLW:
             cols[rows, slot] = self.far_cols[far]
         return cols.astype(np.int32), vals
 
-    def device(self, dtype, device, row_major: bool = True,
-               sliced: bool = False, transposed: bool = False) -> DeviceELLW:
-        """Upload the forms asked for: the row-major ELL, the sliced ELL
-        (:func:`sliced_ell`) and/or the CSR of A^T
-        (:func:`transposed_csr`)."""
+    def device(self, dtype, device, sliced: bool = False,
+               transposed: bool = False) -> DeviceELLW:
+        """Upload the forms asked for: the sliced ELL (:func:`sliced_ell`)
+        and/or the CSR of A^T (:func:`transposed_csr`)."""
         cols, vals = self.to_ell()
-        idt = A.index_dtype(device)
-        out = DeviceELLW(self.n_rows, self.n_cols, self.C, self.K, self.NCH, self.Wr,
-                         cols=None, vals=None)
-        if row_major:
-            out.cols = torch.as_tensor(cols, dtype=idt, device=device)
-            out.vals = torch.as_tensor(vals, dtype=dtype, device=device)
+        out = DeviceELLW(self.n_rows, self.n_cols, self.C, self.K, self.NCH, self.Wr)
         if sliced:
-            ptr, scol, sval, out.nnz = sliced_ell(cols, vals, self.n_cols)
-            out.slot_ptr_host = ptr
-            out.slot_ptr = torch.as_tensor(ptr.astype(np.int32), device=device)
-            out.scol = torch.as_tensor(scol, dtype=idt, device=device)
-            out.sval = torch.as_tensor(sval, dtype=dtype, device=device)
+            _upload_sliced(out, cols, vals, dtype, device)
         if transposed:
             ptr, tcol, tval, out.tgroup = transposed_csr(cols, vals, self.n_cols)
             out.trow_ptr = torch.as_tensor(ptr.astype(np.int32), device=device)
-            out.tcol = torch.as_tensor(tcol, dtype=idt, device=device)
+            out.tcol = torch.as_tensor(tcol, dtype=A.index_dtype(device), device=device)
             out.tval = torch.as_tensor(tval, dtype=dtype, device=device)
         return out
 
-    def refill_arrays(self, dev: DeviceELLW):
-        """[(device tensor, host array)] that carry this layout's values
-        into ``dev``, a device form of a layout of the same shape (a
-        refreshed hierarchy): the row-major and sliced forms; the
+    def refill_arrays(self, dev: DeviceELLW, max_drop_frac: float = 0.0):
+        """``([(device tensor, host array)], dropped, dropped_frac)``: what
+        carries this layout's values into ``dev``, a device form of a
+        layout of the same shape (a refreshed hierarchy): the sliced form,
+        in its frozen slices (:func:`sliced_ell`: a refreshed nonzero
+        without a slot is dropped and counted, more than
+        ``max_drop_frac`` of the |A| mass raises ``ValueError``); the
         transposed form belongs to a transfer, frozen with its hierarchy,
-        and is never refilled.  Host numpy only; raises ``ValueError``
-        where the sliced form's frozen slices cannot hold a row."""
-        cols, vals = self.to_ell()
-        out = []
-        if dev.cols is not None:
-            out += [(dev.cols, cols), (dev.vals, vals)]
-        if dev.slot_ptr is not None:
-            _, scol, sval, _ = sliced_ell(cols, vals, self.n_cols, dev.slot_ptr_host)
-            out += [(dev.scol, scol), (dev.sval, sval)]
-        return out
+        and is never refilled.  Host numpy only."""
+        if dev.slot_ptr is None:
+            return [], 0, 0.0
+        s = sliced_ell(*self.to_ell(), self.n_cols, dev.slot_ptr_host, max_drop_frac)
+        return [(dev.scol, s.col), (dev.sval, s.val)], s.dropped, s.dropped_frac
 
 
 def _pad_pow2(k: int) -> int:
@@ -397,22 +437,65 @@ def build_ellw(A, Wr_cap: int = 128, far_frac_max: float = 0.10,
 
 
 # ---------------------------------------------------------------------------
+# the frozen dof -> cell coefficient maps of the step
+# ---------------------------------------------------------------------------
+def _ell_from_cells(weights, cells, n_dofs):
+    """Host ELL (cols, vals) of the dof -> cell map with per-slot
+    ``weights`` (nc, R, k): row (c, r) is sum_j weights[c, r, j] x[cells[c, j]].
+    Built through a scipy CSR (duplicates summed, columns sorted, zeros
+    dropped) — the matrix ``pallas_assembly.py::build_interp_ellw``
+    freezes; short rows are padded with value 0 at column 0."""
+    import scipy.sparse as sp
+
+    nc, R, k = weights.shape
+    rows = np.broadcast_to(np.arange(nc * R).reshape(nc, R, 1), weights.shape)
+    cols = np.broadcast_to(cells[:, None, :], weights.shape)
+    M = sp.coo_matrix(
+        (weights.ravel().astype(np.float64), (rows.ravel(), cols.ravel())),
+        shape=(nc * R, n_dofs),
+    ).tocsr()
+    M.eliminate_zeros()
+    nnz = np.diff(M.indptr)
+    Kw = max(int(nnz.max()) if len(nnz) else 1, 1)
+    r = np.repeat(np.arange(M.shape[0]), nnz)
+    pos = np.arange(M.nnz) - np.repeat(M.indptr[:-1], nnz)
+    ec = np.zeros((M.shape[0], Kw), np.int32)
+    ev = np.zeros((M.shape[0], Kw), np.float64)
+    ec[r, pos] = M.indices
+    ev[r, pos] = M.data
+    return ec, ev
+
+
+def _cell_map(weights, cells, n_dofs, dtype, device) -> DeviceELLW:
+    cols, vals = _ell_from_cells(weights, cells, n_dofs)
+    out = DeviceELLW(cols.shape[0], n_dofs, K=cols.shape[1])
+    return _upload_sliced(out, cols, vals, dtype, device)
+
+
+def cell_mean_ell(cells, n_dofs, dtype, device) -> DeviceELLW:
+    """The map kappa (n,) -> mean-vertex kappa per cell (nc,), in the
+    sliced form K4 reads, on ``device`` in ``dtype``."""
+    k = cells.shape[1]
+    return _cell_map(np.full((cells.shape[0], 1, k), 1.0 / k), cells, n_dofs, dtype,
+                     device)
+
+
+def cell_gradient_ell(cells, grads, n_dofs, dtype, device) -> DeviceELLW:
+    """The map phi (n,) -> grad(phi) per cell, rows (c, d) in (nc, dim)
+    order, in the sliced form K4 reads."""
+    w = np.swapaxes(np.asarray(grads, np.float64), 1, 2)  # (nc, dim, k)
+    return _cell_map(w, cells, n_dofs, dtype, device)
+
+
+# ---------------------------------------------------------------------------
 # applies on the device form
 # ---------------------------------------------------------------------------
-def _check_row_major(e: DeviceELLW, x: torch.Tensor):
-    A._check_value(x, "x")
-    if x.dim() != 1 or x.shape[0] != e.n_cols:
-        raise ValueError(f"x has shape {tuple(x.shape)}, expected ({e.n_cols},)")
-    if e.cols is None:
-        raise ValueError("this layout has no row-major form on the device")
-    A._check(e.cols, "cols", x, (e.n_rows, e.K), index=True)
-    A._check(e.vals, "vals", x, (e.n_rows, e.K))
-
-
-def _check_sliced(e: DeviceELLW, X: torch.Tensor):
-    A._check_value(X, "X")
-    if X.dim() != 2 or X.shape[1] != e.n_cols or 0 in X.shape:
-        raise ValueError(f"X has shape {tuple(X.shape)}, expected (B, n_cols) "
+def _check_sliced(e: DeviceELLW, X: torch.Tensor, batch: bool):
+    name = "X" if batch else "x"
+    A._check_value(X, name)
+    if X.dim() != (2 if batch else 1) or X.shape[-1] != e.n_cols or 0 in X.shape:
+        want = "(B, n_cols)" if batch else "(n_cols,)"
+        raise ValueError(f"{name} has shape {tuple(X.shape)}, expected {want} "
                          f"with n_cols = {e.n_cols}")
     if e.slot_ptr is None:
         raise ValueError("this layout has no sliced form on the device: "
@@ -445,18 +528,6 @@ def _transposed_rows(e: DeviceELLW) -> torch.Tensor:
     ptr = e.trow_ptr.long()
     return torch.repeat_interleave(torch.arange(e.n_cols, device=ptr.device),
                                    ptr[1:] - ptr[:-1])
-
-
-def ellw_matvec_plain(e: DeviceELLW, x):
-    return A.ell_matvec_plain(e.cols, e.vals, x)
-
-
-def ellw_matvec(e: DeviceELLW, x):
-    """K4.  y = A x; x (n_cols,) -> y (n_rows,).  The row-major device form
-    is plain ELL, so this is :func:`assembly.ell_matvec` and counts as its
-    launch."""
-    _check_row_major(e, x)
-    return A.ell_matvec(e.cols, e.vals, x)
 
 
 def ellw_rmatvec_plain(e: DeviceELLW, r):
@@ -496,6 +567,41 @@ def _sliced_rows(e: DeviceELLW) -> torch.Tensor:
     return slice_of * SLICE + torch.arange(int(ptr[-1]), device=ptr.device) % SLICE
 
 
+def ellw_matvec_plain(e: DeviceELLW, x):
+    return ellw_matvec_batch_plain(e, x[None])[0]
+
+
+def ellw_matvec(e: DeviceELLW, x):
+    """K4.  y = A x from the sliced form of A: y[r] = sum over the slots s
+    of row r of sval[s] x[scol[s]].  A is a multigrid level operator,
+    prolongator or A P product, or a frozen coefficient map of the step
+    (:func:`cell_mean_ell`, :func:`cell_gradient_ell`).
+
+    Replaces ``knpemi_tpu/ops/pallas_ell.py:_make_gather_kernel`` (via
+    ``ellw_matvec``), without its windows, bf16 passes or far-COO spill:
+    the GPU gathers exactly.  Bound on the H100: bytes — an index and a
+    value per nonzero, x read once, y written once (``csrc/mg.cu``); the
+    padding slots of the slices come on top.  Design: one thread per
+    row, one warp per 32-row slice: slot k of its rows is one coalesced
+    load of columns and one of values, eight slots in flight per thread,
+    x through the read-only path, one fused multiply-add per slot in
+    slot order, y stored once into ``torch.empty``: no atomics, no
+    memset, the same bits every launch.
+
+    x (n_cols,) -> y (n_rows,)."""
+    _check_sliced(e, x, batch=False)
+    if not x.is_cuda:
+        return ellw_matvec_plain(e, x)
+    y = torch.empty(e.n_rows, dtype=x.dtype, device=x.device)
+    A._launch("sliced_matvec", x, e.slot_ptr.data_ptr(), e.scol.data_ptr(),
+              e.sval.data_ptr(), x.data_ptr(), y.data_ptr(), e.n_rows)
+    ellw_matvec.launches += 1
+    return y
+
+
+ellw_matvec.launches = 0
+
+
 def ellw_matvec_batch_plain(e: DeviceELLW, X):
     rows = _sliced_rows(e)
     Y = torch.zeros(X.shape[0], (e.slot_ptr.shape[0] - 1) * SLICE, dtype=X.dtype,
@@ -517,7 +623,7 @@ def ellw_matvec_batch(e: DeviceELLW, X):
     read-only path; more than 8 vectors go through in groups of 8.
 
     X (B, n_cols) -> Y (B, n_rows)."""
-    _check_sliced(e, X)
+    _check_sliced(e, X, batch=True)
     if not X.is_cuda:
         return ellw_matvec_batch_plain(e, X)
     B = X.shape[0]
@@ -572,8 +678,9 @@ def ellw_rmatvec_batch(e: DeviceELLW, R):
 ellw_rmatvec_batch.launches = 0
 
 
-# (wrapper, plain version); ellw_matvec is K4 of ops/assembly.py
+# (wrapper, plain version) of this module's kernels
 KERNELS = {
+    "K4 ellw_matvec": (ellw_matvec, ellw_matvec_plain),
     "K5 ellw_rmatvec": (ellw_rmatvec, ellw_rmatvec_plain),
     "K6a ellw_matvec_batch": (ellw_matvec_batch, ellw_matvec_batch_plain),
     "K6b ellw_rmatvec_batch": (ellw_rmatvec_batch, ellw_rmatvec_batch_plain),

@@ -173,10 +173,10 @@ class Simulation:
         return t1
 
     # ------------------------------------------------------------------
-    def _hierarchy(self, A_hat, s, batched: bool = False):
+    def _hierarchy(self, A_hat, s):
         """Global RCM of the equilibrated operator, then the (cached) SA
-        build, uploaded to the device (``batched``: for a cycle on B
-        vectors at once); returns the host hierarchy and the DeviceMG."""
+        build, uploaded to the device; returns the host hierarchy and the
+        DeviceMG."""
         A_hat, s, perm = _global_rcm(A_hat, s)
         kw = {}
         if self.opts.mg_banded:
@@ -190,8 +190,7 @@ class Simulation:
         )
         hier.perm = perm
         band_dtype = torch.bfloat16 if self.opts.mg_band_bf16 else None
-        return hier, hier.device(self.dtype, self.device, band_dtype=band_dtype,
-                                 batched=batched)
+        return hier, hier.device(self.dtype, self.device, band_dtype=band_dtype)
 
     def _setup_emi_mg(self):
         """Lagged EMI hierarchy from the initial conductivity (host, once)."""
@@ -223,7 +222,7 @@ class Simulation:
             d = np.where(d != 0, d, 1.0)
             s = 1.0 / np.sqrt(np.abs(d))
             A_hat = (sp.diags(s) @ A0 @ sp.diags(s)).tocsr()
-            _, mg[t] = self._hierarchy(A_hat, s, batched=self.opts.knp_batched)
+            _, mg[t] = self._hierarchy(A_hat, s)
             mg[t].fine_diag = torch.as_tensor(d, dtype=self.dtype, device=self.device)
         self.knp_solver.mg = mg
 

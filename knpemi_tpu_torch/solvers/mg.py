@@ -499,14 +499,12 @@ class MGHierarchy:
     nu: int = 1
     perm: Optional[np.ndarray] = None
 
-    def device(self, dtype, device, band_dtype=None, batched: bool = False) -> "DeviceMG":
+    def device(self, dtype, device, band_dtype=None) -> "DeviceMG":
         """Upload to ``device`` in ``dtype``.  A windowed-ELL layout gets
-        the device forms its applies read: the transposed form (the CSR
-        of P^T that K5/K6b gather from) where the cycle restricts through
-        it; the row-major form where a single-vector cycle applies it
-        forward (K4); with ``batched`` (the cycle runs on B vectors at
-        once: the ion-batched KNP solve) the sliced form K6a reads
-        instead.  ``band_dtype`` is the STORAGE
+        the device forms its applies read: the sliced form (K4 on one
+        vector, K6a on B) where a cycle applies it forward, the
+        transposed form (the CSR of P^T that K5/K6b gather from) where it
+        restricts through it.  ``band_dtype`` is the STORAGE
         type of the fine-level smoothing slab's packed values
         (``torch.bfloat16`` halves their bytes; default ``dtype``): the
         kernel upcasts each value after the read and never rounds the
@@ -519,27 +517,23 @@ class MGHierarchy:
         np_dtype = np.float32 if dtype == torch.float32 else np.float64
         iperm = np.argsort(self.perm) if self.perm is not None else None
         dev_band = lambda band, slab_dt=None: _device_band(band, dtype, device, slab_dt)
-        # the forms each layout needs (row-major, sliced, transposed):
-        # p_ellw and pt_ellw are often one layout, applied forward and
-        # transposed
+        # the forms each layout needs (sliced, transposed): p_ellw and
+        # pt_ellw are often one layout, applied forward and transposed
         need = {}
         for lv in self.levels:
             for w in ("a", "ap", "p", "pt"):
                 e = getattr(lv, w + "_ellw")
                 if e is not None:
-                    rm, sl, tr = need.get(id(e), (False, False, False))
-                    fwd = w != "pt"
-                    need[id(e)] = (rm or (fwd and not batched), sl or (fwd and batched),
-                                   tr or not fwd)
+                    sl, tr = need.get(id(e), (False, False))
+                    need[id(e)] = (sl or w != "pt", tr or w == "pt")
         ellw_done = {}
 
         def dev_ellw(e):
             if e is None:
                 return None
             if id(e) not in ellw_done:
-                rm, sl, tr = need[id(e)]
-                ellw_done[id(e)] = e.device(dtype, device, row_major=rm, sliced=sl,
-                                            transposed=tr)
+                sl, tr = need[id(e)]
+                ellw_done[id(e)] = e.device(dtype, device, sliced=sl, transposed=tr)
             return ellw_done[id(e)]
 
         out = []
@@ -854,15 +848,18 @@ class DeviceMG:
         ``hier``, a refreshed copy of the host hierarchy it was uploaded
         from: ``([(device tensor, host array)], stats)``.  Host numpy only
         (safe on a worker thread): the diagonals, smoother weights, the
-        lagged operators' ELL, windowed-ELL (both device forms) and packed
-        band values, AP's, and the coarse factors; the transfers are
-        frozen, and with them the transposed forms K5/K6b read.  A packed
-        band window keeps the slots it was built with: a refreshed
-        nonzero without a slot is dropped and counted in
-        ``stats`` (``band_dropped``, ``band_dropped_frac`` of the level's
-        |A| mass), and more than ``max_drop_frac`` raises ``ValueError``."""
+        lagged operators' ELL, windowed-ELL (sliced form) and packed band
+        values, AP's, and the coarse factors; the transfers are frozen,
+        and with them the transposed forms K5/K6b read.  A packed band
+        window and a sliced form keep the slots they were built with: a
+        refreshed nonzero without a slot is dropped and counted in
+        ``stats`` (``band_dropped``, ``band_dropped_frac`` of the
+        window's |A| mass; ``ellw_dropped``, ``ellw_dropped_frac`` of the
+        layout's), and more than ``max_drop_frac`` raises
+        ``ValueError``."""
         iperm = None if hier.perm is None else np.argsort(hier.perm)
-        pairs, stats = [], dict(band_dropped=0, band_dropped_frac=0.0)
+        pairs, stats = [], dict(band_dropped=0, band_dropped_frac=0.0,
+                                ellw_dropped=0, ellw_dropped_frac=0.0)
         if len(hier.levels) != len(self.levels):
             raise ValueError("the refreshed hierarchy has another number of levels")
         for i, (lv, hl) in enumerate(zip(self.levels, hier.levels)):
@@ -893,7 +890,10 @@ class DeviceMG:
                               (band["far_vals"], far_vals)]
                 e = lv[w + "_ellw"]
                 if e is not None:
-                    pairs += getattr(hl, w + "_ellw").refill_arrays(e)
+                    ep, nd, frac = getattr(hl, w + "_ellw").refill_arrays(e, max_drop_frac)
+                    pairs += ep
+                    stats["ellw_dropped"] += nd
+                    stats["ellw_dropped_frac"] = max(stats["ellw_dropped_frac"], frac)
         pairs += [(self.coarse_V, hier.coarse_V), (self.coarse_ilam, hier.coarse_ilam)]
         for t, a in pairs:
             if tuple(t.shape) != tuple(np.shape(a)):
@@ -925,8 +925,8 @@ class DeviceMG:
                     for win in v["windows"]:
                         out += [win.slot_ptr, win.off, win.val, win.w0]
                 elif isinstance(v, ell_ops.DeviceELLW):
-                    out += [t for t in (v.cols, v.vals, v.slot_ptr, v.scol, v.sval,
-                                        v.trow_ptr, v.tcol, v.tval) if t is not None]
+                    out += [t for t in (v.slot_ptr, v.scol, v.sval, v.trow_ptr, v.tcol,
+                                        v.tval) if t is not None]
         return out
 
     def layout(self):

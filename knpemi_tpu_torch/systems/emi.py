@@ -10,7 +10,7 @@ all subdomains, coupled through the membrane facet terms,
 with kappa_s = F psi sum_k z_k^2 D_k c_k a P1 field of the previous
 concentrations.  Each subdomain's stiffness is an assembled P1 operator
 (:class:`ops.p1op.P1Operator`, shared with the KNP system).  Per solve,
-K4 (:func:`ops.assembly.ell_matvec`) forms the per-cell mean-vertex
+K4 (:func:`ops.ell.ellw_matvec`) forms the per-cell mean-vertex
 kappa and K1f (:func:`ops.p1op.emi_fill`) fills the operator's values;
 per matvec, K1 (:func:`ops.p1op.emi_stiffness`) applies them and K2
 (:func:`ops.p1op.surface_mass`) the membrane surface mass C_phi M_Gamma
@@ -28,7 +28,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from ..ops import assembly as A
+from ..ops import ell as E
 from ..ops import p1op as P
 from ..ops.geometry import DiscreteGeometry
 from ..solvers import direct
@@ -53,18 +53,16 @@ class EMISystem:
         self.tags = geom.sub_tags
         self.offsets = geom.emi_offsets()
         self.n = geom.emi_size
-        idt = A.index_dtype(device)
         as_f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-        as_i = lambda a, dt=idt: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
 
         self.sub = {}
         for t, s in geom.subdomains.items():
-            kc, kv = A.cell_mean_ell(s.cells, s.n_dofs)
             op = p1ops[t]
             self.sub[t] = dict(
                 n_dofs=s.n_dofs, op=op, grads=as_f(s.grads),
-                vols=as_f(s.vols), kbar_cols=as_i(kc),
-                kbar_vals=as_f(kv),
+                vols=as_f(s.vols),
+                # K4's map kappa -> mean-vertex kappa per cell
+                kbar=E.cell_mean_ell(s.cells, s.n_dofs, dtype, device),
                 # the right-hand side's unit-weight stiffness on the pattern
                 kst=as_f(op.assemble(direct._stiffness_coo(s.cells, s.grads, s.vols)[2])[0]),
             )
@@ -78,7 +76,7 @@ class EMISystem:
                 n_mem=sp.n_dofs, cell_tag=sp.cell_tag, op=memops[m],
                 # K2's values: the surface mass M_Gamma on the membrane's operator
                 M=P.mass_values(memops[m], sp.facet_dofs, sp.areas, dtype),
-                flat_idx=as_i(flat_idx, torch.int64),
+                flat_idx=torch.as_tensor(flat_idx, dtype=torch.int64, device=device),
             )
         self.nullvec = torch.full((self.n,), 1.0 / np.sqrt(self.n),
                                   dtype=dtype, device=device)
@@ -112,7 +110,7 @@ class EMISystem:
         vals = {}
         for t in self.tags:
             s = self.sub[t]
-            kbar = A.ell_matvec(s["kbar_cols"], s["kbar_vals"], kappa[t].contiguous())
+            kbar = E.ellw_matvec(s["kbar"], kappa[t].contiguous())
             vals[t] = P.emi_fill(s["op"], s["grads"], s["vols"] * kbar)
         return {"kappa": kappa, "vals": vals}
 

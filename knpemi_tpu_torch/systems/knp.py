@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops import assembly as A
+from ..ops import ell as E
 from ..ops import kernels as K
 from ..ops import p1op as P
 from ..ops import quadrature as quad
@@ -81,9 +82,8 @@ class KNPSystem:
         self.tags = geom.sub_tags
         self.n_solved = len(ions) - 1
         self.dim = geom.dim
-        idt = A.index_dtype(device)
         as_f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
-        as_i = lambda a, dt=idt: torch.as_tensor(np.asarray(a), dtype=dt, device=device)
+        as_i = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
 
         Ns, dt, psi = self.n_solved, params.dt, params.psi
         self.z_solved = as_f([ion.z for ion in ions[:-1]])
@@ -92,13 +92,13 @@ class KNPSystem:
         self.D_all = {t: as_f([ion.D[t] for ion in ions]) for t in self.tags}
         self.sub = {}
         for t, s in geom.subdomains.items():
-            gc, gv = A.cell_gradient_ell(s.cells, s.grads, s.n_dofs)
             D_t = [ion.D[t] for ion in ions[:-1]]
             op = p1ops[t]
             self.sub[t] = dict(
                 n_dofs=s.n_dofs, n_cells=s.n_cells, op=op, cells=op.cells,
                 grads=as_f(s.grads), vols=as_f(s.vols),
-                grad_cols=as_i(gc), grad_vals=as_f(gv),
+                # K4's map phi -> grad(phi) per cell
+                grad=E.cell_gradient_ell(s.cells, s.grads, s.n_dofs, dtype, device),
                 # K3's value streams: the unit mass and the unit stiffness
                 M=P.mass_values(op, s.cells, s.vols, dtype),
                 kst=kst[t],
@@ -113,8 +113,7 @@ class KNPSystem:
             self.mem[m] = dict(
                 # op.cells: the facets' dofs, K9's index map
                 n_mem=sp.n_dofs, cell_tag=sp.cell_tag, op=memops[m], areas=as_f(sp.areas),
-                mem_to_ecs=as_i(sp.mem_to_ecs, torch.int64),
-                mem_to_ics=as_i(sp.mem_to_ics, torch.int64),
+                mem_to_ecs=as_i(sp.mem_to_ecs), mem_to_ics=as_i(sp.mem_to_ics),
             )
         # {tag: [P_b per solved ion]} on the subdomain's P1 operator
         self.ion_vals = {
@@ -153,7 +152,7 @@ class KNPSystem:
     def gradphi_cells(self, phi: Dict[int, torch.Tensor]) -> Dict[int, torch.Tensor]:
         """Per-tag drift context: grad(phi) per cell, (n_cells, dim), by K4."""
         return {
-            t: A.ell_matvec(s["grad_cols"], s["grad_vals"], phi[t].contiguous())
+            t: E.ellw_matvec(s["grad"], phi[t].contiguous())
             .reshape(s["n_cells"], self.dim)
             for t, s in self.sub.items()
         }

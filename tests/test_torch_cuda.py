@@ -3,8 +3,10 @@
 Skipped where there is no CUDA device (the CPU test machines); on the
 GPU run ``python -m pytest tests/test_torch_cuda.py -q --noconftest``.  Tolerances:
 the kernels sum with fused multiply-adds or in another order than the
-plain versions: 1e-5 max|y| in float32, 1e-12 max|y| in float64.  K7/K8 run on the packed band windows (``ops/banded.py``), K6a
-on the sliced form of a windowed-ELL layout (``ops/ell.py``); K1, K3 and
+plain versions: 1e-5 max|y| in float32, 1e-12 max|y| in float64.  K7/K8
+run on the packed band windows (``ops/banded.py``), K4 and K6a on the
+sliced form of a windowed-ELL layout or coefficient map
+(``ops/ell.py``); K9 is a copy, bitwise equal to its plain version; K1, K3 and
 K11 apply a subdomain's assembled P1 operator (``ops/p1op.py``), whose
 per-solve values K1f and K11f fill row by row from its incidence list;
 K5/K6b gather from the transposed form of a transfer layout; K2 applies
@@ -68,7 +70,7 @@ def test_kernels_match_plain_on_cuda(sim, sim_banded, sim_astro, dtype):
     import chip_smoke
 
     rows = chip_smoke.check_kernels(sim, dtype, time_them=False)
-    assert len(rows) == 7
+    assert len(rows) == 8  # K9 twice: nf k a multiple of 4 or not
     rows = chip_smoke.check_k11(sim, dtype, time_them=False, phi_scale=1e-3)
     rows += chip_smoke.check_k11(sim_astro, dtype, time_them=False, phi_scale=1.0)
     names = [r["name"] for r in rows]
@@ -77,7 +79,7 @@ def test_kernels_match_plain_on_cuda(sim, sim_banded, sim_astro, dtype):
     assert {r["name"].split()[0] for r in rows} == {"K4", "K5", "K6a", "K6b", "K7", "K8"}
     # every kernel of the batched step on each subdomain and membrane
     rows = chip_smoke.check_all_operators(sim_astro, dtype, time_them=False)
-    assert len(rows) == 3 * 4 + 3 * 2
+    assert len(rows) == 3 * 4 + 2 * 4
 
 
 def test_step_launches_every_kernel(sim):
@@ -425,7 +427,7 @@ def test_restriction_matches_plain_on_every_transfer_layout(sims_res2, dtype):
         cases = chip_smoke.restrict_cases(layouts, dtype, (None, 1, 2, 3, 8), timed=False)
         rows = chip_smoke.check_cases(cases, dtype, time_them=False)
         assert len(rows) == 5 * len(layouts) and all(r["deterministic"] for r in rows)
-        assert all(r["shape"]["G"] in (4, 8, 16, 32) and not r["shape"]["row_major_kept"]
+        assert all(r["shape"]["G"] in (4, 8, 16, 32)
                    for r in rows if r["shape"]["source"].startswith("KNP"))
     assert total > 0
 
@@ -463,3 +465,152 @@ def test_restriction_raises_rather_than_fall_back():
     assert torch.equal(Y, TE.ellw_rmatvec_batch(e, R))
     Ys = torch.as_tensor((P.T @ R.double().cpu().numpy().T).T)
     assert float((Y.double().cpu() - Ys).abs().max()) <= 1e-5 * float(Ys.abs().max())
+
+
+def _ragged_sliced(n_rows, n_cols, dtype, seed):
+    """A sliced form with a row count that is not a multiple of 32, an
+    empty row (from 2 rows), a slice of width 0 (from 64 rows) and a
+    last row longer than eight slots, and its scipy matrix."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    M = sp.random(n_rows, n_cols, density=0.05, random_state=seed, format="lil")
+    M[n_rows // 2, :] = 0.0
+    if n_rows >= 64:
+        M[32:64, :] = 0.0
+    M[n_rows - 1, : min(n_cols, 40)] = 1.0
+    M = M.tocsr()
+    M.eliminate_zeros()
+    nnz = np.diff(M.indptr)
+    K = max(int(nnz.max()), 1)
+    cols = np.zeros((n_rows, K), np.int32)
+    vals = np.zeros((n_rows, K))
+    r = np.repeat(np.arange(n_rows), nnz)
+    pos = np.arange(M.nnz) - np.repeat(M.indptr[:-1], nnz)
+    cols[r, pos], vals[r, pos] = M.indices, M.data
+    e = TE._upload_sliced(TE.DeviceELLW(n_rows, n_cols, K=K), cols, vals, dtype, "cuda")
+    return e, M
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n_rows", [1, 31, 70, 1000, 4097])
+def test_k4_matches_plain_on_ragged_slices(n_rows, dtype):
+    """K4 on a row count that is not a multiple of 32, with empty rows, a
+    slice of width 0 and a row longer than eight slots in flight: against
+    the plain version (1e-5 / 1e-13 of max|y|) and scipy, one launch each,
+    the same bits on a second launch; an empty row gives an exact 0 (one
+    row: that row is the long one)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    n_cols = 300
+    e, M = _ragged_sliced(n_rows, n_cols, dtype, n_rows)
+    if n_rows >= 64:
+        assert int(e.slot_ptr_host[2] - e.slot_ptr_host[1]) == 0
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}[dtype]
+    x = torch.as_tensor(np.random.default_rng(n_rows).standard_normal(n_cols), dtype=dtype,
+                        device="cuda")
+    before = TE.ellw_matvec.launches
+    y, y_ref = TE.ellw_matvec(e, x), TE.ellw_matvec_plain(e, x)
+    torch.cuda.synchronize()
+    assert TE.ellw_matvec.launches == before + 1
+    scale = float(y_ref.abs().max())
+    assert float((y - y_ref).abs().max()) <= tol * scale
+    ys = torch.as_tensor(M @ x.double().cpu().numpy())
+    assert float((y.double().cpu() - ys).abs().max()) <= 10 * tol * scale
+    if n_rows > 1:
+        assert float(y[n_rows // 2]) == 0.0
+    assert torch.equal(TE.ellw_matvec(e, x), y)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_k4_matches_plain_on_the_coefficient_maps(sim_astro, dtype):
+    """K4 on both frozen coefficient maps of every tissue subdomain."""
+    from knpemi_tpu_torch.ops import ell as TE
+
+    tol = {torch.float32: 1e-5, torch.float64: 1e-13}[dtype]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for t in sorted(sim_astro.knp_sys.sub):
+        for m in (sim_astro.emi_sys.sub[t]["kbar"], sim_astro.knp_sys.sub[t]["grad"]):
+            m = TE.DeviceELLW(m.n_rows, m.n_cols, K=m.K, slot_ptr=m.slot_ptr, scol=m.scol,
+                              sval=m.sval.to(dtype), nnz=m.nnz)
+            x = torch.randn(m.n_cols, generator=g, device="cuda", dtype=dtype)
+            y, y_ref = TE.ellw_matvec(m, x), TE.ellw_matvec_plain(m, x)
+            torch.cuda.synchronize()
+            assert float((y - y_ref).abs().max()) <= tol * float(y_ref.abs().max())
+            assert torch.equal(TE.ellw_matvec(m, x), y)
+
+
+def test_k4_raises_rather_than_fall_back():
+    """On the card K4 refuses a layout without its sliced form, int64
+    columns, a CPU vector or one of the wrong length or dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    e, _ = _ragged_sliced(70, 300, torch.float32, 0)
+    x = torch.ones(300, device="cuda")
+    before = TE.ellw_matvec.launches
+    with pytest.raises(ValueError):
+        TE.ellw_matvec(dataclasses.replace(e, slot_ptr=None), x)
+    with pytest.raises(TypeError):
+        TE.ellw_matvec(dataclasses.replace(e, scol=e.scol.long()), x)
+    with pytest.raises(ValueError):
+        TE.ellw_matvec(e, x.cpu())
+    with pytest.raises(ValueError):
+        TE.ellw_matvec(e, x[:-1])
+    with pytest.raises(TypeError):
+        TE.ellw_matvec(e, x.double())
+    assert TE.ellw_matvec.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("F", [1, 11])
+@pytest.mark.parametrize("k, nf", [(2, 1000), (2, 999), (3, 1000), (3, 999), (3, 1001)])
+@pytest.mark.parametrize("offset", [False, True], ids=["aligned", "offset"])
+def test_k9_is_bitwise_its_plain_version(k, nf, F, dtype, offset):
+    """K9 at F = 1 and 11 channels, k = 2 and 3 (nf k mod 4 in {0, 2} and
+    {0, 1, 3}), with X and the facet map as aligned tensors and as views
+    one element into their storage: the same bits as the plain gather."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from knpemi_tpu_torch.ops import assembly as A
+
+    g = torch.Generator(device="cuda").manual_seed(nf + k)
+    n_mem = 777
+    o = 1 if offset else 0
+    X = torch.randn(F * n_mem + o, generator=g, device="cuda", dtype=dtype)[o:].view(F, n_mem)
+    fd = torch.randint(0, n_mem, (nf * k + o,), generator=g, device="cuda",
+                       dtype=torch.int32)[o:].view(nf, k)
+    assert (X.data_ptr() % 16 != 0) == offset and (fd.data_ptr() % 16 != 0) == offset
+    before = A.facet_gather.launches
+    G = A.facet_gather(X, fd)
+    torch.cuda.synchronize()
+    assert A.facet_gather.launches == before + 1 and G.shape == (F, nf, k)
+    assert torch.equal(G, A.facet_gather_plain(X, fd))
+
+
+def test_k9_raises_rather_than_fall_back():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from knpemi_tpu_torch.ops import assembly as A
+
+    X = torch.ones(3, 50, device="cuda")
+    fd = torch.zeros(20, 3, dtype=torch.int32, device="cuda")
+    before = A.facet_gather.launches
+    with pytest.raises(TypeError):
+        A.facet_gather(X, fd.long())
+    with pytest.raises(ValueError):
+        A.facet_gather(X, fd.cpu())
+    with pytest.raises(TypeError):
+        A.facet_gather(X.half(), fd)
+    with pytest.raises(ValueError):
+        A.facet_gather(X.t(), fd)
+    assert A.facet_gather.launches == before

@@ -34,6 +34,7 @@ from knpemi_tpu.ops import pallas_assembly as PA
 from knpemi_tpu.ops.geometry import build_geometry
 
 from knpemi_tpu_torch.ops import assembly as A
+from knpemi_tpu_torch.ops import ell as E
 from knpemi_tpu_torch.ops import p1op as P
 from knpemi_tpu_torch.solvers import direct as D
 
@@ -171,8 +172,8 @@ def test_fill_then_k1_vs_pallas(mesh):
         prep = PA.prepare_emi_weight(jnp.asarray(kap, jnp.float32), bk, v32)
         y_jax = PA.emi_stiffness_blocked(jnp.asarray(x, jnp.float32), prep, bk, g32,
                                          interpret=True)
-        kc, kv = A.cell_mean_ell(sub.cells, sub.n_dofs)
-        wv = t(sub.vols, f32) * A.ell_matvec(t(kc, torch.int32), t(kv, f32), t(kap, f32))
+        kbar = E.cell_mean_ell(sub.cells, sub.n_dofs, f32, "cpu")
+        wv = t(sub.vols, f32) * E.ellw_matvec(kbar, t(kap, f32))
         V = P.emi_fill(op, t(sub.grads, f32), wv)
         close(P.emi_stiffness_plain(t(x, f32), op, V), y_jax, TOL32)
 
@@ -195,9 +196,8 @@ def test_fill_then_k3_vs_pallas(mesh):
         Y_jax = PA.knp_apply_blocked_batch(
             jnp.asarray(X, jnp.float32), bk, g32, v32, drift, dt_inv,
             jnp.asarray(Dc, jnp.float32), jnp.asarray(z, jnp.float32), psi, interpret=True)
-        gc, gv = A.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs)
-        w = A.ell_matvec(t(gc, torch.int32), t(gv, f32), t(phi, f32)).reshape(
-            sub.n_cells, geom.dim)
+        grad = E.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs, f32, "cpu")
+        w = E.ellw_matvec(grad, t(phi, f32)).reshape(sub.n_cells, geom.dim)
         Dr = P.drift_fill(op, t(sub.grads, f32), t(sub.vols, f32), w)
         M = P.mass_values(op, sub.cells, sub.vols, f32)
         Kst = t(op.assemble(D._stiffness_coo(sub.cells, sub.grads, sub.vols)[2])[0], f32)

@@ -206,6 +206,40 @@ def test_k3_and_k6a_are_the_sliced_applies():
         assert ast.unparse(guard.test) == "not X.is_cuda"
 
 
+def test_k4_is_the_sliced_gather_and_k9_the_vectorised_copy():
+    """K4 has one kernel, on the sliced form (mg.cu), and one wrapper; the
+    row-major ELL kernel and form are gone from the port, and
+    ``DeviceELLW`` holds no row-major form.  K9 reads its index map with
+    16-byte loads, stores 16 bytes a channel and divides nothing; each
+    wrapper reaches its plain version only under ``if not x.is_cuda:``
+    (``X`` for K9)."""
+    import dataclasses
+
+    from knpemi_tpu_torch.ops import assembly, ell
+
+    srcs = {p.name: p.read_text() for p in (PORT / "ops" / "csrc").glob("*.cu")}
+    py = "".join(p.read_text() for p in PORT.rglob("*.py"))
+    for text in (*srcs.values(), py):
+        assert "ell_matvec_kernel" not in text and "row_major" not in text
+    assert assembly._SIGS["sliced_matvec"][:2] == ("mg", "knp_sliced_matvec")
+    assert "ell_matvec" not in assembly._SIGS
+    assert {f.name for f in dataclasses.fields(ell.DeviceELLW)}.isdisjoint({"cols", "vals"})
+    assert re.search(r"__global__ void __launch_bounds__\(kThreads\)\s+sliced_matvec_kernel\(",
+                     srcs["mg.cu"])
+    fac = srcs["facets.cu"]
+    body = fac[fac.index("facet_gather_kernel("):fac.index("int facet_gather_t(")]
+    assert "int4" in body and "float4" in fac and "double2" in fac
+    assert "/" not in body.replace("//", "") and "%" not in body
+    for mod, name, arg in ((ell, "ellw_matvec", "x"), (assembly, "facet_gather", "X")):
+        tree = ast.parse(Path(mod.__file__).read_text())
+        fn = next(n for n in ast.walk(tree)
+                  if isinstance(n, ast.FunctionDef) and n.name == name)
+        guard = next(n for n in ast.walk(fn) if isinstance(n, ast.If)
+                     and any(isinstance(c, ast.Call) and getattr(c.func, "id", "") ==
+                             name + "_plain" for c in ast.walk(n)))
+        assert ast.unparse(guard.test) == f"not {arg}.is_cuda"
+
+
 @pytest.mark.parametrize("module", ["ell", "banded", "assembly", "p1op"])
 def test_kernel_wrappers_call_no_library_product_and_never_fall_back(module):
     """On CUDA a wrapper launches or raises: outside its ``_plain`` twins a

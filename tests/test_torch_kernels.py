@@ -1,7 +1,8 @@
 """The port's assembly kernel functions against the JAX package's.
 
-For each kernel of ``knpemi_tpu_torch/ops/assembly.py`` (K10 on the
-membrane's P1 operator), and K1, K2 and K3 of ``ops/p1op.py`` (the EMI
+For each kernel of ``knpemi_tpu_torch/ops/assembly.py`` (K9, and K10 on
+the membrane's P1 operator), K4 of ``ops/ell.py`` on the coefficient
+maps, and K1, K2 and K3 of ``ops/p1op.py`` (the EMI
 stiffness, the membrane surface mass and the ion-batched KNP operator
 as an assembled P1 operator: K1 the values K1f fills, K2 the surface
 mass summed at setup, K3 the unit mass, the unit stiffness and the
@@ -32,6 +33,7 @@ from knpemi_tpu.ops.pallas_ell import ellw_matvec
 
 from knpemi_tpu_torch import ops
 from knpemi_tpu_torch.ops import assembly as A
+from knpemi_tpu_torch.ops import ell as E
 from knpemi_tpu_torch.ops import p1op as P
 from knpemi_tpu_torch.solvers import direct
 
@@ -131,8 +133,8 @@ def test_k1_emi_stiffness_vs_pallas(mesh):
         prep = PA.prepare_emi_weight(jnp.asarray(kap, jnp.float32), bk, v32)
         y_jax = PA.emi_stiffness_blocked(jnp.asarray(x, jnp.float32), prep, bk,
                                          g32, interpret=True)
-        kc, kv = A.cell_mean_ell(sub.cells, sub.n_dofs)
-        wv = t(sub.vols) * A.ell_matvec(ti(kc), t(kv), t(kap))
+        kbar = E.cell_mean_ell(sub.cells, sub.n_dofs, torch.float32, "cpu")
+        wv = t(sub.vols) * E.ellw_matvec(kbar, t(kap))
         close(k1(t(x), sub, wv), y_jax, TOL32)
 
 
@@ -165,8 +167,8 @@ def _k3_vs_pallas(mesh, B, mass_only):
             jnp.asarray(X, jnp.float32), bk, g32, v32, drift, dt_inv,
             jnp.asarray(D, jnp.float32), jnp.asarray(z, jnp.float32), psi,
             interpret=True)
-        gc, gv = A.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs)
-        w = A.ell_matvec(ti(gc), t(gv), t(phi)).reshape(sub.n_cells, geom.dim)
+        grad = E.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs, torch.float32, "cpu")
+        w = E.ellw_matvec(grad, t(phi)).reshape(sub.n_cells, geom.dim)
         coef = t(np.stack([np.full(B, dt_inv), D, z * psi * D], axis=1))
         Y = k3(t(X), sub, w, coef, mass_only)
         for b in range(B):
@@ -233,8 +235,8 @@ def test_k4_ell_matvec_vs_pallas(mesh):
         kbar_jax = np.asarray(ellw_matvec(
             kbar_e.device(jnp.float32), jnp.asarray(kap, jnp.float32), True
         )).reshape(bk.n_blocks, bk.n_chunks, bk.C)[b, h, c]
-        kc, kv = A.cell_mean_ell(sub.cells, sub.n_dofs)
-        kbar = A.ell_matvec(ti(kc), t(kv), t(kap)).numpy()[cell]
+        kmap = E.cell_mean_ell(sub.cells, sub.n_dofs, torch.float32, "cpu")
+        kbar = E.ellw_matvec(kmap, t(kap)).numpy()[cell]
         close(kbar, kbar_jax, TOL32)
 
         drift_e = PA.build_interp_ellw(bk, bk.grads_lane.reshape(
@@ -242,8 +244,8 @@ def test_k4_ell_matvec_vs_pallas(mesh):
         w_jax = np.asarray(ellw_matvec(
             drift_e.device(jnp.float32), jnp.asarray(phi, jnp.float32), True
         )).reshape(bk.n_blocks, bk.n_chunks, bk.dim, bk.C)[b, h, :, c]
-        gc, gv = A.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs)
-        w = A.ell_matvec(ti(gc), t(gv), t(phi)).reshape(sub.n_cells, -1).numpy()
+        grad = E.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs, torch.float32, "cpu")
+        w = E.ellw_matvec(grad, t(phi)).reshape(sub.n_cells, -1).numpy()
         close(w[cell], w_jax, TOL32)
 
 
@@ -291,18 +293,18 @@ def _f64_case(kernel, geom):
         cells, n = sub.cells, sub.n_dofs
         x, kap, phi = rng.standard_normal(n), rng.uniform(1, 2, n), rng.standard_normal(n)
         if kernel == "K1":
-            kc, kv = A.cell_mean_ell(cells, n)
-            wv = f64(sub.vols) * A.ell_matvec(ti(kc), f64(kv), f64(kap))
+            kmap = E.cell_mean_ell(cells, n, torch.float64, "cpu")
+            wv = f64(sub.vols) * E.ellw_matvec(kmap, f64(kap))
             y = k1(f64(x), sub, wv)
             y_ref = JK.stiffness_apply(n, J(x), Ji(cells), J(sub.grads), J(sub.vols),
                                        coef_vertex=J(kap))
             return [(y, y_ref)]
-        gc, gv = A.cell_gradient_ell(cells, sub.grads, n)
-        w = A.ell_matvec(ti(gc), f64(gv), f64(phi)).reshape(sub.n_cells, -1)
+        grad = E.cell_gradient_ell(cells, sub.grads, n, torch.float64, "cpu")
+        w = E.ellw_matvec(grad, f64(phi)).reshape(sub.n_cells, -1)
         w_ref = JK.cell_gradients(J(phi), Ji(cells), J(sub.grads))
         if kernel == "K4":
-            kc, kv = A.cell_mean_ell(cells, n)
-            kbar = A.ell_matvec(ti(kc), f64(kv), f64(kap))
+            kmap = E.cell_mean_ell(cells, n, torch.float64, "cpu")
+            kbar = E.ellw_matvec(kmap, f64(kap))
             return [(w, w_ref), (kbar, J(kap)[Ji(cells)].mean(axis=1))]
         return _k3_f64(rng, sub, w, w_ref, 2, mass_only=False)
     sp = geom.membranes[1]
@@ -348,8 +350,8 @@ def test_k3_batch_sizes_f64_vs_xla(mesh, B, mass_only):
     rng = np.random.default_rng(9)
     for tag, sub in geom.subdomains.items():
         phi = rng.standard_normal(sub.n_dofs)
-        gc, gv = A.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs)
-        w = A.ell_matvec(ti(gc), t(gv, torch.float64), t(phi, torch.float64))
+        grad = E.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs, torch.float64, "cpu")
+        w = E.ellw_matvec(grad, t(phi, torch.float64))
         w_ref = JK.cell_gradients(jnp.asarray(phi), jnp.asarray(sub.cells),
                                   jnp.asarray(sub.grads))
         for y, y_ref in _k3_f64(rng, sub, w.reshape(sub.n_cells, -1), w_ref, B, mass_only):

@@ -285,16 +285,16 @@ def test_ellw_device_form_is_the_matrix():
 
 @pytest.mark.parametrize("case", list(ELL_CASES))
 def test_sliced_form_is_the_row_major_matrix(case):
-    """K6a's sliced form (32-row slices, slot-major, far entries folded in
-    as in the row-major form) stores exactly the matrix of the row-major
-    ELL and of A, in no more slots than the row-major form; its slices
+    """The sliced form K4 and K6a read (32-row slices, slot-major, far
+    entries folded in as in the row-major ELL of ``to_ell``) stores
+    exactly the matrix of that ELL and of A, in no more slots; its slices
     are as wide as their longest row, slot k of a row at
     slot_ptr[r // 32] + 32 k + r % 32."""
     make, kw = ELL_CASES[case]
     A = make()
     host = TE.build_ellw(A, **kw)
     e = host.device(torch.float64, "cpu", sliced=True)
-    assert e.cols is not None and e.slot_ptr.dtype == torch.int32
+    assert e.slot_ptr.dtype == torch.int32 and e.trow_ptr is None
     keep = e.sval != 0
     rows = TE._sliced_rows(e)[keep].numpy()
     back = sp.coo_matrix((e.sval[keep].numpy(), (rows, e.scol[keep].numpy())),
@@ -317,7 +317,9 @@ def test_sliced_refill_keeps_its_shape_or_refuses():
     host = TE.build_ellw(A, **kw)
     e = host.device(torch.float64, "cpu", sliced=True)
     new = TE.build_ellw(2.0 * A, force_shape=(host.C, host.K, host.Wr, host.G, host.far_cap))
-    pairs = dict((id(t), a) for t, a in new.refill_arrays(e))
+    pairs, dropped, frac = new.refill_arrays(e)
+    assert (dropped, frac) == (0, 0.0)
+    pairs = dict((id(t), a) for t, a in pairs)
     assert np.array_equal(pairs[id(e.sval)], 2.0 * e.sval.numpy())
     assert np.array_equal(pairs[id(e.scol)], e.scol.numpy())
     wide = A.tolil()
@@ -518,7 +520,7 @@ def test_device_band_holds_no_dense_slab():
 @pytest.mark.parametrize("all_ellw", [False, True], ids=["banded", "all_ellw"])
 def test_banded_vcycle_equals_jax(monkeypatch, all_ellw, batch):
     A, hj, ht = _hierarchies(monkeypatch, all_ellw)
-    dj, dt = hj.device(jnp.float64), ht.device(torch.float64, "cpu", batched=batch)
+    dj, dt = hj.device(jnp.float64), ht.device(torch.float64, "cpu")
     want = "ellw" if all_ellw else "band"
     assert all(lv[w] == want for lv in dt.layout() for w in ("A", "P", "Pt"))
     R = np.random.default_rng(22).standard_normal((3, A.shape[0]))
@@ -536,7 +538,7 @@ def test_banded_vcycle_equals_jax(monkeypatch, all_ellw, batch):
 @pytest.mark.parametrize("all_ellw", [False, True], ids=["banded", "all_ellw"])
 def test_fused_post_smooth_equals_unfused(monkeypatch, all_ellw, batch):
     A, _, ht = _hierarchies(monkeypatch, all_ellw)
-    fused = ht.device(torch.float64, "cpu", batched=batch)
+    fused = ht.device(torch.float64, "cpu")
     assert any(lv["AP"] is not None for lv in fused.layout())
     plain = tmg.DeviceMG(
         [dict(lv, ap_band=None, ap_ellw=None) for lv in fused.levels],

@@ -33,6 +33,7 @@ from knpemi_tpu.solvers.gmres import gmres as jgmres
 
 from knpemi_tpu_torch import ops
 from knpemi_tpu_torch.ops import assembly as A
+from knpemi_tpu_torch.ops import ell as E
 from knpemi_tpu_torch.ops import p1op as P
 from knpemi_tpu_torch.sim import SolverOptions, build_idealized
 from knpemi_tpu_torch.solvers import direct
@@ -56,10 +57,6 @@ def geometry(name):
 
 def t(a, dtype=torch.float32):
     return torch.as_tensor(np.asarray(a), dtype=dtype)
-
-
-def ti(a):
-    return torch.as_tensor(np.asarray(a), dtype=torch.int32)
 
 
 def k11(x, sub, w, dt_inv, D, zpsiD):
@@ -97,8 +94,8 @@ def test_k11_knp_apply_vs_pallas(mesh):
         g32 = jnp.asarray(bk.grads_lane, jnp.float32)
         v32 = jnp.asarray(bk.vols_lane, jnp.float32)
         drift = PA.prepare_knp_drift(jnp.asarray(phi, jnp.float32), bk, g32)
-        gc, gv = A.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs)
-        w = A.ell_matvec(ti(gc), t(gv), t(phi)).reshape(sub.n_cells, geom.dim)
+        grad = E.cell_gradient_ell(sub.cells, sub.grads, sub.n_dofs, torch.float32, "cpu")
+        w = E.ellw_matvec(grad, t(phi)).reshape(sub.n_cells, geom.dim)
         for dt_inv, D, zpsiD in SCALARS:
             y_jax = PA.knp_apply_blocked(jnp.asarray(x, jnp.float32), bk, g32, v32,
                                          drift, dt_inv, D, zpsiD, interpret=True)
@@ -116,8 +113,8 @@ def test_k11_knp_apply_f64_vs_xla_one_matvec(mesh):
         rng = np.random.default_rng(3 + tag)
         n, cells = sub.n_dofs, jnp.asarray(sub.cells)
         x, phi = rng.standard_normal(n), rng.standard_normal(n)
-        gc, gv = A.cell_gradient_ell(sub.cells, sub.grads, n)
-        w = A.ell_matvec(ti(gc), f64(gv), f64(phi)).reshape(sub.n_cells, -1)
+        grad = E.cell_gradient_ell(sub.cells, sub.grads, n, torch.float64, "cpu")
+        w = E.ellw_matvec(grad, f64(phi)).reshape(sub.n_cells, -1)
         w_ref = JK.cell_gradients(J(phi), cells, J(sub.grads))
         for dt_inv, D, zpsiD in SCALARS:
             y = k11(f64(x), sub, w, dt_inv, D, zpsiD)

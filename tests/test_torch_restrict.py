@@ -50,8 +50,8 @@ def test_transposed_form_is_scipy_transpose(case):
     host = TE.build_ellw(A, **kw)
     if case == "spill":
         assert host.far_cap > 0
-    e = host.device(torch.float64, "cpu", row_major=False, transposed=True)
-    assert e.cols is None and e.slot_ptr is None
+    e = host.device(torch.float64, "cpu", transposed=True)
+    assert e.slot_ptr is None
     At = A.T.tocsr()
     At.sort_indices()
     assert e.trow_ptr.dtype == torch.int32
@@ -81,15 +81,15 @@ def test_transposed_build_refuses_more_than_int32_entries(monkeypatch):
 
 
 def test_value_refill_leaves_the_transposed_form_alone():
-    """ELLW.refill_arrays carries a refreshed layout's row-major and sliced
-    values, never the transposed form: a transfer is frozen."""
+    """ELLW.refill_arrays carries a refreshed layout's sliced values, never
+    the transposed form: a transfer is frozen."""
     make, kw = ELL_CASES["square"]
     A = make()
     host = TE.build_ellw(A, **kw)
     e = host.device(torch.float64, "cpu", sliced=True, transposed=True)
     new = TE.build_ellw(2.0 * A, force_shape=(host.C, host.K, host.Wr, host.G, host.far_cap))
-    refilled = {id(t) for t, _ in new.refill_arrays(e)}
-    assert {id(e.cols), id(e.vals), id(e.scol), id(e.sval)} <= refilled
+    refilled = {id(t) for t, _ in new.refill_arrays(e)[0]}
+    assert {id(e.scol), id(e.sval)} <= refilled
     assert not refilled & {id(e.trow_ptr), id(e.tcol), id(e.tval)}
 
 
@@ -111,29 +111,35 @@ def _ellw_hierarchy(monkeypatch, separate_pt: bool = False):
 
 
 def _forms(e):
-    return (e.cols is not None, e.slot_ptr is not None, e.trow_ptr is not None)
+    assert not hasattr(e, "cols") and not hasattr(e, "vals")
+    return (e.slot_ptr is not None, e.trow_ptr is not None)
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
 @pytest.mark.parametrize("separate_pt", [False, True], ids=["shared", "pt_only"])
 def test_hierarchy_uploads_the_forms_its_cycle_reads(monkeypatch, batched, separate_pt):
-    """Row-major (K4) where a single-vector cycle applies P forward,
-    sliced (K6a) where a batched one does, transposed (K5/K6b) where it
-    restricts; a layout used only as P^T holds the transposed form
-    alone.  A and AP are never restricted through."""
-    _, hier = _ellw_hierarchy(monkeypatch, separate_pt)
-    dev = hier.device(torch.float64, "cpu", batched=batched)
-    fwd = (not batched, batched, False)
+    """The sliced form (K4 on one vector, K6a on B) where a cycle applies a
+    layout forward, the transposed form (K5/K6b) where it restricts
+    through it, and no other form; a layout used only as P^T holds the
+    transposed form alone.  A and AP are never restricted through.  One
+    upload serves the single-vector and the batched cycle alike."""
+    A, hier = _ellw_hierarchy(monkeypatch, separate_pt)
+    dev = hier.device(torch.float64, "cpu")
+    fwd = (True, False)
     for lv in dev.levels:
         for w in ("a", "ap"):
             if lv[w + "_ellw"] is not None:
                 assert _forms(lv[w + "_ellw"]) == fwd
         if separate_pt:
             assert _forms(lv["p_ellw"]) == fwd
-            assert _forms(lv["pt_ellw"]) == (False, False, True)
+            assert _forms(lv["pt_ellw"]) == (False, True)
         else:
             assert lv["pt_ellw"] is lv["p_ellw"]
-            assert _forms(lv["p_ellw"]) == (not batched, batched, True)
+            assert _forms(lv["p_ellw"]) == (True, True)
+    R = torch.as_tensor(np.random.default_rng(6).standard_normal((2, A.shape[0])))
+    ident = lambda v: v  # unused: level 0 stores its operator
+    y = dev.apply_batch(ident, R) if batched else dev.apply(ident, R[0])
+    assert bool(torch.isfinite(y).all()) and y.shape == (R if batched else R[0]).shape
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["apply", "apply_batch"])
@@ -141,10 +147,10 @@ def test_cycle_is_the_same_with_pt_in_a_layout_of_its_own(monkeypatch, batched):
     """One layout of P read both ways, or a second one read only
     transposed: the same V-cycle to 1e-14."""
     A, hier = _ellw_hierarchy(monkeypatch)
-    shared = hier.device(torch.float64, "cpu", batched=batched)
+    shared = hier.device(torch.float64, "cpu")
     for lv in hier.levels:
         lv.pt_ellw = copy.deepcopy(lv.p_ellw)
-    own = hier.device(torch.float64, "cpu", batched=batched)
+    own = hier.device(torch.float64, "cpu")
     R = torch.as_tensor(np.random.default_rng(3).standard_normal((3, A.shape[0])))
     ident = lambda v: v  # unused: level 0 stores its operator
     if batched:
@@ -159,7 +165,7 @@ def test_cycle_is_the_same_with_pt_in_a_layout_of_its_own(monkeypatch, batched):
 @pytest.mark.parametrize("batched", [False, True], ids=["single", "batched"])
 def test_refresh_keeps_the_transposed_form_bitwise_in_place(monkeypatch, batched):
     A, hier = _ellw_hierarchy(monkeypatch)
-    dev = hier.device(torch.float64, "cpu", batched=batched)
+    dev = hier.device(torch.float64, "cpu")
     held = [t for lv in dev.levels for t in (lv["pt_ellw"].trow_ptr, lv["pt_ellw"].tcol,
                                             lv["pt_ellw"].tval)]
     listed = {id(t) for t in dev.tensors()}
@@ -174,6 +180,11 @@ def test_refresh_keeps_the_transposed_form_bitwise_in_place(monkeypatch, batched
     assert not torch.equal(old_diag, dev.levels[0]["dinv"])  # the refresh did land
     for t, (ptr, copy_) in zip(held, before):
         assert t.data_ptr() == ptr and torch.equal(t, copy_)
+    # the cycle of either kind runs on the refreshed forms
+    R = torch.as_tensor(rng.standard_normal((2, A.shape[0])))
+    ident = lambda v: v  # unused: level 0 stores its operator
+    y = dev.apply_batch(ident, R) if batched else dev.apply(ident, R[0])
+    assert bool(torch.isfinite(y).all())
 
 
 # ---------------------------------------------------------------------------
