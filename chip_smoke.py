@@ -15,8 +15,9 @@ Phases, each printing JSON lines tagged with its number (the two
 multigrid paths run one after the other, so the lines of phases 1, 3
 and 4 come in two groups):
 
-0. device and build: the card's name and power limit, the torch and
-   CUDA versions, and the build of every CUDA kernel from ops/csrc;
+0. device and build: first a line of the card's name and power limit,
+   the Python version and whether h5py and yaml import; then the torch
+   and CUDA versions and the build of every CUDA kernel from ops/csrc;
 1. kernels: each of the fourteen hand-written kernels against its plain
    PyTorch version on the card, in float32 and float64 (K7/K8 on the
    packed windows, also with bfloat16 values) — the seven assembly
@@ -47,7 +48,9 @@ and 4 come in two groups):
    subdomains (per-tag diffusion coefficients), K2/K9/K10 on both
    membranes and, with mg_banded, K4-K8 on the layouts its four
    hierarchies took (K7/K8 on every banded window of the EMI and first
-   KNP hierarchies, by both routes of reading x); device times (L2
+   KNP hierarchies, by both routes of reading x; the far remainder's add
+   on K5/K6b's kernel on every banded operator with a far list, its own
+   row ``K5/K6b csr_add`` in the kernels line); device times (L2
    flushed, by torch.profiler) of kernel, plain version and the PyTorch
    call that computes the same function (torch.mv / torch.sparse.mm on
    its CSR; for K1, K2 and K11 the CSR of the same P1 operator, for K3
@@ -107,11 +110,28 @@ and 4 come in two groups):
    phi_M of the two runs at step 22 must agree within 1e-3 relative L2;
    last the batched flagship with mg_banded=True for 12 + 5 steps; the
    timed legs keep mg_refresh_every off, and after the timed steps of
-   each batched run two steps from the state reached, compared bit for
-   bit in every tensor of the state (where they differ, the first
-   operation of the step whose output differs), then one refresh of the
+   each batched run two steps from the state reached, which must agree
+   bit for bit in every tensor of the state (where they differ, the
+   first operation of the step whose output differs is printed and the
+   run fails), on the banded run 4 steps continued against the same 4
+   from the state saved to a checkpoint and loaded back (bitwise, or
+   the run fails), then one refresh of the
    EMI hierarchy, its host payload and its install timed, with one
    step's EMI iterations before and after;
+resume. the checkpoint -> resume path at the flagship's width (mesh_n
+   64, float32, the tuned options, mg_banded=True, no refresh) through
+   the driver (drivers/run_stim_duration.py, traces and XDMF frames
+   every 2 steps, a checkpoint every 4): a gold run of 16 steps on one
+   build, a run stopped at step 8 on a second, continued with
+   resume=True on a third, with h5py built from the flagship mesh
+   written to an XDMF file and read back (geometry array-equal to the
+   synthetic build's); state, traces and every XDMF dataset must be bitwise equal
+   between the two, and the resumed steps must run KNP iterations (the
+   source turns on at step 10); without h5py the driver writes no XDMF
+   series and the third build is synthetic, and the line says so.
+   Setup seconds a build, ms/step and iterations a leg, the bytes of a
+   checkpoint and of a set of frames, a checkpoint's write and read
+   seconds and 2 profiled steps from the resumed state;
 4. profile, per res-2 path and per flagship run: the
    step's four phases timed by host clock over 2 steps, their kernel
    counts in one step, then 2 steps under
@@ -133,6 +153,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -160,6 +181,21 @@ CELL_LOOP_SOURCE = ("recorded, not measured in this run: PERF.md's kernel table,
 EARLIER_MS = {"K3": [0.0464, 0.0930], "K6a": [0.0514]}
 EARLIER_SOURCE = ("recorded, not measured in this run: PERF.md's kernel table, the "
                   "replaced designs' device ms on an NVIDIA H100 80GB HBM3 at 700 W")
+
+
+def environment(smi: str) -> dict:
+    """The first line: the card, Python, and whether h5py (the XDMF
+    output) and yaml (the driver's config files) import here."""
+    import importlib
+
+    found = {}
+    for name in ("h5py", "yaml"):
+        try:
+            found[name] = getattr(importlib.import_module(name), "__version__", "present")
+        except ImportError:
+            found[name] = None
+    return dict(phase=0, case="environment", nvidia_smi=smi, python=sys.version.split()[0],
+                **found)
 
 
 def emit(obj):
@@ -910,6 +946,73 @@ def _bands(levels, every: bool):
     return out if every else out[:1]
 
 
+def _far_bands(mg):
+    """[(label, band)] of every banded operator of a DeviceMG that has a far
+    remainder (the entries its windows do not cover), fine level first."""
+    return [(f"level {i} {w}_band", lv[f"{w}_band"]) for i, lv in enumerate(mg.levels)
+            for w in ("a", "ap", "p", "pt")
+            if lv[f"{w}_band"] is not None and lv[f"{w}_band"]["far"] is not None]
+
+
+def far_cases(mg, hname: str, dtype, Bs, seed: int = 3):
+    """The far remainder's add Y += F X (``ell.csr_add``: K5's kernel on one
+    vector, B = None, K6b's on a batch of B) on every banded operator of
+    ``mg`` that has one, inputs from a seed.  Each is held against the
+    plain version (float64 to 1e-13 of max|y|) and launched twice,
+    bitwise equal; each check adds into a copy of Y, the timed calls into
+    one Y of their own.  The first operator's first B is timed.  Bound:
+    the entries (an index and a value each), the columns of X they read
+    and the rows of Y they add to, read and written once (``nbytes_slots``:
+    row_ptr beside them); the library call is torch.addmv / torch.addmm
+    on the CSR of F."""
+    import dataclasses
+
+    import torch
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    bands = _far_bands(mg)
+    if not bands:
+        return []
+    dev = bands[0][1]["far"].val.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=dtype)
+    es = torch.empty((), dtype=dtype).element_size()
+    cases = []
+    for k, (src, band) in enumerate(bands):
+        f = dataclasses.replace(band["far"], val=band["far"].val.to(dtype))
+        n, m = f.n_rows, f.n_cols
+        ptr = f.row_ptr.long()
+        nnz = int(ptr[-1])
+        csr = torch.sparse_csr_tensor(ptr, f.col[:nnz].long(), f.val[:nnz], size=(n, m))
+        live = int((ptr[1:] > ptr[:-1]).sum())
+        used = int(torch.unique(f.col[:nnz]).numel())
+        for j, B in enumerate(Bs):
+            nb = B or 1
+            X, Y = (rnd(m), rnd(n)) if B is None else (rnd(B, m), rnd(B, n))
+            Yt = Y.clone()
+            if B is None:
+                name, what = "K5 ellw_rmatvec", "one vector"
+                lib = lambda X=X, Y=Y, csr=csr: torch.addmv(Y, csr, X)
+            else:
+                name, what = "K6b ellw_rmatvec_batch", f"B={B}"
+                lib = lambda X=X, Y=Y, csr=csr: torch.addmm(Y.T, csr, X.T)
+            vec = nb * (used + 2 * live) * es
+            cases.append(dict(
+                name=name, variant=f"far add {what} {hname} {src}",
+                kern=lambda f=f, X=X, Y=Y: TE.csr_add(f, X, Y.clone()),
+                plain=lambda f=f, X=X, Y=Y: TE.csr_add_plain(f, X, Y.clone()),
+                timed=dict(kern=lambda f=f, X=X, Y=Yt: TE.csr_add(f, X, Y),
+                           plain=lambda f=f, X=X, Y=Yt: TE.csr_add_plain(f, X, Y)),
+                lib=lib, time=k == 0 and j == 0, repeat=True, tol={"float64": 1e-13},
+                nbytes=nnz * (4 + es) + vec, ops=(2 * nnz + live) * nb,
+                nbytes_slots=nnz * (4 + es) + _nbytes(f.row_ptr) + vec,
+                shape=dict(rows=n, cols=m, nnz=nnz, capacity=f.col.numel(),
+                           live_rows=live, columns_read=used, G=f.group,
+                           source=f"{hname} {src}")))
+    return cases
+
+
 def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
                     as_built_only: bool = False, all_bands: bool = False):
     """The multigrid kernels at the shapes of ``sim``'s banded
@@ -919,7 +1022,9 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
     ``knp_tag`` at B = 2 (the solved ions) and once at B = 8 (K6b also
     at 3); the restrictions K5 and K6b on the transposed form of a pt
     layout (:func:`restrict_cases`; with ``all_bands`` on every one), K4
-    and K6a on a level operator or prolongator.  A hierarchy that
+    and K6a on a level operator or prolongator; last, the far remainder's
+    add on K5's and K6b's kernel (:func:`far_cases`) on every banded
+    operator of these hierarchies that has one.  A hierarchy that
     stores no operator in a kernel's layout gets, for the windowed-ELL
     kernels, the layout build_ellw gives one of its prolongators, and for
     the banded ones an error — or, with ``as_built_only``, no case: the
@@ -1094,6 +1199,9 @@ def mg_kernel_cases(sim, dtype, knp_tag: int = 0, emi: bool = True,
     if emi:
         # after the others: the order of the random inputs above is kept
         k4_cases(emi_mg, "EMI")
+        cases.extend(far_cases(emi_mg, "EMI", dtype, (None,)))
+    for hname, mg in knp_mgs.items():
+        cases.extend(far_cases(mg, hname, dtype, (2, 1, 8)))
     return cases
 
 
@@ -1150,9 +1258,11 @@ def check_cases(cases, dtype, time_them: bool):
         if time_them and c.get("time", True):
             t_bytes = c["nbytes"] / HBM_BYTES_PER_S * 1e3
             t_ops = c["ops"] / PEAK_FLOPS[dname] * 1e3
+            # an in-place case times calls on inputs of their own
+            kern, plain = (c.get("timed", {}).get(k, c[k]) for k in ("kern", "plain"))
             row.update(
-                ms=dev_ms(c["kern"]), graph_ms=graph_ms(c["kern"]), call_ms=cuda_ms(c["kern"]),
-                plain_ms=dev_ms(c["plain"]),
+                ms=dev_ms(kern), graph_ms=graph_ms(kern), call_ms=cuda_ms(kern),
+                plain_ms=dev_ms(plain),
                 library_ms=None if c["lib"] is None else dev_ms(c["lib"]),
                 library_call_ms=None if c["lib"] is None else cuda_ms(c["lib"], reps=20),
                 bound_ms=max(t_bytes, t_ops),
@@ -1416,6 +1526,8 @@ KERNEL_SOURCES = {
     "K11": ("cells", "knpemi_tpu/ops/pallas_assembly.py:397"),
     "K11f": ("cells", "knpemi_tpu/ops/pallas_assembly.py:397"),
 }
+# the far remainder's adds among K5's and K6b's launches (ell.csr_add's count)
+FAR_ADD = "K5/K6b csr_add"
 # the assembly kernels of every step (K11f fills the drift of both KNP
 # branches), the per-ion KNP solve's own, and the ion-batched step's
 ASSEMBLY = ("K1", "K1f", "K2", "K3", "K4", "K9", "K10", "K11f")
@@ -1429,7 +1541,9 @@ def reachable_kernels(sim):
     """K-numbers the step of ``sim`` can launch: the eight assembly kernels
     (K11f on both KNP branches), K11 on the per-ion branch and, from the
     layouts its hierarchies took, the multigrid ones (the per-ion branch runs the KNP V-cycles
-    on single vectors: K5/K7 in place of K6a/K6b/K8)."""
+    on single vectors: K5/K7 in place of K6a/K6b/K8).  A banded layout
+    with a far remainder reaches K5's kernel (K6b's on the batched
+    cycle): it adds that remainder."""
     out = set(ASSEMBLY)
     batched = sim.opts.knp_batched
     if not batched:
@@ -1438,10 +1552,15 @@ def reachable_kernels(sim):
     knp = [lv for mg in sim.knp_solver.mg.values() for lv in mg.layout()]
     forms = lambda lay, roles: {lv[w] for lv in lay for w in roles}
     single = emi if batched else emi + knp
+    far = lambda mgs: any(_far_bands(mg) for mg in mgs)
+    knp_mgs = list(sim.knp_solver.mg.values())
     if "band" in forms(single, ("A", "P", "Pt", "AP")):
         out.add("K7")
-    if "ellw" in forms(single, ("Pt",)):
+    if "ellw" in forms(single, ("Pt",)) or far([sim.emi_solver.mg]
+                                               + ([] if batched else knp_mgs)):
         out.add("K5")
+    if batched and far(knp_mgs):
+        out.add("K6b")
     if batched:
         if "band" in forms(knp, ("A", "P", "Pt", "AP")):
             out.add("K8")
@@ -1467,6 +1586,7 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
     import torch
 
     from knpemi_tpu_torch import ops
+    from knpemi_tpu_torch.ops import ell as TE
     from knpemi_tpu_torch.sim import dofs_per_step
 
     t0 = time.perf_counter()
@@ -1490,7 +1610,7 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
         state, it_e, it_k, ok = sim.run(state, n_steps)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
-    launches = ops.launch_counts()
+    launches = {**ops.launch_counts(), FAR_ADD: TE.csr_add.launches}
     for m, v in state.phi_M.items():
         if not bool(torch.isfinite(v).all()):
             raise AssertionError(f"{label}: phi_M[{m}] is not finite")
@@ -1506,6 +1626,9 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
     if idle:
         raise AssertionError(f"{label}: kernels of the path did not launch: "
                              f"{idle} ({launches})")
+    hierarchies = [sim.emi_solver.mg, *sim.knp_solver.mg.values()]
+    if any(_far_bands(mg) for mg in hierarchies) and not launches[FAR_ADD]:
+        raise AssertionError(f"{label}: a far remainder was never added ({launches})")
     if sim.opts.mg_banded and not (launches["K7 banded_matvec"]
                                    or launches["K8 banded_matvec_batch"]):
         raise AssertionError(f"{label}: neither K7 nor K8 launched: {launches}")
@@ -1608,8 +1731,10 @@ def flagship(build_astrocyte, baseline, SolverOptions):
     of the batched step on each of the three subdomains and two
     membranes (and, banded, on the layouts of the four hierarchies), K11
     and K11f on the three subdomains; then phases 3 and 4.  Returns the
-    float32 rows of K11 and K11f, the launch counts of the three runs
-    and the banded run's float32 row of K4 on its EMI level-0 P."""
+    float32 rows of K11 and K11f, the launch counts of the three runs,
+    the banded run's float32 row of K4 on its EMI level-0 P and its timed
+    rows of the far remainder's add ({"one vector EMI": row or None,
+    "B=2 KNP": row or None})."""
     import torch
 
     from knpemi_tpu_torch.sim.scenarios import K_E_INIT_A  # initial ECS K+, mM
@@ -1617,7 +1742,7 @@ def flagship(build_astrocyte, baseline, SolverOptions):
     config = {**baseline, "mesh_n": MESH_N}
     case = f"astrocyte tissue mesh_n {MESH_N} float32 tuned options"
     runs = {}
-    k11_rows = k4_p = None
+    k11_rows = k4_p = far_p = None
     for label, banded, batched, warm, n_steps in (
             ("flagship batched", False, True, 12, 20),
             ("flagship per-ion", False, False, 12, 10),
@@ -1639,6 +1764,10 @@ def flagship(build_astrocyte, baseline, SolverOptions):
         if banded:
             k4_p = next(r for r in rows["float32"] if r["name"] == "K4 ellw_matvec"
                         and r["variant"] == "EMI level 0 p_ellw")
+            # the far remainder's add, timed: EMI on one vector, KNP on two
+            far_p = {w: next((r for r in rows["float32"] if "ms" in r and r.get(
+                "variant", "").startswith(f"far add {w}")), None)
+                for w in ("one vector EMI", "B=2 KNP")}
         if k11_rows is None:
             k11_rows = check_k11(sim, torch.float32, True, phi_scale=1.0)
             rows["float32"] = rows["float32"] + k11_rows
@@ -1653,8 +1782,16 @@ def flagship(build_astrocyte, baseline, SolverOptions):
         rec = runs[label] = run_slice(sim, label, case, n_steps, setup_s, warm=warm,
                                       keep_at=10 if label == "flagship batched" else 0)
         if batched:
-            emit(dict(phase=3, path=label, case="two steps from one saved state",
-                      **step_determinism(sim, rec["state"])))
+            det = step_determinism(sim, rec["state"])
+            emit(dict(phase=3, path=label, case="two steps from one saved state", **det))
+            if not det["identical"]:
+                raise AssertionError(f"{label}: two steps from one saved state differ: "
+                                     f"{det['differing_fields']}")
+            if banded:
+                with tempfile.TemporaryDirectory() as tmp:
+                    emit(dict(phase=3, path=label, case="in-process resume: steps continued "
+                              "against the same steps from the state saved and loaded back",
+                              **resume_in_process(sim, rec["state"], Path(tmp))))
             # the timed legs ran without refreshes (mg_refresh_every 0, as
             # the earlier flagship numbers did); now one, as the astrocyte
             # script's cadence would make every 100 steps
@@ -1698,7 +1835,7 @@ def flagship(build_astrocyte, baseline, SolverOptions):
               ms_per_step={k: r["ms_per_step"] for k, r in runs.items()},
               k11_launches_per_step=per_ion["K11 knp_apply"] / 10,
               k11f_launches_per_step=per_ion["K11f drift_fill"] / 10))
-    return k11_rows, launches, k4_p
+    return k11_rows, launches, k4_p, far_p
 
 
 def refresh_once(sim, state):
@@ -1786,9 +1923,9 @@ def _record_step(sim, state):
 
 def first_difference(sim, state):
     """The first operation whose output differs between two recorded steps
-    from ``state`` (:func:`_record_step`), with the three entries before it
-    (a port kernel among them wrote an input the recorder cannot see), or
-    None where every recorded output is equal."""
+    of ``sim`` from ``state`` (:func:`_record_step`), with the three
+    entries before it (a port kernel among them wrote an input the
+    recorder cannot see), or None where every recorded output is equal."""
     import torch
 
     a, b = _record_step(sim, state), _record_step(sim, state)
@@ -1814,25 +1951,33 @@ def first_difference(sim, state):
     return None
 
 
+def differing_fields(a, b, fields=None):
+    """The fields of two states (``fields``, default all) whose tensors do
+    not have the same bits (``torch.equal``: dtype, shape and values),
+    per tag where a field is a dict."""
+    import dataclasses
+
+    import torch
+
+    differ = []
+    for name in fields or [f.name for f in dataclasses.fields(a)]:
+        x, y = getattr(a, name), getattr(b, name)
+        items = x.items() if isinstance(x, dict) else [(None, x)]
+        for key, v in items:
+            w = y.get(key) if key is not None else y
+            if w is None or not torch.equal(v, w.to(v.device)):
+                differ.append(name if key is None else f"{name}[{key}]")
+    return differ
+
+
 def step_determinism(sim, state):
     """Two steps of ``sim`` from one saved state: whether every tensor of
     the two states has the same bits and, where one does not, which
     fields differ and the first operation of the step whose output
     differs (:func:`first_difference`)."""
-    import dataclasses
-
-    import torch
-
     t0 = time.perf_counter()
     a, b = sim.step(state), sim.step(state)
-    differ = []
-    for fld in dataclasses.fields(a):
-        x, y = getattr(a, fld.name), getattr(b, fld.name)
-        items = x.items() if isinstance(x, dict) else [(None, x)]
-        for key, v in items:
-            w = y[key] if key is not None else y
-            if not torch.equal(v, w):
-                differ.append(fld.name if key is None else f"{fld.name}[{key}]")
+    differ = differing_fields(a, b)
     rec = dict(identical=not differ, differing_fields=differ,
                emi_iters=[int(a.emi_iters), int(b.emi_iters)],
                knp_iters=[int(a.knp_iters), int(b.knp_iters)])
@@ -1840,6 +1985,204 @@ def step_determinism(sim, state):
         rec["first_difference"] = first_difference(sim, state)
     rec["seconds"] = time.perf_counter() - t0
     return rec
+
+
+def resume_in_process(sim, state, workdir: Path, n_steps: int = 4):
+    """The checkpoint alone, on one build: ``n_steps`` steps continued from
+    ``state`` against the same steps from ``state`` saved
+    (``io.save_checkpoint``) and loaded back onto the card
+    (``io.load_checkpoint``).  The loaded state must equal the saved one
+    and the two runs must end in the same bits in every tensor of the
+    state; the checkpoint's bytes and its write and read seconds are
+    reported."""
+    import torch
+
+    from knpemi_tpu_torch.io import load_checkpoint, save_checkpoint
+
+    path = workdir / "in_process.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(path, state)
+    t1 = time.perf_counter()
+    loaded, _ = load_checkpoint(path, dtype=sim.dtype)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    a, ea, ka, oka = sim.run(state, n_steps)
+    b, eb, kb, okb = sim.run(loaded, n_steps)
+    rec = dict(steps=n_steps, from_step=int(state.step),
+               loaded_differs=differing_fields(state, loaded),
+               differing_fields=differing_fields(a, b),
+               emi_iters=[ea.tolist(), eb.tolist()], knp_iters=[ka.tolist(), kb.tolist()],
+               checkpoint_bytes=path.stat().st_size, write_seconds=t1 - t0,
+               read_seconds=t2 - t1)
+    rec["identical"] = not rec["loaded_differs"] and not rec["differing_fields"]
+    if not rec["identical"]:
+        raise AssertionError(f"in-process resume is not bitwise: {rec}")
+    if not (oka.all() and okb.all()):
+        raise AssertionError("in-process resume: a step did not converge")
+    return rec
+
+
+# the resume phase: a gold leg of 16 steps, a split leg stopped at step 8
+# and resumed; traces and XDMF frames every 2 steps, a checkpoint every 4
+RESUME_STEPS, RESUME_STOP = 16, 8
+RESUME_IO = dict(save_frequency=2, save_frequency_fields=2, checkpoint_every=4)
+STATE_FIELDS = ("c", "phi", "phi_M", "ode_states", "t", "step")
+
+
+def _h5_datasets(path):
+    import h5py
+    import numpy as np
+
+    out = {}
+    with h5py.File(path, "r") as h5:
+        h5.visititems(lambda k, v: out.__setitem__(k, np.asarray(v[()]))
+                      if isinstance(v, h5py.Dataset) else None)
+    return out
+
+
+def _geometry_differs(ga, gb):
+    """The geometry arrays (subdomains, membranes) that are not equal."""
+    import numpy as np
+
+    bad = [] if ga.sub_tags == gb.sub_tags else ["sub_tags"]
+    for kind, fields in (("subdomains", ("vertices", "parent_cells", "cells", "coords",
+                                         "grads", "vols")),
+                         ("membranes", ("facet_dofs", "facet_edofs", "facet_idofs", "areas",
+                                        "mem_to_ecs", "mem_to_ics", "vertices", "coords"))):
+        da, db = getattr(ga, kind), getattr(gb, kind)
+        if sorted(da) != sorted(db):
+            bad.append(kind)
+            continue
+        bad += [f"{kind}[{t}].{f}" for t in da for f in fields
+                if not np.array_equal(getattr(da[t], f), getattr(db[t], f))]
+    return bad
+
+
+def resume_phase(baseline, workdir: Path):
+    """The port's checkpoint -> resume path at the flagship's full width
+    (mesh_n 64, float32, the tuned options, mg_banded=True, no refresh),
+    driven through the driver (``drivers/run_stim_duration.py``): a gold
+    leg of RESUME_STEPS steps, and a split leg stopped at RESUME_STOP and
+    continued with ``resume=True`` on a third build.  With h5py, that
+    build reads the flagship mesh written by ``io.write_mesh``
+    (``build_astrocyte``'s ``mesh_file``; its geometry must be
+    array-equal to the synthetic build's) and every dataset of every
+    XDMF series is compared; without it the driver writes no series and
+    the line says so.  State, traces and the series must be bitwise
+    equal between the legs (``identical``).  Reported: each build's
+    setup seconds, each leg's ms/step (checkpoints and frames included)
+    and iterations, the bytes of one checkpoint and one set of frames,
+    the seconds to write and read a checkpoint, and 2 profiled steps
+    from the resumed state (device kernel time)."""
+    import importlib.util
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from knpemi_tpu_torch.drivers import run_stim_duration as drv
+    from knpemi_tpu_torch.io import load_checkpoint, save_checkpoint
+
+    h5 = importlib.util.find_spec("h5py") is not None
+    dt = float(baseline.get("dt", 0.1))
+    cfg = {**baseline, "mesh_n": MESH_N, "fname": "resume", **RESUME_IO,
+           "solver": {**TUNED, "mg_banded": True, "mg_refresh_every": 0}}
+    until = lambda n, **kw: {**cfg, "Tstop": n * dt, **kw}
+    out = {k: workdir / k for k in ("gold", "split")}
+    legs = {}
+
+    def leg(name, config, resume=False, geom=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim = drv.build_simulation(config)
+        legs[name] = dict(setup_seconds=time.perf_counter() - t0)
+        if geom is not None:
+            bad = _geometry_differs(geom, sim.geom)
+            legs[name]["geometry_differs"] = bad[:10]
+            if bad:
+                raise AssertionError(f"resume: the geometry read from the mesh file "
+                                     f"differs: {bad[:10]}")
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message="h5py is not installed")
+            state, traces, it_e, it_k = drv.solve_system(
+                config, verbose=False, outdir=str(out[name.split()[0]]), resume=resume,
+                sim=sim)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        legs[name].update(steps=len(it_e), ms_per_step=wall / max(len(it_e), 1) * 1e3,
+                          emi_iters=list(map(int, it_e)), knp_iters=list(map(int, it_k)))
+        return sim, state, traces
+
+    sim, gold, tr_gold = leg("gold", until(RESUME_STEPS))
+    del sim
+    torch.cuda.empty_cache()
+    sim, _, _ = leg("split first", until(RESUME_STOP))
+    geom = sim.geom
+    del sim
+    torch.cuda.empty_cache()
+    resumed_cfg = until(RESUME_STEPS)
+    gdir, sdir = out["gold"] / "resume", out["split"] / "resume"
+    if h5:
+        from knpemi_tpu_torch.io import write_mesh
+        from knpemi_tpu_torch.mesh import astrocyte_tissue_mesh
+
+        t0 = time.perf_counter()
+        mesh_path = workdir / "flagship_mesh.xdmf"
+        write_mesh(mesh_path, astrocyte_tissue_mesh(n=MESH_N))
+        mesh = dict(write_seconds=time.perf_counter() - t0,
+                    bytes=mesh_path.stat().st_size
+                    + mesh_path.with_suffix(".h5").stat().st_size)
+        resumed_cfg["mesh_file"] = str(mesh_path)
+    sim, split, tr_split = leg("split resumed", resumed_cfg, resume=True,
+                               geom=geom if h5 else None)
+    if h5:
+        series = sorted(p.name for p in gdir.glob("results_sub_*.h5"))
+        dsets = {f: (_h5_datasets(gdir / f), _h5_datasets(sdir / f)) for f in series}
+        xdmf_bad = [f"{f}:{k}" for f, (a, b) in dsets.items()
+                    for k in sorted(set(a) | set(b))
+                    if k not in a or k not in b or not np.array_equal(a[k], b[k])]
+        extra = dict(
+            xdmf=dict(series=series, datasets=sum(len(a) for a, _ in dsets.values()),
+                      differing=xdmf_bad[:20],
+                      # the frames before the checkpoint resumed from: steps 2, 6
+                      differing_before_checkpoint=[x for x in xdmf_bad[:20]
+                                                   if x.rsplit("/", 1)[-1] in ("0", "1")],
+                      frame_bytes=sum(v.nbytes for a, _ in dsets.values()
+                                      for k, v in a.items()
+                                      if k.startswith("Function/") and k.endswith("/0"))),
+            mesh_file=dict(mesh, geometry_equal=True))
+    else:
+        xdmf_bad = []
+        extra = dict(xdmf="h5py not installed",
+                     mesh_file="h5py not installed: read_mesh not run")
+    state_bad = differing_fields(gold, split, STATE_FIELDS)
+    trace_bad = [k for k in drv.TRACE_KEYS if tr_gold[k] != tr_split[k]]
+    n_obs = RESUME_STOP // RESUME_IO["save_frequency"]
+    trace_pre_bad = [k for k in drv.TRACE_KEYS if tr_gold[k][:n_obs] != tr_split[k][:n_obs]]
+    # one checkpoint of the flagship written and read back onto the card
+    io_path = workdir / "io.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_checkpoint(io_path, split)
+    t1 = time.perf_counter()
+    back, _ = load_checkpoint(io_path, dtype=sim.dtype)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if differing_fields(split, back):
+        raise AssertionError("resume: a checkpoint did not load back as it was saved")
+    prof = profile_steps(sim, split, 2, legs["split resumed"]["ms_per_step"])
+    del sim
+    torch.cuda.empty_cache()
+    return dict(
+        legs=legs, identical=not (state_bad or trace_bad or xdmf_bad),
+        differing_state=state_bad, differing_traces=trace_bad,
+        traces_equal_before_checkpoint=not trace_pre_bad, **extra,
+        checkpoint_bytes=(gdir / "ckpt.npz").stat().st_size,
+        checkpoint_write_seconds=t1 - t0, checkpoint_read_seconds=t2 - t1,
+        resumed_device_kernel_ms_per_step=prof["device_kernel_ms_per_step"],
+        resumed_kernels_per_step=prof["kernels_per_step"], step=int(split.step))
 
 
 def launch_floor_ms():
@@ -2101,6 +2444,7 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     kind = torch.cuda.get_device_name(0)
+    emit(environment(smi))
     # -- phase 0: device and build ------------------------------------------
     t0 = time.perf_counter()
     _build.build()
@@ -2180,8 +2524,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # -- the astrocyte flagship: K11's phase 1, then batched and per-ion ------
-    k11_rows, fl, k4_p = flagship(build_astrocyte, ASTROCYTE_BASELINE, SolverOptions)
+    k11_rows, fl, k4_p, far_p = flagship(build_astrocyte, ASTROCYTE_BASELINE,
+                                         SolverOptions)
     launches.update(fl)
+
+    # -- the checkpoint -> resume path on the flagship --------------------------
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = resume_phase(ASTROCYTE_BASELINE, Path(tmp))
+    emit(dict(phase="resume", case=f"astrocyte tissue mesh_n {MESH_N} float32 tuned options "
+              f"mg_banded=True: {RESUME_STEPS} steps against {RESUME_STOP} + resume",
+              **res, seconds=time.perf_counter() - t0))
+    if not res["identical"]:
+        raise AssertionError("resume: the resumed run differs from the uninterrupted one")
+    if not sum(res["legs"]["split resumed"]["knp_iters"]):
+        raise AssertionError("resume: the resumed steps ran no KNP iteration")
 
     # -- phase 2: GPU vs CPU parity, float64 ---------------------------------
     t0 = time.perf_counter()
@@ -2276,6 +2633,27 @@ def main(argv=None) -> int:
         first.items(), key=lambda kv: list(KERNEL_SOURCES).index(kv[0].split()[0]))]
     k4_at = next(i for i, e in enumerate(rows_out) if e["name"] == "K4 ellw_matvec")
     rows_out.insert(k4_at + 1, entry("K4 ellw_matvec", k4_p, "flagship banded"))
+    # the far remainder's add on K5's and K6b's kernel, after K6b: on the
+    # banded flagship's EMI hierarchy (one vector) and, beside it, a KNP
+    # hierarchy's (B = 2); launches: its own share of the banded flagship
+    # run's K5 and K6b counts
+    if far_p["one vector EMI"] is not None:
+        far = entry("K5 ellw_rmatvec", far_p["one vector EMI"], "flagship banded")
+        far.update(name=FAR_ADD, launches=launches["flagship banded"][FAR_ADD],
+                   jax_counterpart="knpemi_tpu/solvers/mg.py:1038",
+                   **{f"launches_{k}": launches[p][FAR_ADD] for k, p in (
+                       ("res2_ell", "mg_banded=False"), ("res2_banded", "mg_banded=True"),
+                       ("long_box", "long box"),
+                       ("flagship_batched", "flagship batched"),
+                       ("flagship_per_ion", "flagship per-ion"),
+                       ("flagship_banded", "flagship banded"))})
+        rb = far_p["B=2 KNP"]
+        if rb is not None:
+            far["batch"] = {k: rb.get(k) for k in (
+                "variant", "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "graph_ms", "shape", "deterministic")}
+        k6b_at = next(i for i, e in enumerate(rows_out) if e["name"] == "K6b ellw_rmatvec_batch")
+        rows_out.insert(k6b_at + 1, far)
     emit({"kernels": rows_out})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

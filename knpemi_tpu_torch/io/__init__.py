@@ -1,0 +1,19 @@
+"""Host-side I/O of the port: checkpoints (npz), XDMF meshes and time
+series (h5py, imported inside the functions that need it) and post-hoc
+probing of a saved series — the JAX package's ``io`` without its orbax
+checkpoints."""
+
+from .checkpoint import load_checkpoint, save_checkpoint
+from .probe import TimeSeriesReader, evaluate_p1, locate_points
+from .xdmf import TimeSeriesWriter, read_mesh, write_mesh
+
+__all__ = [
+    "save_checkpoint",
+    "load_checkpoint",
+    "read_mesh",
+    "write_mesh",
+    "TimeSeriesWriter",
+    "TimeSeriesReader",
+    "evaluate_p1",
+    "locate_points",
+]

@@ -1,4 +1,4 @@
-from .core import Mesh, facet_vertices_of_cells
+from .core import Mesh, facet_vertices_of_cells, quad_facet_tags_to_tris, split_hex_cells
 from .generators import (
     unit_square_mms_mesh,
     rectangle_2d_mesh,
@@ -17,6 +17,8 @@ from .tissue import (
 __all__ = [
     "Mesh",
     "facet_vertices_of_cells",
+    "split_hex_cells",
+    "quad_facet_tags_to_tris",
     "unit_square_mms_mesh",
     "rectangle_2d_mesh",
     "box_3d_mesh",

@@ -185,3 +185,57 @@ class Mesh:
         assert (self.cell_volumes() > 0).all(), "degenerate cells"
         assert self.facet_tags.shape == (self.n_facets,)
         return True
+
+
+# VTK "Hexahedron" ring order -> tensor bit order (index = x + 2y + 4z):
+# bottom ring v0..v3 = (x0y0) (x1y0) (x1y1) (x0y1), top ring v4..v7.
+_VTK_HEX_TO_TENSOR = np.array([0, 1, 3, 2, 4, 5, 7, 6])
+# Kuhn triangulation: one tet per axis-order permutation, each walking
+# 000 -> +axis -> +axis -> 111 in tensor bit indices.
+_KUHN_TETS = []
+for _p in ((1, 2, 4), (1, 4, 2), (2, 1, 4), (2, 4, 1), (4, 1, 2), (4, 2, 1)):
+    _KUHN_TETS.append((0, _p[0], _p[0] + _p[1], 7))
+_KUHN_TETS = np.array(_KUHN_TETS)
+
+
+def split_hex_cells(hex_cells: np.ndarray):
+    """Split VTK-ordered hexahedra into 6 Kuhn tets each.
+
+    Every hex uses the same local split, which is face-consistent on
+    translationally structured grids (the reference's idealized 3-D
+    meshes, make_mesh_3D.py:99-102, are dolfinx box meshes): on a shared
+    face both neighbors cut along the (y0z0)-(y1z1)-type diagonal.
+    Returns (tet_cells (6*nh, 4), parent_hex (6*nh,)).
+    """
+    hexes = np.asarray(hex_cells)
+    tens = hexes[:, _VTK_HEX_TO_TENSOR]  # (nh, 8) tensor-ordered
+    tets = tens[:, _KUHN_TETS]  # (nh, 6, 4)
+    nh = len(hexes)
+    parent = np.repeat(np.arange(nh), 6)
+    return tets.reshape(nh * 6, 4).astype(hexes.dtype), parent
+
+
+def quad_facet_tags_to_tris(mesh: "Mesh", quads: np.ndarray,
+                            quad_vals: np.ndarray) -> np.ndarray:
+    """Transfer facet tags from quadrilateral facets (of the original hex
+    mesh) onto the split tet mesh's triangular facets: a triangle gets a
+    quad's tag iff its vertex set is contained in the quad's (each quad
+    matches exactly the 2 triangles of its split).  Fully vectorized."""
+    tags = np.zeros(mesh.n_facets, np.int32)
+    table = np.ascontiguousarray(np.sort(mesh.facets, axis=1), np.int64)
+    tv = table.view([("", np.int64)] * 3).ravel()
+    order = np.argsort(tv)
+
+    qs = np.sort(np.asarray(quads, np.int64), axis=1)  # (nq, 4)
+    # the 4 vertex triples of each quad (drop one vertex each)
+    cand = np.stack(
+        [np.delete(qs, d, axis=1) for d in range(4)], axis=1
+    ).reshape(-1, 3)  # (nq*4, 3)
+    vals4 = np.repeat(np.asarray(quad_vals, np.int32), 4)
+    cv = np.ascontiguousarray(cand).view([("", np.int64)] * 3).ravel()
+    pos = np.searchsorted(tv[order], cv)
+    pos = np.minimum(pos, len(tv) - 1)
+    idx = order[pos]
+    hit = tv[idx] == cv
+    tags[idx[hit]] = vals4[hit]
+    return tags

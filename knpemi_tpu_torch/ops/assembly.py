@@ -64,6 +64,8 @@ _SIGS = {
                             [_c_int] + [_c_ptr] * 5 + [_c_int] * 3 + [_c_ptr]),
     "csr_gather_batch": ("mg", "knp_csr_gather_batch",
                          [_c_int] + [_c_ptr] * 5 + [_c_int] * 4 + [_c_ptr]),
+    "csr_gather_add_batch": ("mg", "knp_csr_gather_add_batch",
+                             [_c_int] + [_c_ptr] * 5 + [_c_int] * 4 + [_c_ptr]),
     "banded_matvec": ("mg", "knp_banded_matvec",
                       [_c_int] * 2 + [_c_ptr] * 6 + [_c_int] * 6 + [_c_ptr]),
     "banded_matvec_batch": ("mg", "knp_banded_matvec_batch",

@@ -347,10 +347,20 @@ sliced_matvec_kernel(const int* __restrict__ slot_ptr,
 //   row: no atomics, no memset, the same bits from every launch.
 // Bound by bytes: a column and a value per nonzero, X and Y once
 // (row_ptr beside them).
+//
+// ADD = true is the far remainder of a block-banded operator
+// (solvers/mg.py::_banded_mv): the entries its windows do not cover, as
+// a CSR by row, Y += their product.  The JAX package adds them with a
+// scatter; an atomic scatter on the H100 sums a row's entries in a
+// varying order, and the banded step was not repeatable.  Here lane 0
+// loads Y once and stores Y + the row's sum; rows without entries are
+// not touched.  The order is fixed, so every launch gives the same
+// bits; it is not the plain twin's (ops/ell.py::csr_add_plain, a row's
+// entries in turn), which it matches to rounding.
 // ---------------------------------------------------------------------
 constexpr int kCsrInFlight = 4;
 
-template <typename T, int B, int G>
+template <typename T, int B, int G, bool ADD>
 __global__ void __launch_bounds__(kThreads)
 csr_gather_batch_kernel(const int* __restrict__ row_ptr,
                         const int* __restrict__ col,
@@ -362,11 +372,13 @@ csr_gather_batch_kernel(const int* __restrict__ row_ptr,
   T acc[B];
 #pragma unroll
   for (int b = 0; b < B; ++b) acc[b] = T(0);
+  bool live = false;  // the row has entries
   // every lane of the warp stays for the shuffles below, live row or not
   if (r < R) {
+    const int begin = __ldg(row_ptr + r);
     const int end = __ldg(row_ptr + r + 1);
-    for (int s0 = __ldg(row_ptr + r) + lane; s0 < end;
-         s0 += kCsrInFlight * G) {
+    live = begin < end;
+    for (int s0 = begin + lane; s0 < end; s0 += kCsrInFlight * G) {
       int c[kCsrInFlight];
       T v[kCsrInFlight];
 #pragma unroll
@@ -380,9 +392,10 @@ csr_gather_batch_kernel(const int* __restrict__ row_ptr,
       for (int u = 0; u < kCsrInFlight; ++u) {
         if (s0 + u * G < end) {
 #pragma unroll
-          for (int b = 0; b < B; ++b)
-            acc[b] = fma_t(v[u], __ldg(X + static_cast<int64_t>(b) * m + c[u]),
-                           acc[b]);
+          for (int b = 0; b < B; ++b) {
+            const T xv = __ldg(X + static_cast<int64_t>(b) * m + c[u]);
+            acc[b] = fma_t(v[u], xv, acc[b]);
+          }
         }
       }
     }
@@ -394,8 +407,18 @@ csr_gather_batch_kernel(const int* __restrict__ row_ptr,
       acc[b] += __shfl_down_sync(0xffffffffu, acc[b], o, G);
   }
   if (r < R && lane == 0) {
+    if (ADD) {
+      if (live) {
 #pragma unroll
-    for (int b = 0; b < B; ++b) Y[static_cast<int64_t>(b) * R + r] = acc[b];
+        for (int b = 0; b < B; ++b) {
+          T* y = Y + static_cast<int64_t>(b) * R + r;
+          *y = *y + acc[b];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int b = 0; b < B; ++b) Y[static_cast<int64_t>(b) * R + r] = acc[b];
+    }
   }
 }
 
@@ -426,13 +449,13 @@ int sliced_matvec_batch_t(const int* slot_ptr, const int* col,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int G>
+template <typename T, int G, bool ADD>
 int csr_gather_launch(const int* row_ptr, const int* col, const void* val,
                       const void* X, void* Y, int R, int m, int nb,
                       cudaStream_t s) {
   const int64_t threads = static_cast<int64_t>(R) * G;
 #define CALL(BB)                                                          \
-  csr_gather_batch_kernel<T, BB, G><<<blocks_for(threads), kThreads, 0, s>>>( \
+  csr_gather_batch_kernel<T, BB, G, ADD><<<blocks_for(threads), kThreads, 0, s>>>( \
       row_ptr, col, static_cast<const T*>(val), static_cast<const T*>(X),  \
       static_cast<T*>(Y), R, m)
   KNP_FOR_BATCH(nb, CALL)
@@ -440,15 +463,15 @@ int csr_gather_launch(const int* row_ptr, const int* col, const void* val,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool ADD>
 int csr_gather_t(const int* row_ptr, const int* col, const void* val,
                  const void* X, void* Y, int R, int m, int nb, int G,
                  cudaStream_t s) {
   switch (G) {
-    case 4: return csr_gather_launch<T, 4>(row_ptr, col, val, X, Y, R, m, nb, s);
-    case 8: return csr_gather_launch<T, 8>(row_ptr, col, val, X, Y, R, m, nb, s);
-    case 16: return csr_gather_launch<T, 16>(row_ptr, col, val, X, Y, R, m, nb, s);
-    case 32: return csr_gather_launch<T, 32>(row_ptr, col, val, X, Y, R, m, nb, s);
+    case 4: return csr_gather_launch<T, 4, ADD>(row_ptr, col, val, X, Y, R, m, nb, s);
+    case 8: return csr_gather_launch<T, 8, ADD>(row_ptr, col, val, X, Y, R, m, nb, s);
+    case 16: return csr_gather_launch<T, 16, ADD>(row_ptr, col, val, X, Y, R, m, nb, s);
+    case 32: return csr_gather_launch<T, 32, ADD>(row_ptr, col, val, X, Y, R, m, nb, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -555,10 +578,24 @@ int knp_csr_gather_batch(int dtype, const int* row_ptr, const int* col,
                          int m, int nb, int G, void* stream) {
   if (R == 0 || nb == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? csr_gather_t<float>(row_ptr, col, val, X, Y, R, m, nb,
-                                          G, s)
-                    : csr_gather_t<double>(row_ptr, col, val, X, Y, R, m, nb,
-                                           G, s);
+  return dtype == 0 ? csr_gather_t<float, false>(row_ptr, col, val, X, Y, R,
+                                                 m, nb, G, s)
+                    : csr_gather_t<double, false>(row_ptr, col, val, X, Y, R,
+                                                  m, nb, G, s);
+}
+
+// The far remainder of a banded operator: Y (nb, R) += X (nb, m) F^T,
+// F (R x m) as a CSR by row, nb <= 8, G lanes a row; rows of F without
+// entries are not touched.
+int knp_csr_gather_add_batch(int dtype, const int* row_ptr, const int* col,
+                             const void* val, const void* X, void* Y, int R,
+                             int m, int nb, int G, void* stream) {
+  if (R == 0 || nb == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? csr_gather_t<float, true>(row_ptr, col, val, X, Y, R,
+                                                m, nb, G, s)
+                    : csr_gather_t<double, true>(row_ptr, col, val, X, Y, R,
+                                                 m, nb, G, s);
 }
 
 // K7: y (n,) = one packed window of a block-banded operator times x (m,).

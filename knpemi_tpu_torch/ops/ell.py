@@ -123,6 +123,33 @@ def lanes_per_row(mean_row: float) -> int:
     return min(max(g, GROUPS[0]), GROUPS[-1])
 
 
+def _group_by_row(row_of: np.ndarray, n_rows: int):
+    """A CSR's order and row pointers for entries of rows ``row_of``: a
+    stable sort by row (a row's entries keep their order) and ``row_ptr``
+    int64 (n_rows + 1,)."""
+    row_of = np.asarray(row_of, np.int64)
+    row_ptr = np.zeros(n_rows + 1, np.int64)
+    np.cumsum(np.bincount(row_of, minlength=n_rows), out=row_ptr[1:])
+    return np.argsort(row_of, kind="stable"), row_ptr
+
+
+def _csr_rows(row_ptr: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """The row of every entry of a CSR (entries up to ``row_ptr[-1]``)."""
+    ptr = row_ptr.long()
+    return torch.repeat_interleave(torch.arange(n_rows, device=ptr.device),
+                                   ptr[1:] - ptr[:-1])
+
+
+def _check_csr(row_ptr, col, val, n_rows: int, ref: torch.Tensor, prefix: str = ""):
+    """A CSR on ``ref``'s device: int32 ``row_ptr`` of n_rows + 1 entries,
+    int32 ``col`` and ``val`` of one length."""
+    if row_ptr.dtype != torch.int32 or tuple(row_ptr.shape) != (n_rows + 1,):
+        raise TypeError(f"{prefix}row_ptr must be int32 of shape ({n_rows + 1},)")
+    A._check(row_ptr, f"{prefix}row_ptr", ref, index=True)
+    A._check(col, f"{prefix}col", ref, index=True)
+    A._check(val, f"{prefix}val", ref, tuple(col.shape))
+
+
 def transposed_csr(cols: np.ndarray, vals: np.ndarray, n_cols: int):
     """The CSR of A^T from a row-major ELL of A's nonzeros (``vals !=
     0``): row j of A^T holds the entries of column j of A in ascending
@@ -134,10 +161,7 @@ def transposed_csr(cols: np.ndarray, vals: np.ndarray, n_cols: int):
     rows, ks = np.nonzero(vals != 0)
     if len(rows) >= _INDEX_LIMIT:
         raise ValueError(f"{len(rows)} nonzeros: more than an int32 can address")
-    c = cols[rows, ks].astype(np.int64)
-    order = np.argsort(c, kind="stable")
-    row_ptr = np.zeros(n_cols + 1, np.int64)
-    np.cumsum(np.bincount(c, minlength=n_cols), out=row_ptr[1:])
+    order, row_ptr = _group_by_row(cols[rows, ks], n_cols)
     group = lanes_per_row(len(rows) / max(n_cols, 1))
     return (row_ptr, rows[order].astype(np.int32), vals[rows[order], ks[order]], group)
 
@@ -516,18 +540,12 @@ def _check_transposed(e: DeviceELLW, R: torch.Tensor, name: str, batch: bool):
     if e.trow_ptr is None:
         raise ValueError("this layout has no transposed form on the device: "
                          "upload it with ELLW.device(..., transposed=True)")
-    if e.trow_ptr.dtype != torch.int32 or tuple(e.trow_ptr.shape) != (e.n_cols + 1,):
-        raise TypeError(f"trow_ptr must be int32 of shape ({e.n_cols + 1},)")
-    A._check(e.trow_ptr, "trow_ptr", R, index=True)
-    A._check(e.tcol, "tcol", R, index=True)
-    A._check(e.tval, "tval", R, tuple(e.tcol.shape))
+    _check_csr(e.trow_ptr, e.tcol, e.tval, e.n_cols, R, prefix="t")
 
 
 def _transposed_rows(e: DeviceELLW) -> torch.Tensor:
     """The row of A^T (a column of A) of every entry of the transposed form."""
-    ptr = e.trow_ptr.long()
-    return torch.repeat_interleave(torch.arange(e.n_cols, device=ptr.device),
-                                   ptr[1:] - ptr[:-1])
+    return _csr_rows(e.trow_ptr, e.n_cols)
 
 
 def ellw_rmatvec_plain(e: DeviceELLW, r):
@@ -676,6 +694,115 @@ def ellw_rmatvec_batch(e: DeviceELLW, R):
 
 
 ellw_rmatvec_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the far remainder of a block-banded operator (solvers/mg.py::_banded_mv)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass
+class DeviceCSR:
+    """A sparse remainder F (``n_rows`` x ``n_cols``) as a CSR by row on
+    the device: ``row_ptr`` (n_rows + 1,) int32, ``col`` int32 and ``val``
+    of a fixed capacity (entries past ``row_ptr[-1]``: column 0, value 0,
+    never read), ``group`` lanes per row; :func:`csr_add` adds F X."""
+
+    n_rows: int
+    n_cols: int
+    row_ptr: torch.Tensor
+    col: torch.Tensor
+    val: torch.Tensor
+    group: int
+
+
+def far_csr(rows, cols, vals, n_rows: int, capacity: int):
+    """The CSR by row of a COO list's nonzeros (``vals != 0``; a refill
+    pads its list with zeros), a row's entries in their listed order (a
+    stable sort by row): ``(row_ptr int32 (n_rows + 1,), col int32
+    (capacity,), val (capacity,))``, the entries past ``row_ptr[-1]`` at
+    column 0 with value 0.  Raises ``ValueError`` where the nonzeros
+    outnumber ``capacity``."""
+    rows, cols, vals = np.asarray(rows), np.asarray(cols), np.asarray(vals)
+    nz = np.flatnonzero(vals != 0)
+    if len(nz) > capacity:
+        raise ValueError(f"{len(nz)} far entries for a capacity of {capacity}")
+    order, row_ptr = _group_by_row(rows[nz], n_rows)
+    order = nz[order]
+    col = np.zeros(capacity, np.int32)
+    val = np.zeros(capacity, vals.dtype)
+    col[:len(order)] = cols[order]
+    val[:len(order)] = vals[order]
+    return row_ptr.astype(np.int32), col, val
+
+
+def device_far(rows, cols, vals, n_rows: int, n_cols: int, dtype, device) -> DeviceCSR:
+    """:func:`far_csr` of a far COO list on ``device``, its capacity the
+    list's length; the lanes per row from the mean length of the rows
+    that have entries, frozen with the upload (a refill keeps them)."""
+    ptr, col, val = far_csr(rows, cols, vals, n_rows, len(rows))
+    counts = np.diff(ptr)
+    live = int((counts > 0).sum())
+    return DeviceCSR(
+        n_rows, n_cols, torch.as_tensor(ptr, device=device),
+        torch.as_tensor(col, device=device),
+        torch.as_tensor(val, dtype=dtype, device=device),
+        lanes_per_row(counts.sum() / max(live, 1)))
+
+
+def _check_csr_add(f: DeviceCSR, X: torch.Tensor, Y: torch.Tensor):
+    A._check_value(X, "X")
+    if X.dim() not in (1, 2) or X.shape[-1] != f.n_cols or 0 in X.shape:
+        raise ValueError(f"X has shape {tuple(X.shape)}, expected (n_cols,) or "
+                         f"(B, n_cols) with n_cols = {f.n_cols}")
+    A._check(X, "X", X)
+    A._check(Y, "Y", X, X.shape[:-1] + (f.n_rows,))
+    _check_csr(f.row_ptr, f.col, f.val, f.n_rows, X)
+    if f.group not in GROUPS:
+        raise ValueError(f"group = {f.group}: one of {GROUPS} is needed")
+
+
+def csr_add_plain(f: DeviceCSR, X, Y):
+    """Y += F X, each row's entries added to Y in turn, in their stored
+    order (``index_add_``, in order on the CPU)."""
+    n = int(f.row_ptr[-1])
+    return Y.index_add_(-1, _csr_rows(f.row_ptr, f.n_rows),
+                        f.val[:n] * X[..., f.col[:n].long()])
+
+
+def csr_add(f: DeviceCSR, X, Y):
+    """Y += F X for a far remainder F (:class:`DeviceCSR`), in place: X
+    (n_cols,) or (B, n_cols), Y (n_rows,) or (B, n_rows).
+
+    The far-COO remainder of a block-banded multigrid operator, which the
+    JAX package adds by a scatter (``knpemi_tpu/solvers/mg.py:1038``,
+    :1075) outside any Pallas kernel.  It runs on K5/K6b's kernel
+    (``csrc/mg.cu::csr_gather_batch_kernel``, its ``ADD`` form) and counts
+    its launches under theirs: ``ellw_rmatvec`` for one vector,
+    ``ellw_rmatvec_batch`` for a batch (groups of 8).  Each row's entries
+    are summed in a fixed order (``group`` lanes, fused multiply-adds, a
+    fixed shuffle tree, as K5) and added to Y by one plain load and
+    store: no atomics, the same bits every launch.  Each launch also
+    adds one to ``csr_add.launches``, the far remainder's share of
+    K5's and K6b's counts."""
+    _check_csr_add(f, X, Y)
+    if not X.is_cuda:
+        return csr_add_plain(f, X, Y)
+    batch = X.dim() == 2
+    B = X.shape[0] if batch else 1
+    for b0 in range(0, B, A.BATCH_MAX):
+        nb = min(A.BATCH_MAX, B - b0)
+        A._launch("csr_gather_add_batch", X, f.row_ptr.data_ptr(), f.col.data_ptr(),
+                  f.val.data_ptr(), X[b0:].data_ptr() if batch else X.data_ptr(),
+                  Y[b0:].data_ptr() if batch else Y.data_ptr(), f.n_rows, f.n_cols, nb,
+                  f.group)
+        if batch:
+            ellw_rmatvec_batch.launches += 1
+        else:
+            ellw_rmatvec.launches += 1
+        csr_add.launches += 1
+    return Y
+
+
+csr_add.launches = 0
 
 
 # (wrapper, plain version) of this module's kernels

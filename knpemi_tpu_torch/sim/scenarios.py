@@ -20,7 +20,10 @@ from __future__ import annotations
 
 import torch
 
-from ..mesh import astrocyte_tissue_mesh, idealized_2d_mesh, idealized_3d_mesh
+from ..io.xdmf import read_mesh
+from ..mesh import (
+    astrocyte_tissue_mesh, idealized_2d_mesh, idealized_3d_mesh, remark_emimesh,
+)
 from ..models import get_model, setup_membrane_model
 from ..ops.geometry import build_geometry
 from ..systems.types import Ion, PhysicalParams
@@ -120,16 +123,25 @@ def build_astrocyte(config: dict, dtype=torch.float64, device=None,
     """The astrocyte tissue scenario of ``config`` (keys of
     ``sim/config.py``; ``mesh_n`` overrides the per-axis cell count, 64
     gives the 840,015 dofs/step flagship); ``device=None`` means CUDA.
+    With ``mesh_file`` the mesh is read from that XDMF file
+    (``io.read_mesh``) and, with ``remark``, converted from emimesh
+    conventions (``mesh.remark_emimesh``, e.g. ``{ecs_tag_in: 1, scale:
+    1e-7, tag_map: {100: 2}}``; YAML may give the map's keys as
+    strings); without it the synthetic tissue mesh is built.
     ``solver_options`` replaces that script's defaults
     (``examples/astrocyte/run_stim_duration.py``: rtol EMI 1e-6, KNP 1e-7,
     and the EMI hierarchy refreshed every 100 steps of ``Simulation.run``,
     ``mg_refresh_every=100``) overlaid with ``config['solver']``."""
     if config.get("mesh_file"):
-        raise NotImplementedError(
-            "reading a mesh file is not ported; leave mesh_file unset to use "
-            "the synthetic tissue mesh")
-    mesh = astrocyte_tissue_mesh(int(config.get("resolution", 0)),
-                                 n=config.get("mesh_n"))
+        mesh = read_mesh(config["mesh_file"])
+        if config.get("remark"):
+            opts = dict(config["remark"])
+            if "tag_map" in opts:
+                opts["tag_map"] = {int(k): int(v) for k, v in opts["tag_map"].items()}
+            mesh = remark_emimesh(mesh, **opts)
+    else:
+        mesh = astrocyte_tissue_mesh(int(config.get("resolution", 0)),
+                                     n=config.get("mesh_n"))
     geom = build_geometry(mesh)
     params = PhysicalParams(
         dt=float(config.get("dt", 0.1)), F=96500e3, R=8.315e3,

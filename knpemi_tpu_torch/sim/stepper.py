@@ -20,12 +20,14 @@ default here) or its block-banded / windowed-ELL multigrid
 The JAX package jits and scans the step; here it runs eagerly, and each
 Krylov iteration reads its stopping test back to the host.  ``run``
 advances in chunks of ``save_every`` steps as the JAX ``run`` does
-(``knpemi_tpu/sim/stepper.py:653-781``): after each chunk it reads the iteration counts once,
-calls the observer with a host copy of the state and, with
-``SolverOptions.mg_refresh_every``, refreshes the lagged EMI
-hierarchy's values from the current concentrations (``refresh_mg``;
-host numpy/scipy, on one worker thread with ``mg_refresh_async``), the
-new values copied into the device tensors in place.
+(``knpemi_tpu/sim/stepper.py:653-803``): after each chunk it reads the
+iteration counts once, acts on a solve that did not converge
+(``SolverOptions.on_divergence``), with ``SolverOptions.mg_refresh_every``
+refreshes the lagged EMI hierarchy's values from the current
+concentrations (``refresh_mg``; host numpy/scipy, on one worker thread
+with ``mg_refresh_async``, the new values copied into the device
+tensors in place), calls the observer with a host copy of the state and,
+every ``checkpoint_every`` steps, the checkpoint callback with that copy.
 """
 
 from __future__ import annotations
@@ -59,10 +61,16 @@ from ..systems.types import Ion, PhysicalParams, SimState, resolve_device
 MG_THETA = 0.04
 
 
+# what Simulation.run may do with a solve that did not converge
+ON_DIVERGENCE = ("raise", "warn", "ignore")
+
+
 @dataclasses.dataclass
 class SolverOptions:
     rtol_emi: float = 1e-5
     rtol_knp: float = 1e-7
+    # Krylov iterations a solve may take, EMI CG and KNP GMRES alike
+    maxiter: int = 1000
     # GMRES restart length of the KNP solve
     restart: int = 30
     # minimum KNP GMRES iterations before the convergence test may stop
@@ -87,6 +95,15 @@ class SolverOptions:
     # build the refreshed values on one background host thread (numpy and
     # scipy only) and install them at a later chunk boundary
     mg_refresh_async: bool = True
+    # what Simulation.run does when a Krylov solve did not converge:
+    # 'raise' (the reference's ksp_error_if_not_converged), 'warn' or
+    # 'ignore'
+    on_divergence: str = "raise"
+
+    def __post_init__(self):
+        if self.on_divergence not in ON_DIVERGENCE:
+            raise ValueError(f"on_divergence must be one of {ON_DIVERGENCE}, "
+                             f"got {self.on_divergence!r}")
 
 
 def _global_rcm(A_hat, s):
@@ -152,10 +169,11 @@ class Simulation:
         # compensated Krylov inner products in float32
         comp = dtype == torch.float32
         self.emi_solver = EMISolver(
-            self.emi_sys, rtol=opts.rtol_emi, dot=dot2 if comp else torch.dot,
+            self.emi_sys, rtol=opts.rtol_emi, maxiter=opts.maxiter,
+            dot=dot2 if comp else torch.dot,
         )
         self.knp_solver = KNPSolver(
-            self.knp_sys, rtol=opts.rtol_knp, restart=opts.restart,
+            self.knp_sys, rtol=opts.rtol_knp, maxiter=opts.maxiter, restart=opts.restart,
             min_iter=opts.min_iter_knp, dot=dot2 if comp else torch.dot,
             bdot=bdot2 if comp else None, batched=opts.knp_batched,
         )
@@ -411,25 +429,35 @@ class Simulation:
         )
 
     def run(self, state: SimState, n_steps: int, save_every: Optional[int] = None,
-            observer: Optional[Callable[[SimState], None]] = None):
+            observer: Optional[Callable[[SimState], None]] = None,
+            verbose: bool = False, checkpoint_every: int = 0,
+            checkpoint_cb: Optional[Callable[[SimState], None]] = None):
         """Advance n_steps in chunks of ``save_every`` steps (default: one
-        chunk); after each chunk read the iteration counts once, call
-        ``observer`` with a host (CPU) copy of the state and, every
+        chunk), as the JAX package's ``run`` does.  After each chunk, in
+        its order: read the chunk's iteration counts and convergence
+        flags once (with ``verbose``, print the chunk's ms/step and last
+        counts); act on a solve that did not converge as
+        ``SolverOptions.on_divergence`` says (``'raise'``: RuntimeError,
+        ``'warn'``: a RuntimeWarning, ``'ignore'``); every
         ``SolverOptions.mg_refresh_every`` steps since the last refresh
         and before the last chunk, refresh the EMI hierarchy (on a worker
         thread with ``mg_refresh_async``, installed at a later chunk
         boundary; a rebuild still in flight when the run ends is waited
-        for and installed, and the worker stopped).  Returns (state,
-        emi_iters[], knp_iters[], converged[]) with one entry per step.
-        Raises on a solve that did not converge (the reference's
-        ksp_error_if_not_converged), after the chunk that holds it."""
+        for and installed, and the worker stopped); call ``observer``
+        with a host (CPU) copy of the state; and, where
+        ``checkpoint_every`` steps have passed since the last checkpoint
+        and steps remain, call ``checkpoint_cb`` with a host copy (the
+        observer's).  Returns (state, emi_iters[], knp_iters[],
+        converged[]) with one entry per step."""
         chunk_n = save_every or n_steps
+        ckpt_on = checkpoint_cb is not None and checkpoint_every > 0
         it_e, it_k, ok = [], [], []
-        done = 0
+        done = last_ckpt = 0
         self._last_refresh = 0
         try:
             while done < n_steps:
                 n = min(chunk_n, n_steps - done)
+                t0 = time.perf_counter()
                 diag = []
                 for _ in range(n):
                     state = self.step(state)
@@ -437,23 +465,44 @@ class Simulation:
                         state.emi_iters.to(torch.int64), state.knp_iters.to(torch.int64),
                         (state.emi_ok & state.knp_ok).to(torch.int64)]))
                 diag = torch.stack(diag).cpu().numpy()  # one host read per chunk
+                if verbose:
+                    print(f"  steps {done + 1}..{done + n}: "
+                          f"{(time.perf_counter() - t0) / n * 1e3:.2f} ms/step, "
+                          f"emi_it={int(diag[-1, 0])} knp_it={int(diag[-1, 1])}")
                 it_e += diag[:, 0].tolist()
                 it_k += diag[:, 1].tolist()
                 ok += diag[:, 2].astype(bool).tolist()
                 done += n
-                if not all(ok[-n:]):
-                    bad = done - n + ok[-n:].index(False) + 1
-                    raise RuntimeError(
-                        f"Krylov solve did NOT converge at step {bad}; the chunk's last "
-                        f"step: emi_ok={bool(state.emi_ok)} (res {float(state.emi_res):.3e}), "
-                        f"knp_ok={bool(state.knp_ok)} (res {float(state.knp_res):.3e})")
-                host = _to_host(state) if observer is not None else None
+                self._check_health(state, ok[-n:], done - n)
+                ckpt_due = ckpt_on and done < n_steps and done - last_ckpt >= checkpoint_every
+                host = _to_host(state) if observer is not None or ckpt_due else None
                 self._maybe_refresh(state, host, done, n_steps)
                 if observer is not None:
                     observer(host)
+                if ckpt_due:
+                    checkpoint_cb(host)
+                    last_ckpt = done
         finally:
             self._close_refresh()
         return state, np.array(it_e), np.array(it_k), np.array(ok)
+
+    def _check_health(self, state: SimState, ok_steps: List[bool], offset: int):
+        """A solve that did not converge in the chunk ``ok_steps`` (steps
+        ``offset + 1`` on): raise, warn or ignore, per
+        ``SolverOptions.on_divergence`` (the reference aborts:
+        ksp_error_if_not_converged)."""
+        mode = self.opts.on_divergence
+        if mode == "ignore" or all(ok_steps):
+            return
+        bad = offset + ok_steps.index(False) + 1
+        msg = (f"Krylov solve did NOT converge at step {bad}; the chunk's last step: "
+               f"emi_ok={bool(state.emi_ok)} (res {float(state.emi_res):.3e}), "
+               f"knp_ok={bool(state.knp_ok)} (res {float(state.knp_res):.3e}). "
+               "Increase maxiter, refresh the multigrid hierarchy or relax rtol.")
+        if mode == "warn":
+            warnings.warn(msg, RuntimeWarning, stacklevel=3)
+        else:
+            raise RuntimeError(msg)
 
 
 def _to_host(state: SimState) -> SimState:

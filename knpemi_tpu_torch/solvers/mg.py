@@ -473,16 +473,17 @@ def _device_band(band, dtype, device, slab_dtype=None):
     """A :func:`_csr_to_banded` layout as device tensors: each window in
     the packed form K7/K8 read (``ops/banded.py::pack_window``, values in
     ``slab_dtype``, default ``dtype``; the dense slab stays on the host),
-    far values in ``dtype``."""
+    the far COO list as a CSR by row of its capacity
+    (``ops/ell.py::device_far``, values in ``dtype``), which K5/K6b's
+    kernel adds row by row; the COO triplets stay on the host."""
     if band is None:
         return None
     windows, far_rows, far_cols, far_vals, n, m = band
-    as_i = lambda a: torch.as_tensor(a, dtype=torch.int64, device=device)
     return dict(
         windows=[band_ops.pack_window(sT, w0, W, slab_dtype or dtype, device)
                  for sT, w0, W in windows],
-        far_rows=as_i(far_rows), far_cols=as_i(far_cols),
-        far_vals=torch.as_tensor(far_vals, dtype=dtype, device=device), n=n, m=m,
+        far=ell_ops.device_far(far_rows, far_cols, far_vals, n, m, dtype, device)
+        if len(far_rows) else None, n=n, m=m,
     )
 
 
@@ -811,16 +812,17 @@ def _ell_mv_batch(cols, vals, X):
 def _banded_mv(band, x, batch: bool):
     """y = A x (or Y = X A^T for X (B, m)) with A in multi-window
     block-banded form: each packed window through K7 (K8 for a batch, one
-    read of its nonzeros for all B vectors), summed, plus the COO
-    remainder."""
+    read of its nonzeros for all B vectors), summed, plus the far
+    remainder, each row's entries in a fixed order (``ell.csr_add`` on
+    K5/K6b's kernel): the same bits from every call."""
     mv = band_ops.banded_matvec_batch if batch else band_ops.banded_matvec
     y = None
     for win in band["windows"]:
         ys = mv(win, x, band["n"])
         y = ys if y is None else y + ys
-    if band["far_rows"].shape[0]:
-        far = band["far_vals"] * x[..., band["far_cols"]]
-        y.index_add_(-1, band["far_rows"], far)  # y is this call's own
+    if band["far"] is not None:
+        # y is this call's own (a plain window sum may be a strided view)
+        y = ell_ops.csr_add(band["far"], x, y.contiguous())
     return y
 
 
@@ -886,8 +888,13 @@ class DeviceMG:
                             f"packed {w}_band refill at level {i} dropped {frac:.2e} "
                             f"of its |A| mass (> {max_drop_frac:.0e}): no slot for "
                             "a refreshed nonzero")
-                    pairs += [(band["far_rows"], far_rows), (band["far_cols"], far_cols),
-                              (band["far_vals"], far_vals)]
+                    far = band["far"]
+                    if far is not None:
+                        # the refreshed list, sorted by row anew into the
+                        # frozen capacity: its rows may have moved
+                        ptr, col, val = ell_ops.far_csr(far_rows, far_cols, far_vals,
+                                                        far.n_rows, far.col.shape[0])
+                        pairs += [(far.row_ptr, ptr), (far.col, col), (far.val, val)]
                 e = lv[w + "_ellw"]
                 if e is not None:
                     ep, nd, frac = getattr(hl, w + "_ellw").refill_arrays(e, max_drop_frac)
@@ -921,7 +928,8 @@ class DeviceMG:
                 if torch.is_tensor(v):
                     out.append(v)
                 elif isinstance(v, dict):  # a band
-                    out += [v["far_rows"], v["far_cols"], v["far_vals"]]
+                    if v["far"] is not None:
+                        out += [v["far"].row_ptr, v["far"].col, v["far"].val]
                     for win in v["windows"]:
                         out += [win.slot_ptr, win.off, win.val, win.w0]
                 elif isinstance(v, ell_ops.DeviceELLW):

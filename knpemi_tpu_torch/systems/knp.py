@@ -122,30 +122,29 @@ class KNPSystem:
             for t, s in geom.subdomains.items()} if per_ion else {}
         fb, fw = quad.facet_rule(self.dim)
         self.fb, self.fw = as_f(fb), as_f(fw)
-        self._src_vec = self._source_vectors(ions, as_f)
+        self._src_vec = self._source_vectors(geom, ions)
 
-    def _source_vectors(self, ions, as_f):
+    def _source_vectors(self, geom: DiscreteGeometry, ions):
         """{tag: (N_solved, n) or None}: the load vector of every solved
         ion's source term, from its values at the cell quadrature points
-        (``Ion.f_source_q``); an ion without one contributes a zero row."""
-        cb, cw = quad.cell_rule(self.dim)
-        cb, cw = as_f(cb), as_f(cw)
+        (``Ion.f_source_q``); an ion without one contributes a zero row.
+        Summed on the host in float64, then cast and moved: a scatter on
+        the card adds with atomics in a varying order, and two builds of
+        one scenario gave different bits."""
+        host = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)
+        cb, cw = (host(a) for a in quad.cell_rule(self.dim))
         out = {}
-        for t, s in self.sub.items():
+        for t, sub in geom.subdomains.items():
             if not any(ion.f_source_q and t in ion.f_source_q for ion in ions[:-1]):
                 out[t] = None
                 continue
-            cells = s["cells"].long()
-            rows = []
-            for ion in ions[:-1]:
-                if ion.f_source_q and t in ion.f_source_q:
-                    rows.append(K.source_rhs_quad(
-                        s["n_dofs"], as_f(ion.f_source_q[t]), cells, s["vols"],
-                        cb, cw))
-                else:
-                    rows.append(torch.zeros(s["n_dofs"], dtype=self.dtype,
-                                            device=self.device))
-            out[t] = torch.stack(rows)
+            cells = torch.as_tensor(np.asarray(sub.cells, np.int64))
+            rows = [K.source_rhs_quad(sub.n_dofs, host(ion.f_source_q[t]), cells,
+                                      host(sub.vols), cb, cw)
+                    if ion.f_source_q and t in ion.f_source_q
+                    else torch.zeros(sub.n_dofs, dtype=torch.float64)
+                    for ion in ions[:-1]]
+            out[t] = torch.stack(rows).to(self.device, self.dtype)
         return out
 
     # ------------------------------------------------------------------

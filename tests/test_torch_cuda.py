@@ -614,3 +614,96 @@ def test_k9_raises_rather_than_fall_back():
     with pytest.raises(ValueError):
         A.facet_gather(X.t(), fd)
     assert A.facet_gather.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("G", [4, 8, 32])
+@pytest.mark.parametrize("B", [None, 1, 2, 3, 8, 9])
+def test_far_sum_matches_its_plain_twin_and_repeats(G, B, dtype):
+    """The far remainder of a banded operator on K5/K6b's kernel (its ADD
+    form): its plain twin on the CPU to 1e-13 of max|y| in float64 (1e-5
+    in float32), the same bits from two launches, rows without entries
+    left alone, and the launches counted under K5 (one vector) or K6b (a
+    batch, groups of 8), each also in ``csr_add.launches``."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import numpy as np
+
+    from knpemi_tpu_torch.ops import ell as TE
+
+    rng = np.random.default_rng(G + (B or 0))
+    n, m = 5000, 7000
+    counts = rng.integers(0, 3 * G, n)
+    counts[rng.random(n) < 0.8] = 0
+    rows = np.repeat(np.arange(n), counts)
+    cols = rng.integers(0, m, len(rows))
+    vals = rng.standard_normal(len(rows))
+    perm = rng.permutation(len(rows))
+    ptr, col, val = TE.far_csr(rows[perm], cols[perm], vals[perm], n, len(rows) + 11)
+    dev = lambda d: TE.DeviceCSR(n, m, torch.as_tensor(ptr, device=d),
+                                 torch.as_tensor(col, device=d),
+                                 torch.as_tensor(val, dtype=dtype, device=d), G)
+    fc, fh = dev("cuda"), dev("cpu")
+    shape = (B, m) if B else (m,)
+    X = torch.as_tensor(rng.standard_normal(shape), dtype=dtype)
+    Y0 = torch.as_tensor(rng.standard_normal(shape[:-1] + (n,)), dtype=dtype)
+    before = TE.ellw_rmatvec.launches, TE.ellw_rmatvec_batch.launches
+    far_before = TE.csr_add.launches
+    Xc = X.cuda()
+    Y1 = TE.csr_add(fc, Xc, Y0.cuda())
+    Y2 = TE.csr_add(fc, Xc, Y0.cuda())
+    torch.cuda.synchronize()
+    want = TE.csr_add(fh, X, Y0.clone())
+    assert torch.equal(Y1, Y2)
+    tol = 1e-13 if dtype == torch.float64 else 1e-5
+    err = float((Y1.cpu() - want).abs().max())
+    assert err <= tol * float(want.abs().max()), err
+    empty = torch.as_tensor(np.diff(ptr) == 0)
+    assert torch.equal(Y1.cpu()[..., empty], Y0[..., empty])
+    after = TE.ellw_rmatvec.launches, TE.ellw_rmatvec_batch.launches
+    if B:
+        assert after == (before[0], before[1] + 2 * -(-B // 8))
+    else:
+        assert after == (before[0] + 2, before[1])
+    assert TE.csr_add.launches - far_before == sum(after) - sum(before)
+
+
+def test_two_banded_steps_from_one_state_are_bitwise_equal():
+    """The 3-D res-1 scenario with mg_banded=True, whose EMI hierarchy has
+    a far remainder: two steps from one state give the same bits in
+    every tensor of the state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+
+    sim = build_idealized(dim=3, resolution=1, g_syn_bar=10.0, dtype=torch.float32,
+                          device="cuda", solver_options=SolverOptions(mg_banded=True))
+    assert any(lv[w + "_band"] is not None and lv[w + "_band"]["far"] is not None
+               for lv in sim.emi_solver.mg.levels for w in ("a", "ap", "p", "pt"))
+    state, _, _, _ = sim.run(sim.init_state(), 2)
+    a, b = sim.step(state), sim.step(state)
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        for k in (x if isinstance(x, dict) else [None]):
+            u, v = (x[k], y[k]) if k is not None else (x, y)
+            assert torch.equal(u, v), (f.name, k)
+
+
+def test_two_builds_give_the_same_source_vector():
+    """The ECS source's load vector is summed on the host in float64 and
+    cast: two float32 builds of the tissue scenario on the card hold the
+    same bits, those of the float64 CPU build cast to float32 (a scatter
+    on the card added with atomics, and two builds differed)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from knpemi_tpu_torch.sim import ASTROCYTE_BASELINE, build_astrocyte
+
+    cfg = {**ASTROCYTE_BASELINE, "mesh_n": 20}
+    a, b = (build_astrocyte(cfg, dtype=torch.float32, device="cuda") for _ in range(2))
+    ref = build_astrocyte(cfg, dtype=torch.float64, device="cpu").knp_sys._src_vec[0]
+    va, vb = a.knp_sys._src_vec[0], b.knp_sys._src_vec[0]
+    assert va.abs().max() > 0
+    assert torch.equal(va, vb)
+    assert torch.equal(va.cpu(), ref.to(torch.float32))

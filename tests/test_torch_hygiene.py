@@ -91,8 +91,13 @@ def test_simulation_without_device_needs_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         build_astrocyte(small)
     assert build_astrocyte(small, device="cpu").device == torch.device("cpu")
-    with pytest.raises(NotImplementedError):
-        build_astrocyte({**small, "mesh_file": "tissue.xdmf"}, device="cpu")
+    # a mesh file is read (io.read_mesh), not ignored: a missing one raises
+    with pytest.raises(OSError):
+        build_astrocyte({**small, "mesh_file": "no-such-tissue.xdmf"}, device="cpu")
+    from knpemi_tpu_torch.drivers.run_stim_duration import build_simulation
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_simulation(small)
     with pytest.raises(RuntimeError, match="CUDA"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")

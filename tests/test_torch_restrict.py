@@ -225,7 +225,7 @@ def test_restriction_has_no_atomics_and_no_memset():
     mg.cu, whose source has no atomic add left."""
     src = (PORT / "ops" / "csrc" / "mg.cu").read_text()
     assert "atomicAdd" not in src and "ell_rmatvec_batch_kernel" not in src
-    assert "csr_gather_batch_kernel<T, BB, G>" in src and "__shfl_down_sync" in src
+    assert "csr_gather_batch_kernel<T, BB, G, ADD>" in src and "__shfl_down_sync" in src
     assert TA._SIGS["csr_gather_batch"][:2] == ("mg", "knp_csr_gather_batch")
     assert "ell_rmatvec" not in TA._SIGS and "ell_rmatvec_batch" not in TA._SIGS
     tree = ast.parse((PORT / "ops" / "ell.py").read_text())

@@ -9,6 +9,8 @@ to run without CUDA.
 import inspect
 import sys
 
+import pytest
+
 import chip_smoke
 
 
@@ -59,3 +61,104 @@ def test_step_diff_reads_an_ab_by_kernel_name(tmp_path, capsys):
         assert r["net_count_moved_ms"] == -0.75 and r["net_count_equal_ms"] == 0.5
         assert [(t["name"], t["ms"]) for t in r["top"]] == [("a", -1.0), ("b", 0.5),
                                                           ("c", 0.25)]
+
+
+def test_environment_line_names_h5py_and_yaml():
+    rec = chip_smoke.environment("NVIDIA H100 80GB HBM3, 700.00 W")
+    assert rec["phase"] == 0 and rec["case"] == "environment"
+    assert {"h5py", "yaml", "nvidia_smi", "python"} <= set(rec)
+
+
+def _on_the_cpu(monkeypatch, mesh_n=8):
+    """The resume checks' CUDA calls made harmless, the driver's build on
+    the CPU in float64, the flagship cut to ``mesh_n``."""
+    import torch
+
+    import knpemi_tpu_torch.io as tio
+    from knpemi_tpu_torch.drivers import run_stim_duration as drv
+    from knpemi_tpu_torch.sim import build_astrocyte
+
+    load = tio.load_checkpoint
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    monkeypatch.setattr(tio, "load_checkpoint",
+                        lambda p, device=None, dtype=None: load(p, device="cpu", dtype=dtype))
+    monkeypatch.setattr(drv, "build_simulation", lambda c, device=None: build_astrocyte(
+        c, dtype=torch.float64, device="cpu"))
+    monkeypatch.setattr(chip_smoke, "MESH_N", mesh_n)
+
+
+@pytest.mark.parametrize("h5py", [True, False], ids=["h5py", "no h5py"])
+def test_resume_phase_flow_on_the_cpu(monkeypatch, tmp_path, h5py):
+    """The resume phase's flow at mesh_n 8 on the CPU: three builds, the
+    gold and split legs bitwise equal in state and traces and, with
+    h5py, in every XDMF dataset, the geometry read from the mesh file
+    equal to the synthetic one; without h5py the line says so."""
+    import importlib.util
+
+    from knpemi_tpu_torch.sim import ASTROCYTE_BASELINE
+
+    _on_the_cpu(monkeypatch)
+    if not h5py:
+        real = importlib.util.find_spec
+        monkeypatch.setattr(importlib.util, "find_spec",
+                            lambda name, *a: None if name == "h5py" else real(name, *a))
+    rec = chip_smoke.resume_phase(ASTROCYTE_BASELINE, tmp_path)
+    assert rec["identical"] and rec["traces_equal_before_checkpoint"]
+    assert list(rec["legs"]) == ["gold", "split first", "split resumed"]
+    assert [rec["legs"][k]["steps"] for k in rec["legs"]] == [16, 8, 8]
+    assert sum(rec["legs"]["split resumed"]["knp_iters"]) > 0
+    if h5py:
+        assert rec["mesh_file"]["geometry_equal"] and rec["xdmf"]["datasets"] > 0
+    else:
+        assert rec["xdmf"] == "h5py not installed"
+        assert rec["mesh_file"].startswith("h5py not installed")
+    assert rec["checkpoint_bytes"] > 0 and rec["step"] == 16
+
+
+def test_in_process_resume_flow_on_the_cpu(monkeypatch, tmp_path):
+    import torch
+
+    from knpemi_tpu_torch.sim import ASTROCYTE_BASELINE, SolverOptions, build_astrocyte
+
+    _on_the_cpu(monkeypatch)
+    sim = build_astrocyte({**ASTROCYTE_BASELINE, "mesh_n": 8}, dtype=torch.float32,
+                          device="cpu", solver_options=SolverOptions(mg_banded=True,
+                                                                     **chip_smoke.TUNED))
+    state, *_ = sim.run(sim.init_state(), 12)
+    rec = chip_smoke.resume_in_process(sim, state, tmp_path)
+    assert rec["identical"] and rec["from_step"] == 12 and rec["checkpoint_bytes"] > 0
+    assert chip_smoke.step_determinism(sim, state)["identical"]
+
+
+def test_far_add_cases_cover_every_far_remainder_on_the_cpu():
+    """``far_cases`` on the 3-D res-1 banded scenario on the CPU: a case for
+    every banded operator of the EMI and KNP hierarchies that has a far
+    remainder, one vector counted under K5 and a batch under K6b, the
+    first timed, each case's kernel and plain version on the same inputs
+    leaving them as they were, a bound of positive bytes, and the step
+    able to reach K5 (and K6b where a KNP hierarchy has a far remainder)."""
+    import torch
+
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+
+    sim = build_idealized(dim=3, resolution=1, dtype=torch.float64, device="cpu",
+                          solver_options=SolverOptions(mg_banded=True))
+    hier = {"EMI": sim.emi_solver.mg, **{f"KNP tag {t}": mg for t, mg
+                                         in sorted(sim.knp_solver.mg.items())}}
+    n_far = {h: len(chip_smoke._far_bands(mg)) for h, mg in hier.items()}
+    assert n_far["EMI"] >= 1
+    for h, mg in hier.items():
+        Bs = (None,) if h == "EMI" else (2, 1, 8)
+        cases = chip_smoke.far_cases(mg, h, torch.float64, Bs)
+        assert len(cases) == n_far[h] * len(Bs)
+        assert [c["time"] for c in cases] == [k == 0 for k in range(len(cases))]
+        for c in cases:
+            want = "K5 ellw_rmatvec" if "one vector" in c["variant"] else \
+                "K6b ellw_rmatvec_batch"
+            assert c["name"] == want and c["variant"].startswith("far add")
+            assert c["nbytes"] > 0 and c["ops"] > 0 and c["tol"]["float64"] == 1e-13
+            y1, y2 = c["kern"](), c["plain"]()
+            assert torch.equal(y1, y2) and torch.equal(c["kern"](), y1)
+    knp_far = sum(v for h, v in n_far.items() if h != "EMI")
+    assert {"K5", *(("K6b",) if knp_far else ())} <= chip_smoke.reachable_kernels(sim)
