@@ -83,7 +83,15 @@ and 4 come in two groups):
    2 refreshes installed and none skipped; and once more on the GPU with
    the refresh on its worker thread (mg_refresh_async): at least one
    installed, none skipped, no worker left, the same gates against the
-   synchronous GPU run;
+   synchronous GPU run; then the solver options, 2 float64 steps each on
+   the GPU and the CPU with the same gates: on the 3-D res-1 case in
+   both layouts Chebyshev smoothing (degree 3), two sweeps a side, the
+   KNP V(1,0) cycle, the W-cycle (gamma 2 on every built hierarchy) and
+   compensated dots, on the 2-D res-1 case the host LU (direct=True)
+   and the deflated Jacobi CG (emi_precond='jacobi'); then one Chebyshev
+   and one W-cycle of each layout's hierarchies on the 3-D res-0 l = 1
+   box, GPU against CPU, within 1e-12 of max|y| (the W-cycle's EMI
+   apply 1e-10: it amplifies roundoff);
 3. slice: the 3-D res-2 scenario (float32, g_syn_bar 10), 2 warm-up and
    10 timed steps, once per multigrid path (mg_banded=False, then
    mg_banded=True with the layout build_hierarchy chose per level);
@@ -131,16 +139,37 @@ resume. the checkpoint -> resume path at the flagship's width (mesh_n
    series and the third build is synthetic, and the line says so.
    Setup seconds a build, ms/step and iterations a leg, the bytes of a
    checkpoint and of a set of frames, a checkpoint's write and read
-   seconds and 2 profiled steps from the resumed state;
+   seconds and 1 profiled step from the resumed state;
+mms. the manufactured-solution study on the card in float64
+   (``systems/mms.py``): the 3-D case on the unit cube at M = 8, 16, 32
+   (196,608 tetrahedra at 32) and the 2-D one at M = 8, 16, 32, each
+   solved by the deflated-Jacobi CG and the Jacobi GMRES, ion-batched
+   (K3) and, at M = 8 and 16, per ion (K11), on the host-assembled
+   exact drift, rtol 1e-10; in 3-D also by the host LU at M = 8 and 16
+   and on the CPU at M = 8.  Per field and M the L2 errors, the rates,
+   iterations, setup and solve seconds.  Gates: the last rate above 1.6
+   (3-D) / 1.8 (2-D) for every field; the per-ion errors within 1e-6 +
+   1e-3 e of the batched ones and, at M = 16, both within as much of the
+   direct ones; at M = 8 a second GPU run bitwise equal to the first,
+   and GPU against CPU equal iterations and every field within 1e-9 of
+   its max|u|; at the largest M of each dimension the
+   path's kernels against their plain versions within 1e-13 of max|y|
+   and bitwise across two launches, their launches not counted (the
+   masked EMI operator, K1 and K2; K3 and K11 on the exact drift stream
+   against the plain quadrature drift, and on the KNP system's streams);
+   every M prints the sha256 of its host data by field; the
+   launch counts, set to 0 before the phase, must show K1, K1f, K2, K3,
+   K4 and K11;
 4. profile, per res-2 path and per flagship run: the
    step's four phases timed by host clock over 2 steps, their kernel
-   counts in one step, then 2 steps under
+   counts in one step, then 1 step under
    torch.profiler — device kernel time and busy share, kernels per
    step, the top kernels.
 
 Then the kernel table as one JSON line of fourteen entries (the twelve
 kernels of the batched step from the long box, K11 and K11f from the
-per-ion flagship run), the cost per solve of the P1 operator's fill and
+per-ion flagship run; every row also with its launches in the mms
+phase), the cost per solve of the P1 operator's fill and
 applies (K1, K11, and K3 with its drift fill and mass term), the card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and the script exits non-zero without that line; it
@@ -150,6 +179,7 @@ beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -300,7 +330,9 @@ def device_ms(fn, reps: int = 30):
     device time."""
     import statistics
 
-    if "keys" not in _FLUSH:
+    for _ in range(3):  # the process's first profiler session may record no device event
+        if _FLUSH.get("keys"):
+            break
         _FLUSH["keys"] = {key for key, _, _ in _device_events(lambda: None, 3)}
     fn()
     calls = []  # device us per call: each flush opens the next call
@@ -1340,6 +1372,17 @@ def max_rel(a, b):
     return float(((a - b).abs() / b.abs().clamp_min(1e-300)).max())
 
 
+def gpu_vs_cpu(g, c, label: str, unit: str = "V"):
+    """max|d phi_M| and max relative d c between a GPU state ``g`` and a CPU
+    state ``c``: the phase-2 gates, 1e-9 each."""
+    dphi = max(float((g.phi_M[m].cpu() - c.phi_M[m]).abs().max()) for m in c.phi_M)
+    dc = max(max_rel(g.c[t].cpu(), c.c[t]) for t in c.c)
+    if not (dphi <= 1e-9 and dc <= 1e-9):
+        raise AssertionError(f"{label}: GPU vs CPU: max|d phi_M| {dphi:.3e} {unit}, "
+                             f"max rel d c {dc:.3e} (gates 1e-9)")
+    return dphi, dc
+
+
 def parity(build_idealized, SolverOptions):
     """2 float64 steps of the 3-D res-1 scenario on the GPU and the CPU:
     ion-batched with ELL and with banded multigrid, and per-ion with
@@ -1382,14 +1425,8 @@ def parity(build_idealized, SolverOptions):
             o = out[f"{path}_{dev}"]
             if o["emi_iters"] != ref["emi_iters"] or o["knp_iters"] != ref["knp_iters"]:
                 raise AssertionError(f"iteration counts differ ({path}_{dev}): {out}")
-        g, c = states[f"{path}_cuda"], states[f"{path}_cpu"]
-        dphi = max(float((g.phi_M[m].cpu() - c.phi_M[m]).abs().max()) for m in c.phi_M)
-        dc = max(max_rel(g.c[t].cpu(), c.c[t]) for t in c.c)
-        if not (dphi <= 1e-9 and dc <= 1e-9):
-            raise AssertionError(f"{path}: GPU vs CPU: max|d phi_M| {dphi:.3e} V, "
-                                 f"max rel d c {dc:.3e} (gates 1e-9)")
-        out[f"{path}_max_abs_dphi_M_V"] = dphi
-        out[f"{path}_max_rel_dc"] = dc
+        out[f"{path}_max_abs_dphi_M_V"], out[f"{path}_max_rel_dc"] = gpu_vs_cpu(
+            states[f"{path}_cuda"], states[f"{path}_cpu"], path)
     return out
 
 
@@ -1416,14 +1453,8 @@ def parity_astrocyte(build_astrocyte, baseline, SolverOptions):
         g, c = out[f"{name}_cuda"], out[f"{name}_cpu"]
         if g["emi_iters"] != c["emi_iters"] or g["knp_iters"] != c["knp_iters"]:
             raise AssertionError(f"{name}: iteration counts differ GPU vs CPU: {out}")
-        g, c = states["cuda"], states["cpu"]
-        dphi = max(float((g.phi_M[m].cpu() - c.phi_M[m]).abs().max()) for m in c.phi_M)
-        dc = max(max_rel(g.c[t].cpu(), c.c[t]) for t in c.c)
-        if not (dphi <= 1e-9 and dc <= 1e-9):
-            raise AssertionError(f"{name}: GPU vs CPU: max|d phi_M| {dphi:.3e} mV, "
-                                 f"max rel d c {dc:.3e} (gates 1e-9)")
-        out[f"{name}_max_abs_dphi_M_mV"] = dphi
-        out[f"{name}_max_rel_dc"] = dc
+        out[f"{name}_max_abs_dphi_M_mV"], out[f"{name}_max_rel_dc"] = gpu_vs_cpu(
+            states["cuda"], states["cpu"], name, "mV")
     return out
 
 
@@ -1473,6 +1504,11 @@ def phase_kernels(sim, state):
 
     sim.step(state, span=span)
     return counts
+
+
+# steps under torch.profiler in phase 4: one, since the profiler's
+# post-processing takes seconds a step and the script has 20 minutes
+PROFILED_STEPS = 1
 
 
 def profile_steps(sim, state, n_steps: int, ms_per_step: float):
@@ -1666,8 +1702,8 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
     t0 = time.perf_counter()
     phases = phase_ms(sim, state, 2)
     phase_k = phase_kernels(sim, state)
-    prof = profile_steps(sim, state, 2, wall / n_steps * 1e3)
-    emit(dict(phase=4, path=label, case=case + ", 2 profiled steps",
+    prof = profile_steps(sim, state, PROFILED_STEPS, wall / n_steps * 1e3)
+    emit(dict(phase=4, path=label, case=case + f", {PROFILED_STEPS} profiled step",
               phase_ms_per_step=phases, phase_kernels_per_step=phase_k,
               **prof, seconds=time.perf_counter() - t0))
     return rec
@@ -2073,7 +2109,7 @@ def resume_phase(baseline, workdir: Path):
     equal between the legs (``identical``).  Reported: each build's
     setup seconds, each leg's ms/step (checkpoints and frames included)
     and iterations, the bytes of one checkpoint and one set of frames,
-    the seconds to write and read a checkpoint, and 2 profiled steps
+    the seconds to write and read a checkpoint, and 1 profiled step
     from the resumed state (device kernel time)."""
     import importlib.util
     import warnings
@@ -2172,7 +2208,7 @@ def resume_phase(baseline, workdir: Path):
     t2 = time.perf_counter()
     if differing_fields(split, back):
         raise AssertionError("resume: a checkpoint did not load back as it was saved")
-    prof = profile_steps(sim, split, 2, legs["split resumed"]["ms_per_step"])
+    prof = profile_steps(sim, split, PROFILED_STEPS, legs["split resumed"]["ms_per_step"])
     del sim
     torch.cuda.empty_cache()
     return dict(
@@ -2191,10 +2227,11 @@ def launch_floor_ms():
     import torch
 
     one = torch.empty(1, device="cuda")
-    ms = device_ms(lambda: one.fill_(1.0))
-    if ms is None:
-        raise RuntimeError("the profiler reported no device time for the launch floor")
-    return ms
+    for _ in range(3):  # the first profiler sessions of a process may record nothing
+        ms = device_ms(lambda: one.fill_(1.0))
+        if ms is not None:
+            return ms
+    raise RuntimeError("the profiler reported no device time for the launch floor")
 
 
 def parity_refresh(build_idealized, SolverOptions):
@@ -2226,14 +2263,8 @@ def parity_refresh(build_idealized, SolverOptions):
         g, c = out[f"{path}_cuda"], out[f"{path}_cpu"]
         if g["emi_iters"] != c["emi_iters"] or g["knp_iters"] != c["knp_iters"]:
             raise AssertionError(f"refresh {path}: iteration counts differ: {out}")
-        g, c = states["cuda"], states["cpu"]
-        dphi = max(float((g.phi_M[m].cpu() - c.phi_M[m]).abs().max()) for m in c.phi_M)
-        dc = max(max_rel(g.c[t].cpu(), c.c[t]) for t in c.c)
-        if not (dphi <= 1e-9 and dc <= 1e-9):
-            raise AssertionError(f"refresh {path}: GPU vs CPU: max|d phi_M| {dphi:.3e} V, "
-                                 f"max rel d c {dc:.3e} (gates 1e-9)")
-        out[f"{path}_max_abs_dphi_M_V"] = dphi
-        out[f"{path}_max_rel_dc"] = dc
+        out[f"{path}_max_abs_dphi_M_V"], out[f"{path}_max_rel_dc"] = gpu_vs_cpu(
+            states["cuda"], states["cpu"], f"refresh {path}")
     out["ell_cuda_async"] = _async_refresh(build_idealized, SolverOptions, sync_state)
     return out
 
@@ -2267,6 +2298,457 @@ def _async_refresh(build_idealized, SolverOptions, sync_state):
     if not (dphi <= 1e-9 and dc <= 1e-9):
         raise AssertionError(f"async refresh vs synchronous: {rec} (gates 1e-9)")
     return rec
+
+
+# the multigrid and solver options on the 3-D res-1 case, per layout
+# (gamma: the cycle index, set on every built hierarchy)
+OPTION_CASES = {
+    "mg_smoother=cheby": dict(mg_smoother="cheby", mg_degree=3),
+    "mg_nu=2": dict(mg_nu=2),
+    "knp_post_smooth=False": dict(knp_post_smooth=False),
+    "W-cycle": dict(gamma=2),
+    "compensated_dots=True": dict(compensated_dots=True),
+}
+# the options without a hierarchy, on the 2-D res-1 case (maxiter: the
+# deflated Jacobi CG's iterations at this size stay far below it)
+OPTION_CASES_2D = {
+    "direct=True": dict(direct=True),
+    "emi_precond=jacobi": dict(emi_precond="jacobi", maxiter=4000),
+}
+
+
+# one cycle of a hierarchy GPU against CPU, x max|y|: the V-cycle's and
+# Chebyshev's; the W-cycle's on the singular EMI operator, which amplifies
+# roundoff (a 1e-15 relative change of r moves its output by 2.2e-13 of
+# max|y| on the CPU at 3-D res 0, the V-cycle's by 6.5e-16)
+CYCLE_APPLY_TOL = {"emi": 1e-12, "knp": 1e-12, "emi W": 1e-10}
+CYCLE_APPLY_CASES = {"cheby": dict(mg_smoother="cheby", mg_degree=3), "W-cycle": dict(gamma=2)}
+
+
+def cycle_apply_readings(build_idealized, SolverOptions, banded: bool, name: str):
+    """One EMI ``DeviceMG.apply`` (one vector) and one apply_batch of the
+    first KNP hierarchy (B = 2), option case ``name`` of CYCLE_APPLY_CASES
+    (the cycle index set on both built hierarchies), on the 3-D res-0
+    l = 1 box (coarse_max 100: three levels), float64, in one multigrid
+    layout, on the GPU and the CPU from the same seeded host inputs:
+    max|GPU - CPU| / max|CPU| of each; gates CYCLE_APPLY_TOL.  Level 0
+    smooths with its own operator where it stores one (the identity
+    stands for the fine operator)."""
+    import torch
+
+    opts = dict(CYCLE_APPLY_CASES[name])
+    gamma = opts.pop("gamma", 1)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        sim = build_idealized(dim=3, resolution=0, l=1, g_syn_bar=10.0, dtype=torch.float64,
+                              device=dev, solver_options=SolverOptions(
+                                  mg_banded=banded, mg_coarse_max=100, **opts))
+        emi, knp = sim.emi_solver.mg, next(iter(sim.knp_solver.mg.values()))
+        assert emi.levels
+        emi.gamma = knp.gamma = gamma
+        gen = torch.Generator()
+        r = torch.randn(sim.emi_sys.n, generator=gen.manual_seed(0), dtype=torch.float64)
+        R = torch.randn(2, knp.fine_diag.shape[0], generator=gen.manual_seed(1),
+                        dtype=torch.float64)
+        outs[dev] = (emi.apply(lambda v: v, r.to(dev)).cpu(),
+                     knp.apply_batch(lambda V: V, R.to(dev)).cpu())
+    rec = {}
+    for key, g, c in zip(("emi", "knp"), outs["cuda"], outs["cpu"]):
+        rec[key] = float((g - c).abs().max() / c.abs().max())
+        tol = CYCLE_APPLY_TOL["emi W" if key == "emi" and gamma == 2 else key]
+        if not rec[key] <= tol:
+            raise AssertionError(f"{name} {'banded' if banded else 'ell'} {key} apply: GPU vs "
+                                 f"CPU {rec[key]:.3e} of max|y| (gate {tol:.0e})")
+    return rec
+
+
+def parity_options(build_idealized, SolverOptions):
+    """2 float64 steps per solver option on the GPU and on the CPU: the
+    multigrid options on the 3-D res-1 case in both layouts (Chebyshev
+    smoothing of degree 3, two sweeps a side, the KNP V(1,0) cycle, the
+    W-cycle, compensated dots), the options without a hierarchy on the 2-D
+    res-1 case (the host LU, the deflated Jacobi CG).  Gates per case:
+    equal iteration counts, phi_M within 1e-9 V, c within 1e-9 relative,
+    every step converged; the 3-D GPU runs launch what their hierarchies
+    reach.  Then one Chebyshev and one W-cycle GPU against CPU per layout
+    (:func:`cycle_apply_readings`)."""
+    import torch
+
+    from knpemi_tpu_torch import ops
+
+    out = {}
+    runs = [(f"3-D res 1 {path}: {name}", 3, dict(mg_banded=banded, **opts))
+            for path, banded in (("ell", False), ("banded", True))
+            for name, opts in OPTION_CASES.items()]
+    runs += [(f"2-D res 1: {name}", 2, opts) for name, opts in OPTION_CASES_2D.items()]
+    for label, dim, opts in runs:
+        opts = dict(opts)
+        gamma = opts.pop("gamma", None)
+        rec, states = {}, {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            sim = build_idealized(dim=dim, resolution=1, g_syn_bar=10.0, dtype=torch.float64,
+                                  device=dev, solver_options=SolverOptions(**opts))
+            if gamma:
+                sim.emi_solver.mg.gamma = gamma
+                for m in sim.knp_solver.mg.values():
+                    m.gamma = gamma
+            ops.reset_launch_counts()
+            s, it_e, it_k, ok = sim.run(sim.init_state(), 2)
+            rec[dev] = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
+                            seconds=time.perf_counter() - t0)
+            if not ok.all():
+                raise AssertionError(f"{label} {dev}: a solve did not converge: {rec}")
+            if dev == "cuda" and sim.emi_solver.mg is not None:
+                counts = ops.launch_counts()
+                reach = reachable_kernels(sim)
+                wrong = [k for k, v in counts.items() if bool(v) != (k.split()[0] in reach)]
+                if wrong:
+                    raise AssertionError(f"{label}: launches {counts} do not match the "
+                                         f"reachable kernels {sorted(reach)}")
+            states[dev] = s
+        if rec["cuda"]["emi_iters"] != rec["cpu"]["emi_iters"] or \
+                rec["cuda"]["knp_iters"] != rec["cpu"]["knp_iters"]:
+            raise AssertionError(f"{label}: iteration counts differ: {rec}")
+        rec["max_abs_dphi_M_V"], rec["max_rel_dc"] = gpu_vs_cpu(states["cuda"], states["cpu"],
+                                                                label)
+        out[label] = rec
+    out["one cycle GPU vs CPU, 3-D res 0 l=1"] = {
+        f"{path}: {name}": cycle_apply_readings(build_idealized, SolverOptions, banded, name)
+        for path, banded in (("ell", False), ("banded", True)) for name in CYCLE_APPLY_CASES}
+    return out
+
+
+# the manufactured-solution study: fields, Krylov settings (the JAX
+# package's tests' rtol; maxiter raised for the Jacobi GMRES at M = 32)
+MMS_FIELDS = ("phi_e", "phi_i", "a_e", "b_e", "a_i", "b_i")
+MMS_KRYLOV = dict(rtol=1e-10, maxiter=20000)
+MMS_MS = {3: (8, 16, 32), 2: (8, 16, 32)}
+MMS_GATE = {3: 1.6, 2: 1.8}  # the last rate, every field
+MMS_DIRECT_MS = (8, 16)  # the host LU (3-D)
+MMS_CHECK_M = 16  # iterative against direct
+MMS_CPU_M = 8  # GPU against CPU
+MMS_PER_ION_MS = (8, 16)  # the per-ion KNP solve (K11) beside the batched one
+MMS_KERNEL_TOL = 1e-13  # the path's kernels against their plain versions, x max|y|
+MMS_DEVICE = "cuda"
+
+
+def _mms_data(dim: int, M: int):
+    """(geom, case, ions, EMI data, KNP data) of the study at M, on the host."""
+    from knpemi_tpu_torch.mesh import unit_cube_mms_mesh, unit_square_mms_mesh
+    from knpemi_tpu_torch.ops.geometry import build_geometry
+    from knpemi_tpu_torch.systems import mms
+
+    geom = build_geometry((unit_square_mms_mesh if dim == 2 else unit_cube_mms_mesh)(M))
+    case = (mms.reference_mms_case if dim == 2 else mms.reference_mms_case_3d)(geom)
+    return (geom, case) + mms.build_mms_data(geom, case)
+
+
+def _mms_solve(data, device: str, direct: bool = False, per_ion: bool = False):
+    """The study's solves on ``device``: the EMI system (deflated Jacobi CG
+    or the host LU), then the KNP system batched (K3) and, with
+    ``per_ion``, per ion (K11), float64.  Returns (errors, per-ion errors
+    or None, iterations, setup s, solve s, fields)."""
+    import torch
+
+    from knpemi_tpu_torch.ops.p1op import membrane_operators, p1_operators
+    from knpemi_tpu_torch.solvers.api import create_solver_emi, create_solver_knp
+    from knpemi_tpu_torch.systems import mms
+    from knpemi_tpu_torch.systems.coupling import set_initial_conditions
+    from knpemi_tpu_torch.systems.emi import emi_system
+    from knpemi_tpu_torch.systems.knp import knp_system
+
+    geom, case, ions, ed, kd = data
+    t0 = time.perf_counter()
+    ops_, mops = p1_operators(geom, device), membrane_operators(geom, device)
+    es = emi_system(geom, ions, case.params, mms=ed, device=device, p1ops=ops_, memops=mops)
+    ks = knp_system(geom, ions, case.params, mms=kd, device=device, p1ops=ops_, memops=mops,
+                    per_ion=per_ion)
+    c0 = set_initial_conditions(geom, ions, device=device)
+    pm = {m: torch.zeros(sp.n_dofs, dtype=torch.float64, device=device)
+          for m, sp in geom.membranes.items()}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    t1 = time.perf_counter()
+    phi, ie = create_solver_emi(es, direct=direct, **MMS_KRYLOV).solve(c0, pm)
+    c, ik = create_solver_knp(ks, direct=direct, **MMS_KRYLOV).solve(c0, phi, pm)
+    c1, ik1 = None, None
+    if per_ion:
+        c1, ik1 = create_solver_knp(ks, batched=False, **MMS_KRYLOV).solve(c0, phi, pm)
+    sync()
+    t2 = time.perf_counter()
+    if not (ie.converged and ik.converged and (ik1 is None or ik1.converged)):
+        raise AssertionError(f"MMS {geom.dim}-D on {device}: a solve did not converge")
+
+    def errors(cc):
+        l2 = lambda tag, u, fn: mms.l2_error(geom, tag, u, fn)
+        return dict(
+            phi_e=l2(0, phi[0], case.phi[0]), phi_i=l2(1, phi[1], case.phi[1]),
+            a_e=l2(0, cc[0][0], case.conc[("a", 0)]), b_e=l2(0, cc[0][1], case.conc[("b", 0)]),
+            a_i=l2(1, cc[1][0], case.conc[("a", 1)]), b_i=l2(1, cc[1][1], case.conc[("b", 1)]))
+
+    iters = dict(emi=ie.iters, knp_batched=ik.iters)
+    if per_ion:
+        iters["knp_per_ion"] = ik1.iters
+    return (errors(c), None if c1 is None else errors(c1), iters, t1 - t0, t2 - t1,
+            dict(phi=phi, c=c, c_per_ion=c1))
+
+
+def _mms_hashes(data) -> dict:
+    """sha256 (16 hex digits) of the study's host data by field: the
+    arrays of ``build_mms_data``'s EMI and KNP data and the ions' initial
+    values, and of all of them ("all").  Two calls that print the same
+    digits built the same bits."""
+    import dataclasses
+
+    import numpy as np
+
+    _, _, ions, ed, kd = data
+    groups = {}
+    for pre, d in (("emi", ed), ("knp", kd)):
+        for f in dataclasses.fields(d):
+            v = getattr(d, f.name)
+            if isinstance(v, dict):
+                groups[f"{pre}.{f.name}"] = [v[k] for k in sorted(v)]
+            elif isinstance(v, np.ndarray):
+                groups[f"{pre}.{f.name}"] = [v]
+    groups["ions.c_init"] = [ion.c_init[k] for ion in ions for k in sorted(ion.c_init)]
+    groups["all"] = [a for arrays in list(groups.values()) for a in arrays]
+    return {key: _sha(arrays) for key, arrays in groups.items()}
+
+
+def _sha(arrays) -> str:
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Kernel launches inside do not count: every count as it was after."""
+    from knpemi_tpu_torch import ops
+    from knpemi_tpu_torch.ops import ell as TE
+
+    table = ops.kernel_table()
+    saved = {name: w.launches for name, (w, _) in table.items()}
+    far = TE.csr_add.launches
+    try:
+        yield
+    finally:
+        for name, (w, _) in table.items():
+            w.launches = saved[name]
+        TE.csr_add.launches = far
+
+
+@contextlib.contextmanager
+def _plain_p1_applies():
+    """K1 and K2 (``p1op.emi_stiffness``, ``surface_mass``) replaced by their
+    plain versions inside: the systems' operators in plain PyTorch."""
+    from knpemi_tpu_torch.ops import p1op as P
+
+    saved = P.emi_stiffness, P.surface_mass
+    P.emi_stiffness, P.surface_mass = P.emi_stiffness_plain, P.surface_mass_plain
+    try:
+        yield
+    finally:
+        P.emi_stiffness, P.surface_mass = saved
+
+
+def mms_kernel_checks(data, seed: int = 5) -> dict:
+    """The MMS path's kernels at the study's shapes on MMS_DEVICE, float64,
+    on seeded inputs, their launches not counted: the masked EMI operator
+    (``EMISystem.matvec``: K1 and K2 inside the Dirichlet elimination, on
+    this problem's K1f fill) against the same operator on K1's and K2's
+    plain versions; per subdomain K3 (B = 2) and K11 on the exact drift
+    stream alone (``KNPSystem.mms_drift``) against the plain quadrature
+    drift ``ops.kernels.drift_apply_quad`` of the same w_q, and K3 (every
+    solved ion) and K11 (the first ion) on the KNP system's full streams
+    against their plain versions.  Gates: within MMS_KERNEL_TOL of max|y|,
+    finite, two launches bitwise equal.  Also the sha256 of the vectors the
+    systems assembled on the host (load vectors, drift streams)."""
+    import numpy as np
+    import torch
+
+    from knpemi_tpu_torch.ops import kernels as K
+    from knpemi_tpu_torch.ops import p1op as P
+    from knpemi_tpu_torch.ops.p1op import membrane_operators, p1_operators
+    from knpemi_tpu_torch.systems.coupling import set_initial_conditions
+    from knpemi_tpu_torch.systems.emi import emi_system
+    from knpemi_tpu_torch.systems.knp import knp_system
+
+    geom, case, ions, ed, kd = data
+    dev, f64 = MMS_DEVICE, torch.float64
+    label0 = f"MMS {geom.dim}-D"
+    out = {}
+
+    def hold(label, kern, plain):
+        y = kern()
+        ref = plain()
+        scale, err = float(ref.abs().max()), float((y - ref).abs().max())
+        same = bool(torch.equal(kern(), y))
+        out[label] = dict(max_abs_err=err, max_abs_y=scale, deterministic=same)
+        if not (scale > 0 and err <= MMS_KERNEL_TOL * scale and bool(torch.isfinite(y).all())):
+            raise AssertionError(f"{label0} {label}: max|kernel - plain| = {err:.3e} exceeds "
+                                 f"{MMS_KERNEL_TOL:.0e} x max|y| = {MMS_KERNEL_TOL * scale:.3e}")
+        if not same:
+            raise AssertionError(f"{label0} {label}: two launches differ")
+
+    with _uncounted():
+        ops_, mops = p1_operators(geom, dev), membrane_operators(geom, dev)
+        es = emi_system(geom, ions, case.params, mms=ed, device=dev, p1ops=ops_, memops=mops)
+        ks = knp_system(geom, ions, case.params, mms=kd, device=dev, p1ops=ops_, memops=mops,
+                        per_ion=True)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        rnd = lambda *shape: torch.randn(*shape, generator=g, device=dev, dtype=f64)
+        ctx = es.prepare(es.kappa(set_initial_conditions(geom, ions, device=dev)))
+        x = rnd(es.n)
+
+        def plain_matvec():
+            with _plain_p1_applies():
+                return es.matvec(x, ctx)
+
+        n_bc = int((es.bc_mask == 0).sum())
+        hold(f"K1 + K2 EMISystem.matvec, {n_bc} Dirichlet dofs",
+             lambda: es.matvec(x, ctx), plain_matvec)
+        on = lambda a: torch.as_tensor(np.asarray(a), dtype=f64, device=dev)
+        psi = case.params.psi
+        for t, s in geom.subdomains.items():
+            sub, Dr = ks.sub[t], ks.mms_drift[t]
+            op = sub["op"]
+            X = rnd(2, s.n_dofs)
+            zero = torch.zeros_like(Dr)
+            unit = torch.tensor([[0.0, 0.0, 1.0]] * 2, dtype=f64, device=dev)
+            quad = (on(s.cells).long(), on(s.grads), on(s.vols), on(kd.gradphi_q[t]),
+                    on(kd.cell_bary), on(kd.cell_qw))
+            ref = lambda: torch.stack([K.drift_apply_quad(s.n_dofs, X[b], *quad)
+                                       for b in range(2)])
+            hold(f"K3 exact drift, tag {t}, B=2",
+                 lambda: P.knp_apply_batch(X, op, unit, zero, zero, Dr), ref)
+            hold(f"K11 exact drift, tag {t}",
+                 lambda: torch.stack([P.knp_apply(X[b].contiguous(), op, zero, Dr, 1.0)
+                                      for b in range(2)]), ref)
+            Xs = rnd(ks.n_solved, s.n_dofs)
+            hold(f"K3 KNPSystem.matvec_batch, tag {t}, B={ks.n_solved}",
+                 lambda: ks.matvec_batch(t, Xs, Dr),
+                 lambda: P.knp_apply_batch_plain(Xs, op, sub["coef"], sub["M"], sub["kst"], Dr))
+            zpsiD = ions[0].z * psi * ions[0].D[t]
+            hold(f"K11 KNPSystem.matvec_one, tag {t}, ion {ions[0].name}",
+                 lambda: ks.matvec_one(t, 0, Xs[0], Dr),
+                 lambda: P.knp_apply_plain(Xs[0], op, ks.ion_vals[t][0], Dr, zpsiD))
+        host = lambda v: v.detach().cpu().numpy()
+        out["systems_sha256"] = dict(
+            emi_load=_sha([host(es._mms_load)]),
+            knp_load=_sha([host(ks._mms_load[t]) for t in sorted(ks._mms_load)]),
+            knp_drift=_sha([host(ks.mms_drift[t]) for t in sorted(ks.mms_drift)]))
+    return out
+
+
+def _close(e, ref):
+    """The JAX package's iterative-against-direct gate."""
+    return all(abs(e[f] - ref[f]) < 1e-6 + 1e-3 * ref[f] for f in MMS_FIELDS)
+
+
+def _norm_rel(a, b) -> float:
+    return float((a.cpu() - b).abs().max() / b.abs().max().clamp_min(1e-300))
+
+
+def mms_study(dim: int):
+    """The manufactured-solution study of one dimension on the card (float64):
+    per M, the L2 errors of every field, iterations, setup and solve
+    seconds; the rates; the per-ion KNP solve at M = 8 and 16; in 3-D the
+    host LU at M = 8 and 16 and the CPU run at M = 8.  Gates: the last
+    rate above MMS_GATE for every field; the per-ion errors within 1e-6 +
+    1e-3 e of the batched ones; in 3-D both iterative branches' errors
+    within 1e-6 + 1e-3 e of the direct ones at M = 16, and at M = 8 a
+    second run on the device bitwise equal to the first and the GPU
+    against the CPU: equal iteration counts and every field within 1e-9
+    of its max|u|; at the largest M the path's kernels
+    against their plain versions (:func:`mms_kernel_checks`).  Every M
+    prints the sha256 of its host data (:func:`_mms_hashes`)."""
+    import numpy as np
+    import torch
+
+    Ms = MMS_MS[dim]
+    rows, errs = {}, []
+    for M in Ms:
+        t0 = time.perf_counter()
+        data = _mms_data(dim, M)
+        data_s = time.perf_counter() - t0
+        per_ion = M in MMS_PER_ION_MS
+        e, e1, iters, setup_s, solve_s, fields = _mms_solve(data, MMS_DEVICE, per_ion=per_ion)
+        geom = data[0]
+        row = dict(dofs=geom.emi_size, cells=sum(s.n_cells for s in geom.subdomains.values()),
+                   data_seconds=data_s, setup_seconds=setup_s, solve_seconds=solve_s,
+                   iters=iters, errors=e, errors_knp_per_ion=e1,
+                   data_sha256=_mms_hashes(data))
+        if per_ion and not _close(e1, e):
+            raise AssertionError(f"MMS {dim}-D M={M}: per-ion KNP errors {e1} against "
+                                 f"the batched {e}")
+        if dim == 3 and M in MMS_DIRECT_MS:
+            ed, _, _, _, dsolve_s, _ = _mms_solve(data, MMS_DEVICE, direct=True)
+            row.update(errors_direct=ed, direct_solve_seconds=dsolve_s)
+            if M == MMS_CHECK_M and not (_close(e, ed) and (e1 is None or _close(e1, ed))):
+                raise AssertionError(f"MMS 3-D M={M}: iterative {e} / {e1} against "
+                                     f"direct {ed}")
+        if M == Ms[-1]:
+            row.update(kernel_checks=mms_kernel_checks(data))
+        if dim == 3 and M == MMS_CPU_M:
+            # the same solves once more on the device: the same bits
+            _, _, it_again, _, _, f_again = _mms_solve(data, MMS_DEVICE, per_ion=per_ion)
+            same = it_again == iters and all(
+                bool(torch.equal(fields[k][t], f_again[k][t]))
+                for k in ("phi", "c", "c_per_ion") if f_again[k] is not None
+                for t in f_again[k])
+            row.update(repeat_bitwise=same, repeat_iters=it_again)
+            if not same:
+                raise AssertionError(f"MMS 3-D M={M}: a second run on {MMS_DEVICE} differs: "
+                                     f"iterations {iters} then {it_again}")
+            _, _, it_cpu, _, cpu_s, f_cpu = _mms_solve(data, "cpu", per_ion=per_ion)
+            d = max(_norm_rel(fields[k][t], f_cpu[k][t]) for k in ("phi", "c", "c_per_ion")
+                    if f_cpu[k] is not None for t in f_cpu[k])
+            row.update(cpu_iters=it_cpu, cpu_solve_seconds=cpu_s,
+                       gpu_vs_cpu_max_rel=d)
+            if it_cpu != iters or not d <= 1e-9:
+                raise AssertionError(f"MMS 3-D M={M}: GPU {iters} vs CPU {it_cpu}, "
+                                     f"max rel difference {d:.3e} (gate 1e-9)")
+        rows[M] = row
+        errs.append(e)
+    rates = {f: [float(np.log2(errs[i - 1][f] / errs[i][f])) for i in range(1, len(Ms))]
+             for f in MMS_FIELDS}
+    low = [f for f in MMS_FIELDS if not rates[f][-1] > MMS_GATE[dim]]
+    if low:
+        raise AssertionError(f"MMS {dim}-D: last rate at most {MMS_GATE[dim]} for {low}: "
+                             f"{rates}")
+    return dict(M=list(Ms), per_M=rows, rates=rates, rate_gate=MMS_GATE[dim])
+
+
+# what the MMS path launches on the card: K1 (the EMI operator, the
+# right-hand side and its lift), K1f and K4 (the per-solve fill), K2 (the
+# membrane coupling), K3 (the batched KNP operator and its mass term),
+# K11 (the per-ion KNP operator), all on the host-assembled exact drift
+MMS_PATH = ("K1", "K1f", "K2", "K3", "K4", "K11")
+
+
+def mms_phase():
+    """The 3-D study (M = 8, 16, 32), then the 2-D one (M = 8, 16, 32), with
+    the launch counts set to 0 just before and read just after: every
+    kernel of MMS_PATH must have launched."""
+    from knpemi_tpu_torch import ops
+    from knpemi_tpu_torch.ops import ell as TE
+
+    ops.reset_launch_counts()
+    out = {"3-D": mms_study(3), "2-D": mms_study(2)}
+    counts = {**ops.launch_counts(), FAR_ADD: TE.csr_add.launches}
+    missing = [k for k in MMS_PATH if not any(n.split()[0] == k and v
+                                             for n, v in counts.items())]
+    if missing:
+        raise AssertionError(f"MMS: kernels of the path not launched: {missing} ({counts})")
+    return out, counts
 
 
 def per_solve_ecs(sim, launches):
@@ -2557,6 +3039,17 @@ def main(argv=None) -> int:
     emit(dict(phase=2, case="astrocyte tissue mesh_n 20 float64",
               **parity_astrocyte(build_astrocyte, ASTROCYTE_BASELINE, SolverOptions),
               seconds=time.perf_counter() - t0))
+    t0 = time.perf_counter()
+    emit(dict(phase=2, case="solver options, 2 steps float64, GPU against CPU",
+              **parity_options(build_idealized, SolverOptions),
+              seconds=time.perf_counter() - t0))
+
+    # -- the manufactured-solution study on the card, float64 -----------------
+    t0 = time.perf_counter()
+    mms_out, launches["mms"] = mms_phase()
+    emit(dict(phase="mms", case="manufactured solutions, float64: deflated-Jacobi CG, "
+              "Jacobi GMRES batched (K3) and per ion (K11), rtol 1e-10; host LU",
+              **mms_out, launches=launches["mms"], seconds=time.perf_counter() - t0))
 
     # one row per kernel.  The twelve of the batched step: all from the path
     # on which all twelve lie (the long box): launches of its 5 timed steps,
@@ -2615,6 +3108,7 @@ def main(argv=None) -> int:
             launches_flagship_batched=launches["flagship batched"][name],
             launches_flagship_per_ion=launches["flagship per-ion"][name],
             launches_flagship_banded=launches["flagship banded"][name],
+            launches_mms=launches["mms"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], floor_ms=floor,
             library_ms=r["library_ms"], variant=r.get("variant"),
@@ -2646,7 +3140,7 @@ def main(argv=None) -> int:
                        ("long_box", "long box"),
                        ("flagship_batched", "flagship batched"),
                        ("flagship_per_ion", "flagship per-ion"),
-                       ("flagship_banded", "flagship banded"))})
+                       ("flagship_banded", "flagship banded"), ("mms", "mms"))})
         rb = far_p["B=2 KNP"]
         if rb is not None:
             far["batch"] = {k: rb.get(k) for k in (

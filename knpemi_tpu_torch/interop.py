@@ -47,7 +47,7 @@ def state_to_numpy(state: SimState) -> dict:
     return out
 
 
-_LEVEL_FIELDS = ("n", "omega", "diag", "a_cols", "a_vals", "p_cols", "p_vals",
+_LEVEL_FIELDS = ("n", "omega", "steps", "diag", "a_cols", "a_vals", "p_cols", "p_vals",
                  "pt_cols", "pt_vals")
 _ELLW_FIELDS = ("n_rows", "n_cols", "C", "K", "NCH", "Wr", "G", "far_cap",
                 "q", "lidx", "vals", "far_rows", "far_cols", "far_vals")

@@ -1,6 +1,7 @@
 from .core import Mesh, facet_vertices_of_cells, quad_facet_tags_to_tris, split_hex_cells
 from .generators import (
     unit_square_mms_mesh,
+    unit_cube_mms_mesh,
     rectangle_2d_mesh,
     box_3d_mesh,
     idealized_2d_mesh,
@@ -20,6 +21,7 @@ __all__ = [
     "split_hex_cells",
     "quad_facet_tags_to_tris",
     "unit_square_mms_mesh",
+    "unit_cube_mms_mesh",
     "rectangle_2d_mesh",
     "box_3d_mesh",
     "idealized_2d_mesh",

@@ -1,7 +1,8 @@
 """Mesh generators replicating the reference geometries.
 
 Replaces (with identical tag conventions):
-* tests/make_mesh_mms.py        -> :func:`unit_square_mms_mesh`
+* tests/make_mesh_mms.py        -> :func:`unit_square_mms_mesh` (and its
+  3-D extension :func:`unit_cube_mms_mesh`)
 * examples/.../make_mesh_2D.py  -> :func:`idealized_2d_mesh`
 * examples/.../make_mesh_3D.py  -> :func:`idealized_3d_mesh`
 
@@ -131,6 +132,16 @@ def unit_square_mms_mesh(M: int) -> Mesh:
     exterior boundary tag 5."""
     return rectangle_2d_mesh(
         M, M, (0.0, 0.0), (1.0, 1.0), [((0.25, 0.25), (0.75, 0.75), 1)]
+    )
+
+
+def unit_cube_mms_mesh(M: int) -> Mesh:
+    """3-D MMS mesh: unit cube, M x M x M, inner box [0.25, 0.75]^3 tagged
+    1 (the 3-D extension of the 2-D MMS mesh).  Membrane facet tag 1,
+    exterior boundary tag 5."""
+    return box_3d_mesh(
+        M, M, M, (0.0, 0.0, 0.0), (1.0, 1.0, 1.0),
+        [((0.25, 0.25, 0.25), (0.75, 0.75, 0.75), 1)],
     )
 
 

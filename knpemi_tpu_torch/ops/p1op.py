@@ -143,6 +143,7 @@ class P1Operator:
         self.inc = torch.as_tensor(inc, device=device)
         self.incidence_seconds = time.perf_counter() - t0
         self._plain_cache = {}
+        self._cell_rows = None  # scatter_cells' gather index
 
     def _incidence(self):
         """The (cell c, local vertex i) pairs of every row, c ascending,
@@ -207,6 +208,39 @@ class P1Operator:
         return np.stack([np.bincount(slots, minlength=self.slots,
                                      weights=np.asarray(pv, np.float64)[:, off].reshape(-1))
                          for pv in pair_vals])
+
+    def assemble_row_sums(self, pair_vals) -> np.ndarray:
+        """:meth:`assemble` of one per-pair array (nc, k, k) with each row's
+        sum at its diagonal slot: the row-sum form of an operator whose
+        rows do not sum to 0 (a mass, a drift), (slots,) float64."""
+        pair_vals = np.asarray(pair_vals, np.float64)
+        v = self.assemble(pair_vals)[0]
+        v[self.diag_slot] = np.bincount(self._cells.reshape(-1),
+                                        weights=pair_vals.sum(axis=2).reshape(-1),
+                                        minlength=self.n)
+        return v
+
+    def scatter_cells(self, V: torch.Tensor) -> torch.Tensor:
+        """Per-cell vertex values V (..., nc, k) summed into their rows, (...,
+        n): each row's (cell, vertex) entries in the incidence list's order
+        (cells ascending), by a padded gather and a row sum, so that the
+        card gives the same bits every call (``index_add_`` adds there with
+        atomics in a varying order).  Plain PyTorch, for the Jacobi
+        diagonals of the solves without a hierarchy; the gather index, (n,
+        widest row) int64, is built on first use."""
+        if self._cell_rows is None:
+            flat = self._cells.reshape(-1).astype(np.int64)
+            order = np.argsort(flat, kind="stable")
+            deg = np.bincount(flat, minlength=self.n)
+            start = np.zeros(self.n + 1, np.int64)
+            np.cumsum(deg, out=start[1:])
+            r = flat[order]
+            idx = np.full((self.n, int(deg.max())), flat.size, np.int64)
+            idx[r, np.arange(flat.size) - start[r]] = order
+            self._cell_rows = torch.as_tensor(idx, device=self.device)
+        v = V.reshape(V.shape[:-2] + (-1,))
+        v = torch.cat([v, v.new_zeros(v.shape[:-1] + (1,))], dim=-1)
+        return v[..., self._cell_rows].sum(dim=-1)
 
     def scipy_csr(self, vals) -> sp.csr_matrix:
         """The matrix whose row-sum form is ``vals`` (slots,), in float64 on
@@ -438,14 +472,12 @@ def mass_values(op: P1Operator, cells, vols, dtype) -> torch.Tensor:
     holds the row's sum, vol/k per cell vertex), summed on the host in
     float64 from the COO helper's element matrices and cast to
     ``dtype``: K3's first value stream, and with a membrane's facets and
-    areas K2's M_Gamma (the facet mass has the same element matrix)."""
+    areas K2's M_Gamma (the facet mass has the same element matrix).
+    ``cells`` are the cells ``op`` was built from."""
     from ..solvers import direct
 
     Me = direct._mass_coo(np.asarray(cells), np.asarray(vols, np.float64))[2]
-    Mv = op.assemble(Me)[0]
-    Mv[op.diag_slot] = np.bincount(np.asarray(cells).reshape(-1),
-                                   weights=Me.sum(axis=2).reshape(-1), minlength=op.n)
-    return torch.as_tensor(Mv, dtype=dtype, device=op.device)
+    return torch.as_tensor(op.assemble_row_sums(Me), dtype=dtype, device=op.device)
 
 
 def _check_batch(op: P1Operator, X, coef, M, Kst, Dr):

@@ -17,6 +17,14 @@ default here) or its block-banded / windowed-ELL multigrid
       ``source_gate(t)``
   [4] algebraic update (eliminated ion, phi_M from the PDE traces)
 
+``SolverOptions`` takes every option of the JAX package's: the host LU
+path (``direct``, no hierarchy), the deflated Jacobi EMI preconditioner
+(``emi_precond='jacobi'``, no hierarchy), ``atol_emi`` / ``atol_knp``,
+``compensated_dots``, and the multigrid's ``mg_theta``, ``mg_nu``,
+``mg_smoother`` / ``mg_degree`` (damped Jacobi or Chebyshev) and
+``knp_post_smooth`` (the KNP hierarchies' V(1,0) cycle); the W-cycle is
+``DeviceMG.gamma`` on a built hierarchy, as in the JAX package.
+
 The JAX package jits and scans the step; here it runs eagerly, and each
 Krylov iteration reads its stopping test back to the host.  ``run``
 advances in chunks of ``save_every`` steps as the JAX ``run`` does
@@ -49,7 +57,7 @@ from ..ops.p1op import membrane_operators, p1_operators
 from ..solvers import direct
 from ..solvers.api import EMISolver, KNPSolver
 from ..solvers.mg import build_hierarchy_cached, refresh_hierarchy
-from ..solvers.precision import bdot2, dot2
+from ..solvers.precision import dot2
 from ..systems.coupling import (
     membrane_maps, set_initial_conditions, update_pde_variables,
 )
@@ -57,18 +65,26 @@ from ..systems.emi import EMISystem
 from ..systems.knp import KNPSystem
 from ..systems.types import Ion, PhysicalParams, SimState, resolve_device
 
-# strength threshold of the SA-AMG aggregation (the JAX stepper's value)
-MG_THETA = 0.04
-
-
 # what Simulation.run may do with a solve that did not converge
 ON_DIVERGENCE = ("raise", "warn", "ignore")
+EMI_PRECOND = ("mg", "jacobi")
+MG_SMOOTHER = ("auto", "jacobi", "cheby")
 
 
 @dataclasses.dataclass
 class SolverOptions:
+    """Every field of the JAX package's ``SolverOptions`` with its default,
+    and the port's ``knp_batched``, except that ``mg_banded`` and
+    ``mg_band_bf16`` default to the port's False, which None also means
+    (the JAX package reads None by platform and environment; the port
+    reads no environment variable)."""
+
+    # the LU path (host scipy) for both solves; no hierarchy is built
+    direct: bool = False
     rtol_emi: float = 1e-5
+    atol_emi: float = 1e-40
     rtol_knp: float = 1e-7
+    atol_knp: float = 2e-40
     # Krylov iterations a solve may take, EMI CG and KNP GMRES alike
     maxiter: int = 1000
     # GMRES restart length of the KNP solve
@@ -76,17 +92,15 @@ class SolverOptions:
     # minimum KNP GMRES iterations before the convergence test may stop
     # the solve (PETSc ksp_min_it parity)
     min_iter_knp: int = 5
-    # True: the solved ions of a subdomain share one batched GMRES (K3);
-    # False: one GMRES per ion on the single-ion operator (K11) — the two
-    # branches the JAX package picks between by use_pallas
-    knp_batched: bool = True
-    mg_coarse_max: int = 800
-    # block-banded / windowed-ELL layouts of every V-cycle operator
-    # (solvers/mg.py::build_hierarchy(banded=True)); False: plain ELL
-    mg_banded: bool = False
-    # store the fine-level smoothing slab in bfloat16 (storage only: the
-    # kernel upcasts after the read; needs mg_banded)
-    mg_band_bf16: bool = False
+    # False: the KNP V-cycles skip post-smoothing, the V(1,0) cycle (a
+    # flexible-GMRES preconditioner; the EMI CG keeps V(1,1))
+    knp_post_smooth: bool = True
+    # the EMI preconditioner: 'mg' (SA-AMG) or 'jacobi' (the deflated
+    # Jacobi fallback; no hierarchy is built)
+    emi_precond: str = "mg"
+    # 'raise' (the reference's ksp_error_if_not_converged), 'warn' or
+    # 'ignore': what Simulation.run does when a Krylov solve did not converge
+    on_divergence: str = "raise"
     # refresh the lagged EMI hierarchy's values from the current
     # concentrations every N steps of Simulation.run, at a chunk boundary
     # (0: never): transfers and shapes frozen, the values copied into the
@@ -95,15 +109,44 @@ class SolverOptions:
     # build the refreshed values on one background host thread (numpy and
     # scipy only) and install them at a later chunk boundary
     mg_refresh_async: bool = True
-    # what Simulation.run does when a Krylov solve did not converge:
-    # 'raise' (the reference's ksp_error_if_not_converged), 'warn' or
-    # 'ignore'
-    on_divergence: str = "raise"
+    # compensated Krylov inner products (dot2 / bdot2); None: on for float32
+    compensated_dots: Optional[bool] = None
+    # strength threshold of the SA-AMG aggregation
+    mg_theta: float = 0.04
+    mg_coarse_max: int = 800
+    # smoothing sweeps before and after the coarse correction
+    mg_nu: int = 1
+    # the V-cycle smoother: 'jacobi' (one damped step a sweep) or 'cheby'
+    # (Chebyshev-Richardson of mg_degree steps); 'auto' means 'jacobi'
+    mg_smoother: str = "auto"
+    mg_degree: int = 3
+    # block-banded / windowed-ELL layouts of every V-cycle operator
+    # (solvers/mg.py::build_hierarchy(banded=True)); False or None: plain ELL
+    mg_banded: Optional[bool] = False
+    # store the fine-level smoothing slab in bfloat16 (storage only: the
+    # kernel upcasts after the read; needs mg_banded); False or None: off
+    mg_band_bf16: Optional[bool] = False
+    # True: the solved ions of a subdomain share one batched GMRES (K3);
+    # False: one GMRES per ion on the single-ion operator (K11) — the two
+    # branches the JAX package picks between by use_pallas
+    knp_batched: bool = True
 
     def __post_init__(self):
-        if self.on_divergence not in ON_DIVERGENCE:
-            raise ValueError(f"on_divergence must be one of {ON_DIVERGENCE}, "
-                             f"got {self.on_divergence!r}")
+        for name, allowed in (("on_divergence", ON_DIVERGENCE),
+                              ("emi_precond", EMI_PRECOND),
+                              ("mg_smoother", MG_SMOOTHER)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, "
+                                 f"got {getattr(self, name)!r}")
+        for name in ("mg_nu", "mg_degree", "maxiter", "restart"):
+            if getattr(self, name) < 1:
+                raise ValueError(f"{name} must be at least 1, got {getattr(self, name)}")
+        if self.mg_theta < 0:
+            raise ValueError(f"mg_theta must be >= 0, got {self.mg_theta}")
+
+    @property
+    def smoother(self) -> str:
+        return "jacobi" if self.mg_smoother == "auto" else self.mg_smoother
 
 
 def _global_rcm(A_hat, s):
@@ -166,24 +209,33 @@ class Simulation:
                                  memops=memops, per_ion=not opts.knp_batched,
                                  kst={t: s["kst"] for t, s in self.emi_sys.sub.items()})
         t0 = self._lap("knp_system", t0)
-        # compensated Krylov inner products in float32
-        comp = dtype == torch.float32
+        # compensated Krylov inner products: by default in float32
+        comp = opts.compensated_dots
+        if comp is None:
+            comp = dtype == torch.float32
+        dot = dot2 if comp else torch.dot
         self.emi_solver = EMISolver(
-            self.emi_sys, rtol=opts.rtol_emi, maxiter=opts.maxiter,
-            dot=dot2 if comp else torch.dot,
+            self.emi_sys, direct=opts.direct, rtol=opts.rtol_emi, atol=opts.atol_emi,
+            maxiter=opts.maxiter, dot=dot,
         )
+        # the batched dot follows the dot (bdot2 with dot2)
         self.knp_solver = KNPSolver(
-            self.knp_sys, rtol=opts.rtol_knp, maxiter=opts.maxiter, restart=opts.restart,
-            min_iter=opts.min_iter_knp, dot=dot2 if comp else torch.dot,
-            bdot=bdot2 if comp else None, batched=opts.knp_batched,
+            self.knp_sys, direct=opts.direct, rtol=opts.rtol_knp, atol=opts.atol_knp,
+            maxiter=opts.maxiter, restart=opts.restart, min_iter=opts.min_iter_knp,
+            dot=dot, batched=opts.knp_batched,
         )
         self.source_gate = source_gate or (lambda t: 1.0)
         self._maps = membrane_maps(geom, self.device)
         t0 = self._lap("solvers_and_maps", t0)
-        self._setup_emi_mg()
-        t0 = self._lap("emi_multigrid", t0)
-        self._setup_knp_mg()
-        self._lap("knp_multigrid", t0)
+        # no hierarchy on the LU path, nor with the deflated Jacobi EMI
+        # preconditioner (the KNP GMRES then runs unpreconditioned too,
+        # as in the JAX package)
+        self._emi_hier = None
+        if not opts.direct and opts.emi_precond == "mg":
+            self._setup_emi_mg()
+            t0 = self._lap("emi_multigrid", t0)
+            self._setup_knp_mg()
+            self._lap("knp_multigrid", t0)
 
     def _lap(self, part: str, t0: float) -> float:
         t1 = time.perf_counter()
@@ -196,18 +248,19 @@ class Simulation:
         build, uploaded to the device; returns the host hierarchy and the
         DeviceMG."""
         A_hat, s, perm = _global_rcm(A_hat, s)
+        opts = self.opts
         kw = {}
-        if self.opts.mg_banded:
+        if opts.mg_banded:
             # slabs are built in the run dtype: float64 ones would take
             # twice the host memory only to be cast at upload
             kw = dict(banded=True, slab_dtype=(
                 np.float32 if self.dtype == torch.float32 else np.float64))
         hier = build_hierarchy_cached(
-            A_hat, B=1.0 / s, theta=MG_THETA, coarse_max=self.opts.mg_coarse_max,
-            **kw,
+            A_hat, B=1.0 / s, theta=opts.mg_theta, coarse_max=opts.mg_coarse_max,
+            nu=opts.mg_nu, smoother=opts.smoother, degree=opts.mg_degree, **kw,
         )
         hier.perm = perm
-        band_dtype = torch.bfloat16 if self.opts.mg_band_bf16 else None
+        band_dtype = torch.bfloat16 if opts.mg_band_bf16 else None
         return hier, hier.device(self.dtype, self.device, band_dtype=band_dtype)
 
     def _setup_emi_mg(self):
@@ -242,6 +295,8 @@ class Simulation:
             A_hat = (sp.diags(s) @ A0 @ sp.diags(s)).tocsr()
             _, mg[t] = self._hierarchy(A_hat, s)
             mg[t].fine_diag = torch.as_tensor(d, dtype=self.dtype, device=self.device)
+            # V(1,0) where asked: legal for the flexible GMRES only
+            mg[t].post_smooth = self.opts.knp_post_smooth
         self.knp_solver.mg = mg
 
     # -- the lagged EMI hierarchy's refresh ----------------------------
@@ -299,6 +354,9 @@ class Simulation:
         every shape frozen; a layout that drifted keeps the stale
         hierarchy with a warning.  The KNP hierarchies' setup operator
         (mass + mean-D stiffness) does not change in time."""
+        if self._emi_hier is None:
+            raise ValueError("no EMI hierarchy to refresh (direct=True or "
+                             "emi_precond='jacobi')")
         res, err = self._refresh_payload(
             {t: v.detach().cpu().numpy() for t, v in state.c.items()})
         if res is None:
@@ -309,7 +367,7 @@ class Simulation:
     def _maybe_refresh(self, state: SimState, host: Optional[SimState], done: int,
                        n_steps: int):
         every = self.opts.mg_refresh_every
-        if not every:
+        if not every or self._emi_hier is None:
             return
         self._harvest_refresh(block=False)
         # on the steps since the last refresh, not on divisibility: the

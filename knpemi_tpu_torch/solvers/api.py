@@ -1,17 +1,25 @@
 """Solver front-ends: configure and run the EMI and KNP solves.
 
-Counterpart of ``knpemi_tpu/solvers/api.py``: CG with the SA-AMG V-cycle
-for the symmetric EMI system (constant null space), and GMRES for the
-KNP blocks, each on an operator symmetrically Jacobi-equilibrated with
-the hierarchy's lagged fine diagonal.  The KNP solve has the JAX
-package's two branches: batched over the solved ions of each subdomain
-(one K3 pass and one batched V-cycle per iteration, the branch the JAX
-package takes with ``use_pallas``) and per ion (one GMRES per
-(subdomain, ion) block on the single-ion operator K11 with the
-single-vector V-cycle, the branch it takes without); in both, the drift
-values K3 or K11 read are filled once per subdomain and solve (K11f).  Only the
-iterative multigrid path is ported; the JAX package's direct LU path
-and its deflated-Jacobi EMI fallback are not.
+Counterpart of ``knpemi_tpu/solvers/api.py``.  ``direct=True`` gives the
+LU path (host scipy, standing in for the reference's MUMPS:
+``solvers/direct.py``), its result moved back to the system's device
+and dtype.  Otherwise the matrix-free Krylov path, each solve on an
+operator symmetrically Jacobi-equilibrated: CG for the symmetric EMI
+system, with the constant null space where the system has one (none
+under a Dirichlet condition), preconditioned by the SA-AMG V-cycle
+where a hierarchy is given (equilibrated with its lagged fine
+diagonal), else by the deflated Jacobi fallback (equilibrated with the
+assembled diagonal; an additive coarse correction over the ICS
+subdomain indicators, M v = v + W G^-1 W^T v, G = W^T A W of size k x
+k, k the number of ICS subdomains); and GMRES for the KNP blocks, with
+the JAX package's two branches: batched over the solved ions of each
+subdomain (one K3 pass and one batched V-cycle per iteration, the
+branch the JAX package takes with ``use_pallas``) and per ion (one
+GMRES per (subdomain, ion) block on the single-ion operator K11 with
+the single-vector V-cycle, the branch it takes without); without a
+hierarchy GMRES runs on the equilibrated operator alone.  In both, the
+drift values K3 or K11 read are filled once per subdomain and solve
+(K11f), or, under a manufactured solution, assembled once at setup.
 """
 
 from __future__ import annotations
@@ -20,8 +28,10 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from . import direct as direct_mod
 from .cg import KrylovResult, cg
 from .gmres import gmres, gmres_batched
+from .precision import bdot2, dot2
 
 
 class SolveInfo(NamedTuple):
@@ -42,10 +52,16 @@ def _equilibrate(A, b, diag, x0=None):
     return A_hat, s * b, None if x0 is None else x0 / s, s
 
 
+def _direct_info(like: torch.Tensor) -> SolveInfo:
+    return SolveInfo(0, torch.zeros((), dtype=like.dtype, device=like.device), True)
+
+
 class EMISolver:
-    def __init__(self, system, rtol: float = 1e-5, atol: float = 1e-40,
-                 maxiter: int = 1000, dot: Callable = torch.dot, mg=None):
+    def __init__(self, system, direct: bool = False, rtol: float = 1e-5,
+                 atol: float = 1e-40, maxiter: int = 1000, dot: Callable = torch.dot,
+                 mg=None):
         self.system = system
+        self.direct = direct
         self.rtol = rtol
         self.atol = atol
         self.maxiter = maxiter
@@ -55,39 +71,76 @@ class EMISolver:
     def solve(self, c, phi_M, I_ch=None, x0: Optional[Dict[int, torch.Tensor]] = None):
         """Returns ({tag: phi}, SolveInfo)."""
         sys_ = self.system
-        if self.mg is None or self.mg.fine_diag is None:
-            raise NotImplementedError(
-                "the EMI solve needs its multigrid hierarchy and lagged diagonal")
+        if self.direct:
+            x = torch.as_tensor(direct_mod.solve_emi_direct(sys_, c, phi_M, I_ch),
+                                dtype=sys_.dtype, device=sys_.device)
+            return sys_.split(x), _direct_info(x)
         ctx = sys_.prepare(sys_.kappa(c))
-        b = sys_.rhs(c, phi_M, I_ch)
-        d = self.mg.fine_diag
+        b = sys_.rhs(c, phi_M, I_ch, ctx=ctx)
+        # equilibration scale: the hierarchy's lagged fine diagonal where
+        # there is one, else the assembled diagonal
+        if self.mg is not None and self.mg.fine_diag is not None:
+            d = self.mg.fine_diag
+        else:
+            d = sys_.diag(ctx["kappa"])
         x0_flat = None if x0 is None else sys_.flatten(x0)
         A_hat, b_hat, x0_hat, s = _equilibrate(
             lambda v: sys_.matvec(v, ctx), b, d, x0_flat
         )
-        # null(S A S) = S^-1 null(A)
-        nv = sys_.nullvec / s
-        nullvec = nv / torch.sqrt(self.dot(nv, nv))
+        nullvec = None
+        if sys_.nullvec is not None:
+            # null(S A S) = S^-1 null(A)
+            nv = sys_.nullvec / s
+            nullvec = nv / torch.sqrt(self.dot(nv, nv))
+        if self.mg is not None:
+            M = lambda v: self.mg.apply(A_hat, v)
+        else:
+            M = self._deflation(A_hat, s)
         res = cg(
-            A_hat, b_hat, x0=x0_hat, M=lambda v: self.mg.apply(A_hat, v),
-            rtol=self.rtol, atol=self.atol, maxiter=self.maxiter,
-            nullspace=nullvec, dot=self.dot,
+            A_hat, b_hat, x0=x0_hat, M=M, rtol=self.rtol, atol=self.atol,
+            maxiter=self.maxiter, nullspace=nullvec, dot=self.dot,
         )
         return sys_.split(s * res.x), SolveInfo(res.iters, res.resnorm, res.converged)
 
+    def _deflation(self, A_hat, s):
+        """The deflated Jacobi preconditioner in equilibrated variables:
+        M v = v + W G^-1 W^T v, W the ICS subdomain indicators (columns
+        1/s on the subdomain's dofs), G = W^T A_hat W (k x k).  The
+        membrane coupling is weak against bulk conduction at
+        physiological h, so each indicator is a near-null mode that
+        stalls plain Jacobi CG; None without an ICS subdomain."""
+        sys_ = self.system
+        cols = []
+        for t in sys_.tags:
+            if t == 0:
+                continue
+            e = torch.zeros(sys_.n, dtype=s.dtype, device=s.device)
+            e[sys_.offsets[t]: sys_.offsets[t] + sys_.sub[t]["n_dofs"]] = 1.0
+            cols.append(e / s)
+        if not cols:
+            return None
+        W = torch.stack(cols, dim=1)  # (n, k)
+        G = W.T @ torch.stack([A_hat(W[:, j]) for j in range(W.shape[1])], dim=1)
+        return lambda v: v + W @ torch.linalg.solve(G, W.T @ v)
+
 
 class KNPSolver:
-    def __init__(self, system, rtol: float = 1e-7, atol: float = 2e-40,
-                 maxiter: int = 1000, restart: int = 30, min_iter: int = 5,
-                 dot: Callable = torch.dot, bdot: Optional[Callable] = None,
-                 mg=None, batched: bool = True):
+    def __init__(self, system, direct: bool = False, rtol: float = 1e-7,
+                 atol: float = 2e-40, maxiter: int = 1000, restart: int = 30,
+                 min_iter: int = 5, dot: Callable = torch.dot,
+                 bdot: Optional[Callable] = None, mg=None, batched: bool = True):
         self.system = system
+        self.direct = direct
         self.rtol = rtol
         self.atol = atol
         self.maxiter = maxiter
         self.restart = restart
         self.min_iter = min_iter
         self.dot = dot
+        # the batched inner product: derived from ``dot`` only for the
+        # compensated pair; a custom dot brings its batched variant
+        if bdot is None and dot is dot2:
+            bdot = bdot2
         self.bdot = bdot
         self.mg = mg or {}
         # True: all solved ions of a subdomain in one GMRES; False: one
@@ -147,6 +200,11 @@ class KNPSolver:
         the max over the (subdomain, ion) blocks, converged their
         conjunction."""
         sys_ = self.system
+        if self.direct:
+            host = direct_mod.solve_knp_direct(sys_, c, phi, phi_M, I_ch, source_gate)
+            out = {t: torch.as_tensor(v, dtype=sys_.dtype, device=sys_.device)
+                   for t, v in host.items()}
+            return out, _direct_info(next(iter(out.values())))
         rhs = sys_.rhs(c, phi, phi_M, I_ch, source_gate)
         gradphi = sys_.gradphi_cells(phi)
         solve_tag = self._solve_batched if self.batched else self._solve_per_ion
@@ -168,3 +226,11 @@ class KNPSolver:
             resnorm = rn_t if resnorm is None else torch.maximum(resnorm, rn_t)
             converged = converged and res.converged
         return out, SolveInfo(iters, resnorm, converged)
+
+
+def create_solver_emi(system, direct=False, rtol=1e-5, atol=1e-40, **kw) -> EMISolver:
+    return EMISolver(system, direct=direct, rtol=rtol, atol=atol, **kw)
+
+
+def create_solver_knp(system, direct=False, rtol=1e-7, atol=2e-40, **kw) -> KNPSolver:
+    return KNPSolver(system, direct=direct, rtol=rtol, atol=atol, **kw)

@@ -1,17 +1,25 @@
 """Smoothed-aggregation AMG preconditioner (Vanek/Mandel/Brezina).
 
-Counterpart of ``knpemi_tpu/solvers/mg.py`` with its default damped-Jacobi
-V(1,1) cycle:
+Counterpart of ``knpemi_tpu/solvers/mg.py``: the V(nu, nu) cycle with
+damped-Jacobi (``smoother="jacobi"``, one step a sweep) or
+Chebyshev-Richardson (``"cheby"``, ``degree`` steps at the Chebyshev
+points of [lam_max / 4, lam_max]) smoothing, the W-cycle
+(``DeviceMG.gamma = 2``: the coarse problem solved twice, the second
+time on its own residual) and the asymmetric V(1, 0) cycle
+(``DeviceMG.post_smooth = False``: for the flexible GMRES of the KNP
+solve, never for CG):
 
 * **setup on the host, once** (numpy/scipy, copied from the JAX
   package so the hierarchy comes out identical): strength-of-connection
   filtering with B-compatible lumping, Vanek root-node aggregation,
   near-null-weighted tentative prolongators, Jacobi-smoothed P, Galerkin
   RAP and an eigenfactored coarsest inverse;
-* **apply on the device, every iteration** (PyTorch): the symmetric
-  V-cycle with damped-Jacobi smoothing; every level operator (the
-  finest included, lagged) and every transfer is stored in ELL form and
-  applied as a gather + row sum, the coarsest inverse is a dense matmul.
+* **apply on the device, every iteration** (PyTorch): the cycle, each
+  smoothing sweep Richardson steps over 1/diag (post-smoothing takes
+  them in reverse, so that the cycle stays symmetric for CG); every
+  level operator (the finest included, lagged) and every transfer is
+  stored in ELL form and applied as a gather + row sum, the coarsest
+  inverse is a dense matmul.
 
 With ``banded=True`` every level operator A, transfer P and P^T and
 product AP additionally gets the JAX package's block-banded layout
@@ -30,7 +38,9 @@ built hierarchy the values of a new operator of the same structure,
 with the transfers frozen and every array's shape kept;
 :meth:`DeviceMG.refill_arrays` pairs them with the tensors the device
 cycle already holds and :meth:`DeviceMG.install` copies them in, so
-that no tensor is reallocated.
+that no tensor is reallocated.  :func:`build_hierarchy_cached` keeps
+built hierarchies on disk in the port's own cache directory, bounded
+by :func:`_evict_lru`.
 """
 
 from __future__ import annotations
@@ -276,12 +286,34 @@ def _csr_to_ell(A: sp.csr_matrix, pad_diag=True, K=None):
     return cols, vals
 
 
+def _cheb_steps(lam_max: float, degree: int, eig_ratio: float = 4.0):
+    """Richardson step sizes 1/r_i at the Chebyshev points of
+    [lam_max / eig_ratio, lam_max] for D^-1 A: the hypre/PyAMG-style
+    polynomial smoother.  degree 1 is damped Jacobi with omega = 1/r_0."""
+    lmin = lam_max / eig_ratio
+    d = 0.5 * (lam_max + lmin)
+    c = 0.5 * (lam_max - lmin)
+    roots = d + c * np.cos(np.pi * (2 * np.arange(degree) + 1) / (2.0 * degree))
+    return (1.0 / roots).astype(np.float64)
+
+
+def _smoother_steps(lam: float, smoother: str, degree: int) -> np.ndarray:
+    """A level's Richardson steps: the Chebyshev ones, or [4 / (3 lam)]
+    (damped Jacobi)."""
+    if smoother == "cheby":
+        return _cheb_steps(lam, degree)
+    return np.array([4.0 / (3.0 * lam)])
+
+
 @dataclasses.dataclass
 class MGLevel:
     n: int
     diag: np.ndarray
-    # damped-Jacobi weight of the smoother
+    # damped-Jacobi weight, 4 / (3 lam_max(D^-1 A))
     omega: float
+    # the smoother's Richardson step sizes over 1/diag, one per step of a
+    # sweep: [omega] for damped Jacobi, the Chebyshev ones otherwise
+    steps: Optional[np.ndarray] = None
     # lagged level operator in ELL form (None: level 0 smooths with the
     # caller's matrix-free operator)
     a_cols: Optional[np.ndarray] = None
@@ -498,6 +530,8 @@ class MGHierarchy:
     coarse_V: np.ndarray
     coarse_ilam: np.ndarray
     nu: int = 1
+    # the cycle index: 1 V-cycle, 2 W-cycle
+    gamma: int = 1
     perm: Optional[np.ndarray] = None
 
     def device(self, dtype, device, band_dtype=None) -> "DeviceMG":
@@ -515,7 +549,6 @@ class MGHierarchy:
         the near-null space exactly."""
         as_f = lambda a: torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
         as_i = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int64, device=device)
-        np_dtype = np.float32 if dtype == torch.float32 else np.float64
         iperm = np.argsort(self.perm) if self.perm is not None else None
         dev_band = lambda band, slab_dt=None: _device_band(band, dtype, device, slab_dt)
         # the forms each layout needs (sliced, transposed): p_ellw and
@@ -550,8 +583,8 @@ class MGHierarchy:
                 n=lv.n,
                 dinv=as_f(1.0 / lv.diag),
                 dinv_solver=dinv_solver,
-                # a 0-d tensor, so that a refill can overwrite it in place
-                omega=torch.tensor(np_dtype(lv.omega), dtype=dtype, device=device),
+                # a tensor, so that a refill can overwrite it in place
+                steps=as_f(lv.steps if lv.steps is not None else [lv.omega]),
                 a_cols=None if lv.a_cols is None else as_i(lv.a_cols),
                 a_vals=None if lv.a_vals is None else as_f(lv.a_vals),
                 p_cols=as_i(lv.p_cols), p_vals=as_f(lv.p_vals),
@@ -563,7 +596,7 @@ class MGHierarchy:
                 p_ellw=dev_ellw(lv.p_ellw), pt_ellw=dev_ellw(lv.pt_ellw),
             ))
         return DeviceMG(
-            out, as_f(self.coarse_V), as_f(self.coarse_ilam), self.nu,
+            out, as_f(self.coarse_V), as_f(self.coarse_ilam), self.nu, gamma=self.gamma,
             perm=None if self.perm is None else as_i(self.perm),
             iperm=None if iperm is None else as_i(iperm),
         )
@@ -585,11 +618,17 @@ def build_hierarchy(
     omega_p: float = 4.0 / 3.0,
     fine_ell="auto",
     banded: bool = False,
+    smoother: str = "jacobi",
+    degree: int = 3,
+    gamma: int = 1,
     slab_dtype=np.float64,
 ) -> MGHierarchy:
-    """Build the SA hierarchy of ``knpemi_tpu/solvers/mg.py::build_hierarchy``
-    with its default damped-Jacobi smoother.  ``B`` is the near-null
-    vector of A0 (1/s for an operator equilibrated by S = diag(s)).
+    """Build the SA hierarchy of ``knpemi_tpu/solvers/mg.py::build_hierarchy``.
+    ``B`` is the near-null vector of A0 (1/s for an operator equilibrated
+    by S = diag(s)).  ``smoother``: ``"jacobi"`` (one damped step a sweep)
+    or ``"cheby"`` (``degree`` Chebyshev-Richardson steps a sweep);
+    ``nu`` sweeps before and after the coarse correction; ``gamma`` the
+    cycle index (2: W-cycle).
 
     With ``fine_ell`` the finest operator is stored too and the V-cycle
     smooths with it, not with the caller's.  ``"auto"`` means yes, except
@@ -645,7 +684,8 @@ def build_hierarchy(
         df = np.where(df != 0, df, 1.0)
         P = (Pt - (omega_p / lam_f) * (sp.diags(1.0 / df) @ (Af @ Pt))).tocsr()
         lam = _lam_max_jacobi(A)
-        lv = MGLevel(n=n, diag=diag, omega=4.0 / (3.0 * lam), P_csr=P)
+        lv = MGLevel(n=n, diag=diag, omega=4.0 / (3.0 * lam), P_csr=P,
+                     steps=_smoother_steps(lam, smoother, degree))
         if levels or fine_ell:
             lv.a_cols, lv.a_vals = _csr_to_ell(A)
         lv.p_cols, lv.p_vals = _csr_to_ell(P, pad_diag=False)
@@ -690,20 +730,89 @@ def build_hierarchy(
     lam, V = np.linalg.eigh(A.toarray())
     lmax = np.abs(lam).max() if len(lam) else 1.0
     ilam = np.where(np.abs(lam) > 1e-10 * lmax, 1.0 / lam, 0.0)
-    return MGHierarchy(levels=levels, coarse_V=V, coarse_ilam=ilam, nu=nu)
+    return MGHierarchy(levels=levels, coarse_V=V, coarse_ilam=ilam, nu=nu, gamma=gamma)
 
 
 # cache-key version: bump whenever build_hierarchy's algorithm changes
-_BUILD_VERSION = "torch-v2"  # v2: banded and windowed-ELL layouts
+_BUILD_VERSION = "torch-v3"  # v3: smoother steps, the cycle index
 CACHE_DIR = Path(__file__).resolve().parents[1] / "build" / "mg_cache"
+# the cache's bound in bytes (the JAX package's default, 24 GiB)
+CACHE_MAX_BYTES = 24 << 30
+
+
+def _bands(hier: MGHierarchy):
+    for lv in hier.levels:
+        for attr in ("a_band", "ap_band", "p_band", "pt_band"):
+            if getattr(lv, attr) is not None:
+                yield lv, attr
+
+
+def _cast_band_dtype(hier: MGHierarchy, slab_dtype) -> MGHierarchy:
+    """Cast a loaded hierarchy's banded slabs to ``slab_dtype`` in place, so
+    that one cache entry serves every run dtype (a slab built in float64
+    and cast is the slab a float32 build writes: both round each value
+    to nearest)."""
+    for lv, attr in _bands(hier):
+        windows, fr, fc, fv, n, m = getattr(lv, attr)
+        if windows and windows[0][0].dtype != np.dtype(slab_dtype):
+            windows = [(sT.astype(slab_dtype), w0, W) for sT, w0, W in windows]
+            setattr(lv, attr, (windows, fr, fc, fv, n, m))
+    return hier
+
+
+def _serves(hier: MGHierarchy, slab_dtype) -> bool:
+    """Whether a cached hierarchy's slabs hold ``slab_dtype``'s precision:
+    a float32 entry cannot serve a float64 run."""
+    want = np.dtype(slab_dtype).itemsize
+    return all(w[0].dtype.itemsize >= want
+               for lv, attr in _bands(hier) for w in getattr(lv, attr)[0])
+
+
+def _evict_lru(cache_dir, keep=None, max_bytes: int = CACHE_MAX_BYTES) -> None:
+    """Bound the hierarchy cache ``cache_dir``: remove its ``.pkl`` entries,
+    oldest modification time first (a hit touches its entry), until they
+    take at most ``max_bytes``; never ``keep``.  Only ``.pkl`` files
+    directly in ``cache_dir`` are considered.  Best effort: a file another
+    process removed is skipped."""
+    keep = None if keep is None else os.fspath(keep)
+    try:
+        entries = []
+        with os.scandir(cache_dir) as it:
+            for d in it:
+                if not d.name.endswith(".pkl"):
+                    continue
+                try:
+                    st = d.stat()
+                except OSError:
+                    continue
+                entries.append((st.st_mtime, st.st_size, d.path))
+        total = sum(size for _, size, _ in entries)
+        for _, size, path in sorted(entries):
+            if total <= max_bytes:
+                break
+            if path == keep:
+                continue
+            try:
+                os.remove(path)
+                total -= size
+            except OSError:
+                continue
+    except OSError:
+        return
 
 
 def build_hierarchy_cached(A0: sp.csr_matrix, B: Optional[np.ndarray] = None,
                            cache_dir: Optional[Path] = None, **kw) -> MGHierarchy:
     """Disk-cached :func:`build_hierarchy`, keyed by the operator's exact CSR
-    content, the near-null vector and every build parameter.  The cache
-    is the port's own (``knpemi_tpu_torch/build/mg_cache``, git-ignored):
-    the JAX package's pickles hold its own classes."""
+    content, the near-null vector and every build parameter (theta, the
+    smoother, its degree, nu, the cycle index, ...) except
+    ``slab_dtype``: the slabs are storage only, so an entry serves every
+    run dtype of at most its slabs' precision, cast on load
+    (:func:`_cast_band_dtype`); a narrower entry is rebuilt and
+    replaced.  The cache is the port's own (``knpemi_tpu_torch/build/mg_cache``, git-ignored):
+    the JAX package's pickles hold its own classes.  A hit touches its
+    entry; after a build the cache is bounded to ``CACHE_MAX_BYTES``
+    (:func:`_evict_lru`)."""
     cache_dir = Path(cache_dir or CACHE_DIR)
     A = A0.tocsr()
     h = hashlib.sha256()
@@ -714,12 +823,19 @@ def build_hierarchy_cached(A0: sp.csr_matrix, B: Optional[np.ndarray] = None,
     h.update(np.ascontiguousarray(A.data, np.float64).tobytes())
     if B is not None:
         h.update(np.ascontiguousarray(B, np.float64).tobytes())
-    h.update(repr(sorted(kw.items())).encode())
+    slab_dtype = kw.get("slab_dtype", np.float64)
+    h.update(repr(sorted((k, v) for k, v in kw.items() if k != "slab_dtype")).encode())
     path = cache_dir / (h.hexdigest()[:32] + ".pkl")
     if path.exists():
         try:
             with open(path, "rb") as f:
-                return pickle.load(f)
+                hier = pickle.load(f)
+            if _serves(hier, slab_dtype):
+                try:
+                    os.utime(path)  # eviction goes by modification time
+                except OSError:
+                    pass
+                return _cast_band_dtype(hier, slab_dtype)
         except Exception:
             pass  # corrupt entry: rebuild below
     hier = build_hierarchy(A, B=B, **kw)
@@ -731,6 +847,7 @@ def build_hierarchy_cached(A0: sp.csr_matrix, B: Optional[np.ndarray] = None,
         os.replace(tmp, path)
     except OSError:
         tmp.unlink(missing_ok=True)  # caching is best-effort
+    _evict_lru(cache_dir, keep=path)
     return hier
 
 
@@ -743,9 +860,10 @@ def refresh_hierarchy(hier: MGHierarchy, A_hat_new: sp.csr_matrix,
 
     The transfers P are FROZEN at their setup values; each level's
     operator is recomputed as the Galerkin product P^T A P with the
-    frozen P, its diagonal, its smoother weight from a new power
-    iteration, its stored ELL, banded and windowed-ELL layouts refilled
-    in their frozen shapes, and the coarsest level re-factored by eigh.
+    frozen P, its diagonal, its smoother weight and steps (Chebyshev
+    ones of the level's degree) from a new power iteration, its stored
+    ELL, banded and windowed-ELL layouts refilled in their frozen
+    shapes, and the coarsest level re-factored by eigh.
     Small pattern drift (float32 kappa rounding makes and unmakes exact
     zeros) is tolerated as there: entries that vanished leave zeros, the
     smallest extra ones are dropped.  Raises ``ValueError`` where a
@@ -761,8 +879,10 @@ def refresh_hierarchy(hier: MGHierarchy, A_hat_new: sp.csr_matrix,
         diag = A.diagonal()
         diag = np.where(np.abs(diag) > 0, diag, 1.0)
         lam = _lam_max_jacobi(A)
+        deg = 1 if lv.steps is None else len(lv.steps)
         nl = MGLevel(
             n=lv.n, diag=diag, omega=4.0 / (3.0 * lam),
+            steps=_smoother_steps(lam, "cheby" if deg > 1 else "jacobi", deg),
             p_cols=lv.p_cols, p_vals=lv.p_vals,
             pt_cols=lv.pt_cols, pt_vals=lv.pt_vals,
             p_band=lv.p_band, pt_band=lv.pt_band,
@@ -795,7 +915,7 @@ def refresh_hierarchy(hier: MGHierarchy, A_hat_new: sp.csr_matrix,
     lmax = np.abs(lam).max() if len(lam) else 1.0
     ilam = np.where(np.abs(lam) > 1e-10 * lmax, 1.0 / lam, 0.0)
     return MGHierarchy(levels=new_levels, coarse_V=V, coarse_ilam=ilam,
-                       nu=hier.nu, perm=hier.perm)
+                       nu=hier.nu, gamma=hier.gamma, perm=hier.perm)
 
 
 # ---------------------------------------------------------------------------
@@ -827,20 +947,26 @@ def _banded_mv(band, x, batch: bool):
 
 
 class DeviceMG:
-    """Symmetric V(nu, nu)-cycle on the device with damped-Jacobi
-    smoothing.  Level operators are the lagged matrices, each in the
+    """The multigrid cycle on the device: ``nu`` smoothing sweeps before
+    and after the coarse correction (``post_smooth=False``: none after,
+    the V(nu, 0) cycle, for flexible GMRES only), each sweep the level's
+    Richardson steps over 1/diag (damped Jacobi: one; Chebyshev:
+    ``degree``), the coarse problem solved ``gamma`` times (2: the
+    W-cycle).  Level operators are the lagged matrices, each in the
     first form it has of block-banded, windowed ELL and plain ELL; a
     level-0 without one smooths with the operator the caller passes.
     ``fine_diag`` (set by the caller) is the raw diagonal of the operator
     the hierarchy was built from, the solvers' lagged equilibration
     scale."""
 
-    def __init__(self, levels, coarse_V, coarse_ilam, nu, perm=None,
-                 iperm=None, fine_diag=None):
+    def __init__(self, levels, coarse_V, coarse_ilam, nu, gamma: int = 1, perm=None,
+                 iperm=None, fine_diag=None, post_smooth: bool = True):
         self.levels = levels
         self.coarse_V = coarse_V
         self.coarse_ilam = coarse_ilam
         self.nu = nu
+        self.gamma = gamma
+        self.post_smooth = post_smooth
         self.perm = perm
         self.iperm = iperm
         self.fine_diag = fine_diag
@@ -866,7 +992,8 @@ class DeviceMG:
             raise ValueError("the refreshed hierarchy has another number of levels")
         for i, (lv, hl) in enumerate(zip(self.levels, hier.levels)):
             dinv = 1.0 / hl.diag
-            pairs += [(lv["dinv"], dinv), (lv["omega"], np.asarray(hl.omega))]
+            steps = hl.steps if hl.steps is not None else np.array([hl.omega])
+            pairs += [(lv["dinv"], dinv), (lv["steps"], steps)]
             if lv["dinv_solver"] is not None:
                 pairs.append((lv["dinv_solver"], dinv[iperm]))
             if lv["a_cols"] is not None:
@@ -980,13 +1107,14 @@ class DeviceMG:
 
     def _fused_post(self, lv) -> bool:
         """Take the post-smoothing residual as res1 - (AP) xc instead of a
-        second full-operator apply.  Valid for the V(1,1) cycle on a level
-        that smooths with its LAGGED operator (AP is lagged too; AP is
-        only ever stored for such a level).  A banded AP always fuses; a
-        windowed-ELL AP only when the JAX package's static work product
+        second full-operator apply.  Valid only for the plain V(1,1)
+        Jacobi cycle (one step a sweep, nu = 1, post-smoothing on) on a
+        level that smooths with its LAGGED operator (AP is lagged too; AP
+        is only ever stored for such a level).  A banded AP always fuses;
+        a windowed-ELL AP only when the JAX package's static work product
         NCH*Wr*K*C says it is cheaper than the operator's own layout —
         a TPU cost rule, kept so both cycles do the same arithmetic."""
-        if self.nu != 1:
+        if self.nu != 1 or not self.post_smooth or lv["steps"].shape[0] != 1:
             return False
         if lv["ap_band"] is not None:
             return True
@@ -1032,42 +1160,63 @@ class DeviceMG:
         A0p = lambda x: gather(A0(scatter(x)))
         return scatter(self._cycle(0, A0p, gather(r), batch))
 
-    def _smooth(self, A, dinv, omega, r, x, sweeps: int):
+    def _smooth(self, A, dinv, steps, r, x, sweeps: int, reverse: bool = False):
+        """``sweeps`` sweeps of the Richardson steps x += step (dinv (r - A
+        x)), in reverse order for the post-smoothing (the cycle stays
+        symmetric)."""
+        order = range(steps.shape[0] - 1, -1, -1) if reverse else range(steps.shape[0])
         for _ in range(sweeps):
-            x = x + omega * (dinv * (r - A(x)))
+            for j in order:
+                x = x + steps[j] * (dinv * (r - A(x)))
         return x
 
-    def _smooth_pre(self, A, dinv, omega, r):
-        # the first sweep from x = 0 needs no operator apply
-        x = omega * (dinv * r)
-        return self._smooth(A, dinv, omega, r, x, self.nu - 1)
+    def _smooth_pre(self, A, dinv, steps, r):
+        # the first step from x = 0 needs no operator apply
+        x = steps[0] * (dinv * r)
+        for j in range(1, steps.shape[0]):
+            x = x + steps[j] * (dinv * (r - A(x)))
+        return self._smooth(A, dinv, steps, r, x, self.nu - 1)
+
+    def _coarse_correction(self, i: int, A0, rc, batch: bool):
+        """The correction from level i + 1: the cycle there, repeated
+        gamma - 1 times on its own residual (the W-cycle for gamma = 2)."""
+        xc = self._cycle(i + 1, A0, rc, batch)
+        if i + 1 < len(self.levels):
+            Ac = self._op(i + 1, A0, batch)
+            for _ in range(self.gamma - 1):
+                xc = xc + self._cycle(i + 1, A0, rc - Ac(xc), batch)
+        return xc
 
     def _fine_solver_cycle(self, A0, r, gather, scatter, batch: bool):
         """Level-0 smoothing in the caller's dof layout with its operator;
         the coarse sub-cycle runs in the hierarchy's permuted layout."""
         lv = self.levels[0]
-        dinv, omega = lv["dinv_solver"], lv["omega"]
-        x = self._smooth_pre(A0, dinv, omega, r)
+        dinv, steps = lv["dinv_solver"], lv["steps"]
+        x = self._smooth_pre(A0, dinv, steps, r)
         res1 = r - A0(x)
         rc = self._transfer(lv, "pt", gather(res1), batch)
-        xc = self._cycle(1, None, rc, batch)
+        xc = self._coarse_correction(0, None, rc, batch)  # coarse levels: lagged
         x = x + scatter(self._transfer(lv, "p", xc, batch))
-        return self._smooth(A0, dinv, omega, r, x, self.nu)
+        if not self.post_smooth:
+            return x
+        return self._smooth(A0, dinv, steps, r, x, self.nu, reverse=True)
 
     def _cycle(self, i: int, A0, r, batch: bool):
         if i == len(self.levels):
             return self._coarse(r, batch)
         lv = self.levels[i]
         A = self._op(i, A0, batch)
-        dinv, omega = lv["dinv"], lv["omega"]
-        x = self._smooth_pre(A, dinv, omega, r)
+        dinv, steps = lv["dinv"], lv["steps"]
+        x = self._smooth_pre(A, dinv, steps, r)
         res1 = r - A(x)
         rc = self._transfer(lv, "pt", res1, batch)
-        xc = self._cycle(i + 1, A0, rc, batch)
+        xc = self._coarse_correction(i, A0, rc, batch)
         x = x + self._transfer(lv, "p", xc, batch)
+        if not self.post_smooth:
+            return x
         if self._fused_post(lv):
             # res(x + P xc) = res1 - (AP) xc: the same arithmetic from a
             # much smaller read than a second full-operator apply
             res2 = res1 - self._ap_apply(lv, xc, batch)
-            return x + omega * (dinv * res2)
-        return self._smooth(A, dinv, omega, r, x, self.nu)
+            return x + steps[0] * (dinv * res2)
+        return self._smooth(A, dinv, steps, r, x, self.nu, reverse=True)

@@ -26,11 +26,22 @@ the stacked fields to the facet vertex slots, the quadrature algebra of
 ``_robin_facet_values`` (``knp.py:359``) runs in PyTorch, and K10
 scatters the result back, row by row from the incidence list of the
 membrane's P1 operator (shared with the EMI system).
+
+Under a manufactured solution (``mms``, :class:`KNPMMSData`) the drift
+runs along the exact grad(phi) given at the cell quadrature points,
+fixed for the whole solve: its values are assembled once on the host
+(float64, from the quadrature element matrices of
+``solvers/direct.py::_drift_quad_coo``, then cast) into a value stream
+of the same P1 operator, which K3 and K11 apply as they apply K11f's.
+The right-hand side is then the mass term plus a static load vector of
+the manufactured sources, Robin data and Neumann flux, summed on the
+host; the splitting scheme is off.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import dataclasses
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -52,31 +63,78 @@ def ion_operator_values(op: P.P1Operator, cells, grads, vols, dt_inv: float,
     K11's operator, summed in float64 from the host COO helpers' element
     matrices of (``cells``, ``grads``, ``vols``) and cast to ``dtype``.
     Its row sums are those of dt_inv M alone (the stiffness's vanish)."""
-    Me = direct._mass_coo(cells, vols, dt_inv)[2]
-    Mv, Kv = op.assemble(Me, direct._stiffness_coo(cells, grads, vols)[2])
-    Mv[op.diag_slot] = np.bincount(np.asarray(cells).reshape(-1),
-                                   weights=Me.sum(axis=2).reshape(-1), minlength=op.n)
+    Mv = op.assemble_row_sums(direct._mass_coo(cells, vols, dt_inv)[2])
+    Kv = op.assemble(direct._stiffness_coo(cells, grads, vols)[2])[0]
     return [torch.as_tensor(Mv + Dc * Kv, dtype=dtype, device=op.device) for Dc in Ds]
+
+
+def mms_drift_values(op: P.P1Operator, cells, grads, vols, w_q, bary, qw,
+                     dtype) -> torch.Tensor:
+    """The drift along a vector field given at the cell quadrature points,
+    w_q (nc, nq, dim), on ``op`` in the row-sum form: the unit-coefficient
+    element matrices of ``solvers/direct.py::_drift_quad_coo`` summed on
+    the host in float64 (the diagonal slots take the rows' sums), then
+    cast to ``dtype``.  K3's and K11's drift stream for a manufactured
+    solution, in place of K11f's fill."""
+    De = direct._drift_quad_coo(cells, grads, vols, w_q, bary, qw)[2]
+    return torch.as_tensor(op.assemble_row_sums(De), dtype=dtype, device=op.device)
+
+
+@dataclasses.dataclass
+class KNPMMSData:
+    """Manufactured-solution data, numpy arrays (the JAX package's
+    ``KNPMMSData``): the drift and the interface coupling take the EXACT
+    phi, the coupling coefficients are the constants C_e, C_i, the Robin
+    data are analytic."""
+
+    # per tag: (N_solved, n_cells, nq) ion sources f_k
+    f_k_q: Dict[int, np.ndarray]
+    cell_bary: np.ndarray
+    cell_qw: np.ndarray
+    # per tag: (n_cells, nq, dim) exact grad(phi) for the drift term
+    gradphi_q: Dict[int, np.ndarray]
+    # per membrane tag: (N_solved, nf, nq) Robin data per side
+    g_robin_e_q: Dict[int, np.ndarray]
+    g_robin_i_q: Dict[int, np.ndarray]
+    # per membrane tag: (nf, nq) exact phi_i - phi_e at the facet quadrature points
+    dphi_q: Dict[int, np.ndarray]
+    facet_bary: np.ndarray
+    facet_qw: np.ndarray
+    # per boundary tag: (N_solved, nf, nq) Neumann -J_k_e . n on the exterior
+    neumann_q: Dict[int, np.ndarray]
+    # coupling constants C_r
+    C_e: float = 1.0
+    C_i: float = 1.0
 
 
 class KNPSystem:
     def __init__(self, geom: DiscreteGeometry, ions: List[Ion],
                  params: PhysicalParams, splitting_scheme: bool = True,
-                 dtype=torch.float64, device=None, *, p1ops, memops, kst,
+                 mms: Optional[KNPMMSData] = None, dtype=torch.float64,
+                 device=None, *, p1ops=None, memops=None, kst=None,
                  per_ion: bool = False):
         """``p1ops``: {tag: P1Operator} of ``geom`` on ``device``
         (:func:`ops.p1op.p1_operators`) and ``memops`` {membrane tag:
         P1Operator} (:func:`ops.p1op.membrane_operators`), shared with the
-        EMI system;
+        EMI system (None: built here);
         ``per_ion``: assemble each solved ion's operator values for the
         per-ion solve (K11), which the batched one (K3) never reads;
         ``kst``: {tag: the unit stiffness's values on that operator}, the
-        EMI system's tensors (shared, not copied), K3's second stream."""
+        EMI system's tensors (shared, not copied), K3's second stream
+        (None: assembled here)."""
         device = resolve_device(device)
+        p1ops = p1ops or P.p1_operators(geom, device)
+        memops = memops or P.membrane_operators(geom, device)
+        if kst is None:
+            kst = {t: torch.as_tensor(p1ops[t].assemble(
+                direct._stiffness_coo(s.cells, s.grads, s.vols)[2])[0],
+                dtype=dtype, device=device) for t, s in geom.subdomains.items()}
         self.geom = geom
         self.ions = ions
         self.params = params
-        self.splitting_scheme = splitting_scheme
+        # a manufactured solution has no ODEs: splitting off
+        self.splitting_scheme = splitting_scheme and mms is None
+        self.mms = mms
         self.dtype = dtype
         self.device = device
         self.tags = geom.sub_tags
@@ -123,6 +181,53 @@ class KNPSystem:
         fb, fw = quad.facet_rule(self.dim)
         self.fb, self.fw = as_f(fb), as_f(fw)
         self._src_vec = self._source_vectors(geom, ions)
+        # a manufactured solution: {tag: the exact drift's values} and
+        # {tag: (N_solved, n) the static load vector}
+        self.mms_drift, self._mms_load = {}, {}
+        if mms is not None:
+            for t, s in geom.subdomains.items():
+                self.mms_drift[t] = mms_drift_values(
+                    p1ops[t], s.cells, s.grads, s.vols, np.asarray(mms.gradphi_q[t]),
+                    np.asarray(mms.cell_bary), np.asarray(mms.cell_qw), dtype)
+            self._mms_load = self._mms_vectors(geom, mms)
+
+    def _mms_vectors(self, geom: DiscreteGeometry, mms: KNPMMSData):
+        """{tag: (N_solved, n)}: the manufactured solution's static load
+        vectors, the ion sources f_k, the membrane Robin terms C_e (dphi -
+        g_e) on the ECS side and C_i (g_i - dphi) on the ICS side and the
+        exterior Neumann flux, summed on the host in float64, then cast
+        and moved."""
+        host = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)
+        idx = lambda a: torch.as_tensor(np.asarray(a, np.int64))
+        Ns = self.n_solved
+        r = {t: torch.zeros(Ns, s.n_dofs, dtype=torch.float64)
+             for t, s in geom.subdomains.items()}
+        cb, cw = host(mms.cell_bary), host(mms.cell_qw)
+        for t, fq in mms.f_k_q.items():
+            s = geom.subdomains[t]
+            for k in range(Ns):
+                r[t][k] += K.source_rhs_quad(s.n_dofs, host(fq[k]), idx(s.cells),
+                                             host(s.vols), cb, cw)
+        fb, fw = host(mms.facet_bary), host(mms.facet_qw)
+        for m, sp in geom.membranes.items():
+            ct, ar = sp.cell_tag, host(sp.areas)
+            dphi = host(mms.dphi_q[m])
+            ge, gi = host(mms.g_robin_e_q[m]), host(mms.g_robin_i_q[m])
+            for k in range(Ns):
+                r[0][k] += K.facet_rhs_quad(geom.subdomains[0].n_dofs,
+                                            mms.C_e * (dphi - ge[k]),
+                                            idx(sp.facet_edofs), ar, fb, fw)
+                r[ct][k] += K.facet_rhs_quad(geom.subdomains[ct].n_dofs,
+                                             mms.C_i * (gi[k] - dphi),
+                                             idx(sp.facet_idofs), ar, fb, fw)
+        for btag, nq in mms.neumann_q.items():
+            bs = geom.boundaries[btag]
+            jq = host(nq)
+            for k in range(Ns):
+                r[bs.sub_tag][k] += K.facet_rhs_quad(
+                    geom.subdomains[bs.sub_tag].n_dofs, jq[k], idx(bs.facet_dofs),
+                    host(bs.areas), fb, fw)
+        return {t: v.to(self.device, self.dtype) for t, v in r.items()}
 
     def _source_vectors(self, geom: DiscreteGeometry, ions):
         """{tag: (N_solved, n) or None}: the load vector of every solved
@@ -164,7 +269,11 @@ class KNPSystem:
 
     def drift_values(self, tag: int, gradphi: torch.Tensor) -> torch.Tensor:
         """The drift along grad(phi) on the subdomain's P1 operator, by
-        K11f: once per solve, shared by every solved ion (K3 and K11)."""
+        K11f: once per solve, shared by every solved ion (K3 and K11).
+        Under a manufactured solution, the exact drift's values assembled
+        at setup (``gradphi`` unused)."""
+        if self.mms is not None:
+            return self.mms_drift[tag]
         s = self.sub[tag]
         return P.drift_fill(s["op"], s["grads"], s["vols"], gradphi)
 
@@ -176,17 +285,21 @@ class KNPSystem:
                            Dr, ion.z * self.params.psi * ion.D[tag])
 
     def diag(self, tag: int, gradphi: torch.Tensor) -> torch.Tensor:
-        """Batched Jacobi diagonal (N_solved, n) (plain; the coupled step
-        takes the hierarchy's lagged diagonal instead)."""
+        """Batched Jacobi diagonal (N_solved, n) (plain, the same bits every
+        call; the coupled step takes the hierarchy's lagged diagonal
+        instead): per cell vertex (1/dt) 2 vol / (k (k + 1)) + D vol |g_i|^2
+        + z psi D vol (grad(phi) . g_i) / k, summed by
+        ``P1Operator.scatter_cells``."""
         s = self.sub[tag]
-        c = s["cells"].long()
-        n, dt, psi = s["n_dofs"], self.params.dt, self.params.psi
-        md = K.mass_diag(n, c, s["vols"], 1.0 / dt)
-        sd = K.stiffness_diag(n, c, s["grads"], s["vols"])
-        dd = K.drift_diag(n, c, s["grads"], s["vols"], gradphi)
-        D = self.D[tag][:, None]
-        z = self.z_solved[:, None]
-        return md[None, :] + D * sd[None, :] + z * psi * D * dd[None, :]
+        k = s["op"].k
+        dt, psi = self.params.dt, self.params.psi
+        vols, grads = s["vols"][:, None], s["grads"]
+        md = (2.0 / (dt * k * (k + 1))) * vols
+        sd = (grads * grads).sum(dim=-1) * vols
+        dd = torch.einsum("cd,ckd->ck", gradphi, grads) * (vols / k)
+        D = self.D[tag][:, None, None]
+        z = self.z_solved[:, None, None]
+        return s["op"].scatter_cells(md + D * sd + z * psi * D * dd)
 
     # ------------------------------------------------------------------
     def _robin_facet_values(self, ct: int, Xloc: torch.Tensor, areas: torch.Tensor):
@@ -244,7 +357,9 @@ class KNPSystem:
     def rhs(self, c, phi, phi_M, I_ch=None, source_gate=1.0) -> Dict[int, torch.Tensor]:
         """RHS per subdomain: {tag: (N_solved, n)} — the mass term
         (1/dt) M c_prev by K3's mass-only apply, the gated source term, plus
-        the membrane terms.  ``source_gate`` is a number or a 0-d tensor."""
+        the membrane terms; under a manufactured solution the mass term
+        plus the static load vector.  ``source_gate`` is a number or a 0-d
+        tensor."""
         Ns = self.n_solved
         if torch.is_tensor(source_gate):
             source_gate = source_gate.to(self.dtype)
@@ -254,9 +369,21 @@ class KNPSystem:
                                      s["M"])
             if self._src_vec[t] is not None:
                 r[t] = r[t] + source_gate * self._src_vec[t]
+            if self.mms is not None:
+                r[t] = r[t] + self._mms_load[t]
+        if self.mms is not None:
+            return r
         for m, mb in self.mem.items():
             y_e, y_i = self._membrane_rhs(mb, c, phi, phi_M[m], I_ch[m])
             ct = mb["cell_tag"]
             r[0] = r[0].index_add(1, mb["mem_to_ecs"], y_e)
             r[ct] = r[ct].index_add(1, mb["mem_to_ics"], y_i)
         return r
+
+
+def knp_system(geom: DiscreteGeometry, ions: List[Ion], params: PhysicalParams,
+               splitting_scheme: bool = True, mms: Optional[KNPMMSData] = None,
+               dtype=torch.float64, device=None, p1ops=None, memops=None, kst=None,
+               per_ion: bool = False) -> KNPSystem:
+    return KNPSystem(geom, ions, params, splitting_scheme, mms, dtype, device,
+                     p1ops=p1ops, memops=memops, kst=kst, per_ion=per_ion)

@@ -13,6 +13,10 @@ K5/K6b gather from the transposed form of a transfer layout; K2 applies
 a membrane's surface mass on the membrane's P1 operator and K10 walks
 that operator's incidence list.  The fills, K2, K10 and K5/K6b use no
 atomics: float64 to 1e-13 max|y|, and two launches give the same bits.
+The verification path on the card: the 3-D manufactured solution at M =
+8 against its CPU run and repeated bitwise, K3 and K11 on its
+host-assembled exact drift against the plain quadrature drift, and the
+Chebyshev and W-cycle applies against the CPU's.
 """
 
 import pytest
@@ -707,3 +711,101 @@ def test_two_builds_give_the_same_source_vector():
     assert va.abs().max() > 0
     assert torch.equal(va, vb)
     assert torch.equal(va.cpu(), ref.to(torch.float32))
+
+
+@pytest.fixture(scope="module")
+def mms_3d():
+    """The 3-D manufactured solution at M = 8 on the card and on the CPU,
+    float64, with per-ion operators (K11) besides the batched ones (K3)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+
+    return chip_smoke._mms_data(3, 8)
+
+
+def test_mms_iterative_solve_on_the_card_matches_the_cpu(mms_3d):
+    """Deflated-Jacobi CG, Jacobi GMRES batched and per ion, rtol 1e-10:
+    equal iteration counts, fields within 1e-9 of max|u|, and the L2
+    errors equal to 1e-9 relative."""
+    import chip_smoke
+
+    eg, e1g, itg, _, _, fg = chip_smoke._mms_solve(mms_3d, "cuda", per_ion=True)
+    ec, e1c, itc, _, _, fc = chip_smoke._mms_solve(mms_3d, "cpu", per_ion=True)
+    assert itg == itc
+    for key in ("phi", "c", "c_per_ion"):
+        for t in fc[key]:
+            assert chip_smoke._norm_rel(fg[key][t], fc[key][t]) <= 1e-9
+    for f in chip_smoke.MMS_FIELDS:
+        assert abs(eg[f] - ec[f]) <= 1e-9 * ec[f] and abs(e1g[f] - e1c[f]) <= 1e-9 * e1c[f]
+
+
+def test_mms_solve_on_the_card_repeats_bitwise(mms_3d):
+    """Two runs of the MMS solves on the card give the same bits: the
+    Jacobi diagonals are summed by ``P1Operator.scatter_cells``, not by
+    an atomic scatter."""
+    import chip_smoke
+
+    _, _, it1, _, _, f1 = chip_smoke._mms_solve(mms_3d, "cuda", per_ion=True)
+    _, _, it2, _, _, f2 = chip_smoke._mms_solve(mms_3d, "cuda", per_ion=True)
+    assert it1 == it2
+    for key in ("phi", "c", "c_per_ion"):
+        for t in f1[key]:
+            assert torch.equal(f1[key][t], f2[key][t])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mms_drift_stream_under_k3_and_k11_matches_drift_apply_quad(mms_3d, dtype):
+    """K3 (z = psi = D = 1, no mass or stiffness) and K11 (P = 0) on the
+    host-assembled exact drift against the plain quadrature drift
+    ``ops.kernels.drift_apply_quad``, per subdomain."""
+    import numpy as np
+
+    from knpemi_tpu_torch.ops import kernels as K
+    from knpemi_tpu_torch.ops import p1op as P
+    from knpemi_tpu_torch.ops.p1op import p1_operators
+    from knpemi_tpu_torch.systems.knp import mms_drift_values
+
+    geom, case, ions, ed, kd = mms_3d
+    ops_ = p1_operators(geom, "cuda")
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    rng = np.random.default_rng(3)
+    for t, s in geom.subdomains.items():
+        op = ops_[t]
+        Dr = mms_drift_values(op, s.cells, s.grads, s.vols, kd.gradphi_q[t], kd.cell_bary,
+                              kd.cell_qw, dtype)
+        X = torch.as_tensor(rng.standard_normal((2, s.n_dofs)), dtype=dtype, device="cuda")
+        cpu = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float64)
+        ref = torch.stack([K.drift_apply_quad(
+            s.n_dofs, X[b].cpu().double(), cpu(s.cells).long(), cpu(s.grads), cpu(s.vols),
+            cpu(kd.gradphi_q[t]), cpu(kd.cell_bary), cpu(kd.cell_qw)) for b in range(2)])
+        zero = torch.zeros_like(Dr)
+        coef = torch.tensor([[0.0, 0.0, 1.0]] * 2, dtype=dtype, device="cuda")
+        y3 = P.knp_apply_batch(X, op, coef, zero, zero, Dr)
+        y11 = torch.stack([P.knp_apply(X[b].contiguous(), op, zero, Dr, 1.0) for b in range(2)])
+        for y in (y3, y11):
+            assert float((y.cpu().double() - ref).abs().max()) <= tol * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("opts", [dict(mg_smoother="cheby", mg_degree=3), dict(gamma=2)],
+                         ids=["cheby", "w_cycle"])
+@pytest.mark.parametrize("banded", [False, True], ids=["ell", "banded"])
+def test_cycle_options_apply_matches_the_cpu(opts, banded):
+    """One Chebyshev and one W-cycle DeviceMG.apply (the EMI hierarchy, one
+    vector) and apply_batch (a KNP hierarchy, B = 2) on the card against
+    the same hierarchy's on the CPU, float64, on the 3-D res-0 l = 1 box
+    (``chip_smoke.cycle_apply_readings``): within 1e-12 of max|y|, the
+    W-cycle's EMI apply within 1e-10 (``chip_smoke.CYCLE_APPLY_TOL``: on
+    the singular EMI operator the W-cycle amplifies roundoff, so the two
+    devices' summation orders part by more)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+
+    name = "W-cycle" if "gamma" in opts else "cheby"
+    assert chip_smoke.CYCLE_APPLY_CASES[name] == opts
+    rec = chip_smoke.cycle_apply_readings(build_idealized, SolverOptions, banded, name)
+    gamma = opts.get("gamma", 1)
+    assert rec["emi"] <= (1e-10 if gamma == 2 else 1e-12)
+    assert rec["knp"] <= 1e-12

@@ -6,7 +6,10 @@
   other than as ``knpemi_tpu_torch`` except in prose about what a
   kernel replaces (``knpemi_tpu/...`` paths in comments and docstrings);
 * ``Simulation``, ``build_idealized`` and ``build_astrocyte`` with no
-  device raise when CUDA is absent;
+  device raise when CUDA is absent, as do the MMS systems
+  (``systems/mms.py``, ``emi_system`` / ``knp_system`` with ``mms``) and
+  simulations built with the direct, deflated-Jacobi or multigrid
+  options;
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA.
 """
 
@@ -117,6 +120,31 @@ def test_simulation_without_device_needs_cuda(monkeypatch):
     assert all(v.device.type == "cpu" for v in c.values())
     assert EMISystem(geom, ions, params, device="cpu", p1ops=p1ops,
                      memops=memops).device == torch.device("cpu")
+
+
+def test_mms_and_solver_entry_points_need_cuda(monkeypatch):
+    """The MMS systems, the solver front-ends' direct and deflated-Jacobi
+    paths and the option-built simulations follow the device rule: no
+    device means CUDA, which raises without it."""
+    from knpemi_tpu_torch.mesh import unit_square_mms_mesh
+    from knpemi_tpu_torch.ops.geometry import build_geometry
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+    from knpemi_tpu_torch.systems import mms
+    from knpemi_tpu_torch.systems.emi import emi_system
+    from knpemi_tpu_torch.systems.knp import knp_system
+
+    geom = build_geometry(unit_square_mms_mesh(4))
+    case = mms.reference_mms_case(geom)
+    ions, ed, kd = mms.build_mms_data(geom, case)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make, data in ((emi_system, ed), (knp_system, kd)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make(geom, ions, case.params, mms=data)
+        assert make(geom, ions, case.params, mms=data, device="cpu").device.type == "cpu"
+    for opts in (dict(direct=True), dict(emi_precond="jacobi"),
+                 dict(mg_smoother="cheby", mg_nu=2, knp_post_smooth=False)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build_idealized(dim=2, resolution=1, solver_options=SolverOptions(**opts))
 
 
 def test_kernel_sources_present():

@@ -32,7 +32,6 @@ from knpemi_tpu.solvers import mg as jmg
 
 from knpemi_tpu_torch.interop import hierarchy_to_numpy
 from knpemi_tpu_torch.sim import SolverOptions, build_idealized
-from knpemi_tpu_torch.sim.stepper import MG_THETA
 from knpemi_tpu_torch.solvers import mg as tmg
 
 from test_torch_slice import jax_simulation
@@ -102,7 +101,7 @@ def refreshed(request):
     c0 = {t: v.numpy() for t, v in sim.init_state().c.items()}
     A_setup = sim._emi_operator(c0)
     s = 1.0 / np.sqrt(np.abs(sim._emi_diag0))[sim._emi_hier.perm]
-    hj = jmg.build_hierarchy(A_setup, B=1.0 / s, theta=MG_THETA,
+    hj = jmg.build_hierarchy(A_setup, B=1.0 / s, theta=sim.opts.mg_theta,
                              coarse_max=sim.opts.mg_coarse_max, banded=banded,
                              smoother="jacobi", slab_dtype=np.float64)
     A_new = sim._emi_operator(perturbed_c(sim))

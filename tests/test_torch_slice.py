@@ -133,17 +133,18 @@ def test_state_roundtrip(runs):
 
 def test_options_outside_the_slice_raise(runs):
     """What the port has not taken over raises instead of running something
-    else: a multi-candidate near-null space, an EMI solve without its
-    hierarchy.  (``mg_banded=True`` is ported: test_torch_mg_banded.py.)"""
+    else: a multi-candidate near-null space; an unknown EMI preconditioner
+    or smoother.  (``mg_banded=True`` is ported: test_torch_mg_banded.py;
+    the EMI solve without a hierarchy, the deflated Jacobi fallback:
+    test_torch_solver_options.py.)"""
     import scipy.sparse as sp
     from knpemi_tpu_torch.solvers import mg
-    from knpemi_tpu_torch.solvers.api import EMISolver
 
-    simT = runs[0]
     assert SolverOptions().mg_banded is False
     A = sp.diags([-1.0, 2.0, -1.0], [-1, 0, 1], shape=(2000, 2000)).tocsr()
     with pytest.raises(NotImplementedError):
         mg.build_hierarchy(A, B=np.ones((2000, 2)))
-    s = simT.init_state()
-    with pytest.raises(NotImplementedError):
-        EMISolver(simT.emi_sys).solve(s.c, s.phi_M)
+    with pytest.raises(ValueError):
+        SolverOptions(emi_precond="ilu")
+    with pytest.raises(ValueError):
+        SolverOptions(mg_smoother="gauss-seidel")

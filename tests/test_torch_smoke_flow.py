@@ -162,3 +162,49 @@ def test_far_add_cases_cover_every_far_remainder_on_the_cpu():
             assert torch.equal(y1, y2) and torch.equal(c["kern"](), y1)
     knp_far = sum(v for h, v in n_far.items() if h != "EMI")
     assert {"K5", *(("K6b",) if knp_far else ())} <= chip_smoke.reachable_kernels(sim)
+
+
+def test_mms_phase_flow_on_the_cpu(monkeypatch):
+    """The ``mms`` phase's flow on the CPU with the 3-D study at M = 4, 8,
+    16 (the card runs 8, 16, 32): every gate passes (rates, per ion
+    against batched, iterative against direct at M = 16, the second
+    device's run at M = 8, here the CPU twice), and the record has each
+    M's errors, iterations and seconds.  One intra-op thread: the Krylov
+    solves are thousands of small ops, which threads of several test
+    processes on one host slow down ~30x."""
+    import torch
+
+    monkeypatch.setattr(chip_smoke, "MMS_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "MMS_PATH", ())
+    monkeypatch.setattr(chip_smoke, "MMS_MS", {3: (4, 8, 16), 2: (8, 16, 32)})
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out, counts = chip_smoke.mms_phase()
+    finally:
+        torch.set_num_threads(n)
+    assert not any(counts.values())  # the CPU launches no kernel
+    for dim, rec in out.items():
+        assert list(rec["per_M"]) == list(chip_smoke.MMS_MS[int(dim[0])])
+        for f in chip_smoke.MMS_FIELDS:
+            assert rec["rates"][f][-1] > rec["rate_gate"]
+        for M, row in rec["per_M"].items():
+            assert row["iters"]["emi"] > 0 and row["iters"]["knp_batched"] > 0
+            assert ("knp_per_ion" in row["iters"]) == (M in chip_smoke.MMS_PER_ION_MS)
+            assert row["solve_seconds"] > 0
+    row8 = out["3-D"]["per_M"][8]
+    assert row8["cpu_iters"] == row8["iters"] and row8["gpu_vs_cpu_max_rel"] == 0.0
+    assert row8["repeat_bitwise"] and row8["repeat_iters"] == row8["iters"]
+    for dim, rec in out.items():
+        rows = list(rec["per_M"].values())
+        assert all(len(r["data_sha256"]["all"]) == 16 for r in rows)
+        assert len({r["data_sha256"]["all"] for r in rows}) == len(rows)
+        # the kernel checks at the largest M only: the EMI operator, and K3
+        # and K11 twice on each subdomain, all bitwise across launches
+        assert ["kernel_checks" in r for r in rows] == [False] * (len(rows) - 1) + [True]
+        kc = rows[-1]["kernel_checks"]
+        checks = {k: v for k, v in kc.items() if k != "systems_sha256"}
+        assert len(checks) == 9 and all(v["deterministic"] for v in checks.values())
+        assert all(v["max_abs_err"] <= 1e-13 * v["max_abs_y"] for v in checks.values())
+        assert set(kc["systems_sha256"]) == {"emi_load", "knp_load", "knp_drift"}
+    assert set(out["3-D"]["per_M"][16]["errors_direct"]) == set(chip_smoke.MMS_FIELDS)
