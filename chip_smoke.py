@@ -160,6 +160,33 @@ mms. the manufactured-solution study on the card in float64
    every M prints the sha256 of its host data by field; the
    launch counts, set to 0 before the phase, must show K1, K1f, K2, K3,
    K4 and K11;
+drivers. the reference's other drivers (``knpemi_tpu_torch/drivers``),
+   (a)-(f) right after phase 0, before any profiler session, and (g),
+   (h) in a line of their own after the mms phase:
+   (c) the benchmark scenario's kernels at its shapes, K1, K1f, K3 and
+   K4 on the one cell and K2, K9 and K10 on each of its three membranes
+   (5, 6, 7), float32 and float64, against their plain versions and
+   bitwise across two launches where phase 1 asks it; (a)
+   ``run_benchmark.solve_system`` at the driver's defaults (resolution
+   0, 5 ms = 50 steps, float32), the launch counts set to 0 just before
+   and read just after (every kernel the path can reach must launch;
+   the kernels line's ``launches_bench``): every field and probe trace
+   finite, the ECS K_e probe above its initial 3.0930 mM once the source
+   is on; (b) that scenario GPU float64 against CPU float64 for 4 steps
+   across the source onset, phase 2's gates; (d) ``run_2d`` at
+   resolution 1, 100 steps, against ``tests/data/golden_2d_res1.npz``
+   with ``tests/test_golden_traces.py``'s gates (float64 a gate, float32
+   read); (e) ``run_3d`` at its defaults; (f) 100 steps of
+   ``run_calibration.run`` in float64 on the card against the CPU within
+   1e-12 relative; (g) the native Vanek sweep against its plain twin on
+   the batched flagship build's EMI level-0 strength graph: identical
+   aggregates, both times; (h) every flagship build's host set-up with
+   its ``emi_multigrid`` and ``knp_multigrid`` parts, the t = 0 EMI
+   assembly's seconds and cache hit or miss and the sweeps' seconds;
+   the banded flagship build assembles afresh (its cache entry is
+   removed first) and the resume phase's gold leg, a build of the same
+   options from the caches, must give bitwise equal hierarchy arrays
+   and first step;
 4. profile, per res-2 path and per flagship run: the
    step's four phases timed by host clock over 2 steps, their kernel
    counts in one step, then 1 step under
@@ -169,8 +196,9 @@ mms. the manufactured-solution study on the card in float64
 Then the kernel table as one JSON line of fourteen entries (the twelve
 kernels of the batched step from the long box, K11 and K11f from the
 per-ion flagship run; every row also with its launches in the mms
-phase), the cost per solve of the P1 operator's fill and
-applies (K1, K11, and K3 with its drift fill and mass term), the card's name and power limit, and the last line
+phase and in the benchmark scenario's run), the cost per solve of the
+P1 operator's fill and applies (K1, K11, and K3 with its drift fill and
+mass term), the card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 Any failure raises and the script exits non-zero without that line; it
 also exits non-zero when CUDA is unavailable or when the package is not
@@ -1774,6 +1802,7 @@ def flagship(build_astrocyte, baseline, SolverOptions):
     import torch
 
     from knpemi_tpu_torch.sim.scenarios import K_E_INIT_A  # initial ECS K+, mM
+    from knpemi_tpu_torch.sim.stepper import _to_host
 
     config = {**baseline, "mesh_n": MESH_N}
     case = f"astrocyte tissue mesh_n {MESH_N} float32 tuned options"
@@ -1786,11 +1815,24 @@ def flagship(build_astrocyte, baseline, SolverOptions):
             # solve meets its tolerance with no iteration, and no KNP
             # V-cycle runs
             ("flagship banded", True, True, 12, 5)):
+        if label == "flagship banded":
+            # (h): this build assembles the t = 0 EMI operator afresh (and builds
+            # its banded hierarchies afresh, the first of the call), so that the
+            # resume phase's gold leg, a build of the same options from both
+            # caches, has a fresh build to be held against
+            Path(HOST_SETUP["emi_entry"]).unlink(missing_ok=True)
         t0 = time.perf_counter()
         sim = build_astrocyte(
             config, dtype=torch.float32, device="cuda",
             solver_options=SolverOptions(mg_banded=banded, knp_batched=batched, **TUNED))
         setup_s = time.perf_counter() - t0
+        HOST_SETUP["builds"].append(setup_record(label, sim, setup_s))
+        if label == "flagship batched":
+            HOST_SETUP["emi_entry"] = str(sim.emi_cache_entry)
+            HOST_SETUP["native_sweep"] = native_sweep_check(sim)
+        if label == "flagship banded":
+            HOST_SETUP["fresh"] = dict(hierarchy_sha=hierarchy_sha(sim),
+                                       first_step=_to_host(sim.step(sim.init_state())))
         if (len(sim.geom.subdomains), len(sim.geom.membranes)) != (3, 2):
             raise AssertionError(f"{label}: expected 3 subdomains and 2 membranes")
         # -- phase 1 at this run's shapes; phi in mV ---------------------------
@@ -2133,6 +2175,22 @@ def resume_phase(baseline, workdir: Path):
         t0 = time.perf_counter()
         sim = drv.build_simulation(config)
         legs[name] = dict(setup_seconds=time.perf_counter() - t0)
+        HOST_SETUP["builds"].append(setup_record(f"resume {name}", sim,
+                                                 legs[name]["setup_seconds"]))
+        fresh = HOST_SETUP.pop("fresh", None) if name == "gold" else None
+        if fresh is not None:
+            # (h): a build from both caches against the fresh banded flagship
+            # build of the same options: hierarchy arrays and the first step
+            sha = hierarchy_sha(sim)
+            differ = differing_fields(fresh["first_step"], sim.step(sim.init_state()))
+            HOST_SETUP["fresh_vs_cached"] = dict(
+                fresh="flagship banded", cached="resume gold",
+                hierarchy_sha_fresh=fresh["hierarchy_sha"], hierarchy_sha_cached=sha,
+                first_step_differing_fields=differ,
+                identical=sha == fresh["hierarchy_sha"] and not differ)
+            if not HOST_SETUP["fresh_vs_cached"]["identical"]:
+                raise AssertionError(f"a build from the caches differs from a fresh one: "
+                                     f"{HOST_SETUP['fresh_vs_cached']}")
         if geom is not None:
             bad = _geometry_differs(geom, sim.geom)
             legs[name]["geometry_differs"] = bad[:10]
@@ -2751,6 +2809,322 @@ def mms_phase():
     return out, counts
 
 
+# -- the drivers phase -------------------------------------------------------
+BENCH_MEMBRANES = (5, 6, 7)
+BENCH_PARITY_STEPS = 4  # across the source onset: the gate reads t > 0.2 at step 4
+GOLDEN_2D = Path(__file__).resolve().parent / "tests" / "data" / "golden_2d_res1.npz"
+# tests/test_golden_traces.py's gates: the probe trace and the final phi_M
+# (V), the final concentrations (relative)
+GOLDEN_GATES = dict(trace_atol=2e-4, phi_M_atol=2e-4, c_rtol=3e-3)
+CALIBRATION_STEPS, CALIBRATION_TOL = 100, 1e-12
+DRIVERS_DEVICE = "cuda"
+# filled by flagship() and resume_phase(): each flagship build's set-up,
+# the native sweep against its plain twin, the fresh build's hierarchy
+# hash and first step
+HOST_SETUP = {"builds": []}
+
+
+def setup_record(label: str, sim, setup_s: float) -> dict:
+    """One build's host set-up: its seconds, the multigrid parts, and
+    within them the t = 0 EMI assembly (seconds, cache hit or miss) and
+    the native Vanek sweeps (``Simulation.setup_detail``)."""
+    return dict(build=label, setup_seconds=setup_s,
+                emi_multigrid=sim.setup_seconds.get("emi_multigrid"),
+                knp_multigrid=sim.setup_seconds.get("knp_multigrid"), **sim.setup_detail)
+
+
+def _host_sha(h, obj):
+    """Feed ``obj``'s arrays (numpy, scipy sparse, dataclasses, dicts,
+    sequences of them) and scalars into the hash ``h``."""
+    import dataclasses
+
+    import numpy as np
+    import scipy.sparse as sp
+
+    if isinstance(obj, np.ndarray):
+        h.update(f"{obj.dtype}{obj.shape}".encode())
+        h.update(np.ascontiguousarray(obj).tobytes())
+    elif sp.issparse(obj):
+        for a in (obj.data, obj.indices, obj.indptr):
+            _host_sha(h, a)
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            h.update(f.name.encode())
+            _host_sha(h, getattr(obj, f.name))
+    elif isinstance(obj, dict):
+        for k in sorted(obj, key=str):
+            h.update(str(k).encode())
+            _host_sha(h, obj[k])
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _host_sha(h, v)
+    elif obj is None or isinstance(obj, (bool, int, float, str, np.generic)):
+        h.update(repr(obj).encode())
+    else:
+        h.update(type(obj).__name__.encode())
+
+
+def hierarchy_sha(sim) -> dict:
+    """sha256 of the EMI host hierarchy's arrays and of every device tensor
+    of the EMI and KNP hierarchies (what the cycles read)."""
+    import hashlib
+
+    import torch
+
+    host = hashlib.sha256()
+    _host_sha(host, sim._emi_hier)
+    dev = hashlib.sha256()
+    for mg in (sim.emi_solver.mg, *(sim.knp_solver.mg[t] for t in sorted(sim.knp_solver.mg))):
+        for t in [*mg.tensors(), mg.fine_diag]:
+            dev.update(f"{t.dtype}{tuple(t.shape)}".encode())
+            dev.update(t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+                       .tobytes())
+    return dict(host=host.hexdigest()[:16], device=dev.hexdigest()[:16])
+
+
+def native_sweep_check(sim) -> dict:
+    """(g): the native Vanek sweep against its plain twin on the level-0
+    strength graph of ``sim``'s EMI hierarchy (the t = 0 operator from the
+    cache, equilibrated and RCM-permuted as the build does): identical
+    aggregates, both times on this host."""
+    import numpy as np
+
+    from knpemi_tpu_torch.sim.stepper import _global_rcm
+    from knpemi_tpu_torch.solvers import mg as M
+
+    A_hat, s, _ = sim._emi_setup_operator()
+    A_hat, s, _ = _global_rcm(A_hat, s)
+    Af = M.strength_filter(A_hat, sim.opts.mg_theta, B=1.0 / s)
+    t0 = time.perf_counter()
+    agg, nc = M.vanek_aggregate(Af)
+    t1 = time.perf_counter()
+    agg_p, nc_p = M.vanek_aggregate_plain(Af)
+    t2 = time.perf_counter()
+    identical = nc == nc_p and bool(np.array_equal(agg, agg_p))
+    if not identical:
+        raise AssertionError(f"native Vanek sweep: {nc} aggregates against the plain "
+                             f"sweep's {nc_p}, or different assignments")
+    return dict(rows=Af.shape[0], nnz=int(Af.nnz), aggregates=nc, identical=identical,
+                native_seconds=t1 - t0, plain_seconds=t2 - t1)
+
+
+def bench_kernel_cases(sim, dtype):
+    """(c): the assembly kernels at the benchmark scenario's shapes — K2,
+    K9 and K10 on each of the three membranes of the one cell, K1, K1f,
+    K3 and K4 on the cell (tag 1)."""
+    cases = []
+    for i, m in enumerate(BENCH_MEMBRANES):
+        cases += [c for c in kernel_cases(sim, dtype, tag=1, mem=m)
+                  if i == 0 or c["name"].split()[0] not in CELL_KERNELS]
+    return cases
+
+
+def golden_dof_maps(sim):
+    """{tag: index array}: the dof of ``sim`` (2-D res 1) holding each dof of
+    ``tests/data/golden_2d_res1.npz``, whose concentrations are stored in
+    the Z-order (Morton) numbering of the run that made it: that run's
+    vertices of a subdomain, sorted, then ordered along the curve."""
+    import numpy as np
+
+    maps = {}
+    for tag, sub in sim.geom.subdomains.items():
+        order = np.argsort(sub.vertices, kind="stable")
+        verts, pts = sub.vertices[order], sub.coords[order]
+        lo, hi = pts.min(axis=0), pts.max(axis=0)
+        span = float(np.max(hi - lo)) or 1.0
+        bits = 16
+        q = ((pts - lo) / span * (2**bits - 1)).astype(np.uint64)
+        key = np.zeros(len(pts), dtype=np.uint64)
+        for b in range(bits):
+            for d in range(pts.shape[1]):
+                key |= ((q[:, d] >> np.uint64(b)) & np.uint64(1)) << np.uint64(
+                    b * pts.shape[1] + d)
+        verts_m = verts[np.argsort(key, kind="stable")]
+        inv = np.full(int(sub.vertices.max()) + 1, -1, dtype=np.int64)
+        inv[np.asarray(sub.vertices)] = np.arange(sub.n_dofs)
+        maps[tag] = inv[verts_m]
+    return maps
+
+
+def golden_2d(sim, state, traces, golden=GOLDEN_2D) -> dict:
+    """The 2-D res-1 run against the golden fixture under
+    ``tests/test_golden_traces.py``'s gates: the probe trace (every 5
+    steps) and the final phi_M within 2e-4 V, the final concentrations
+    within 3e-3 relative under :func:`golden_dof_maps`."""
+    import numpy as np
+
+    g = np.load(golden)
+    maps = golden_dof_maps(sim)
+    trace = np.asarray(traces["phi_M_probe"])
+    pm = state.phi_M[1].detach().cpu().double().numpy()
+    c = {t: state.c[t].detach().cpu().double().numpy()[:, maps[t]] for t in (0, 1)}
+    out = dict(
+        trace_len=len(trace),
+        probe_max_abs_dV=float(np.abs(trace - g["phi_M_probe"]).max())
+        if trace.shape == g["phi_M_probe"].shape else None,
+        phi_M_final_max_abs_dV=float(np.abs(pm - g["phi_M_final"]).max()),
+        c_max_rel={t: float((np.abs(c[t] - g[k]) / np.abs(g[k])).max())
+                   for t, k in ((0, "c_final_ecs"), (1, "c_final_ics"))},
+        trace_swing_V=[float(trace.min()), float(trace.max())])
+    out["held"] = bool(
+        out["probe_max_abs_dV"] is not None
+        and out["probe_max_abs_dV"] <= GOLDEN_GATES["trace_atol"]
+        and out["phi_M_final_max_abs_dV"] <= GOLDEN_GATES["phi_M_atol"]
+        and max(out["c_max_rel"].values()) <= GOLDEN_GATES["c_rtol"])
+    return out
+
+
+def drivers_phase():
+    """The reference's other drivers on the card, and the host set-up.
+
+    (c) the benchmark scenario's kernels at its shapes (float32 and
+    float64, against their plain versions, bitwise across two launches
+    where phase 1 asks it), then (a) ``run_benchmark.solve_system`` at the
+    driver's defaults (resolution 0, 5 ms = 50 steps, float32), the
+    launch counts set to 0 just before and read just after; (b) that
+    scenario GPU float64 against CPU float64 over the source onset; (d)
+    ``run_2d`` at resolution 1 for 100 steps against the golden fixture
+    (float64: a gate; float32: read only); (e) ``run_3d`` at its defaults;
+    (f) 100 steps of ``run_calibration.run`` on the card against the CPU.
+    (g) and (h) come from the flagship builds (:func:`host_setup_record`).
+    Returns (the phase's record, the launch counts of (a))."""
+    import numpy as np
+    import torch
+
+    from knpemi_tpu_torch import ops
+    from knpemi_tpu_torch.drivers import run_2d as R2
+    from knpemi_tpu_torch.drivers import run_3d as R3
+    from knpemi_tpu_torch.drivers import run_benchmark as RB
+    from knpemi_tpu_torch.drivers import run_calibration as RC
+    from knpemi_tpu_torch.ops import ell as TE
+    from knpemi_tpu_torch.sim import build_two_cell, dofs_per_step
+    from knpemi_tpu_torch.sim.scenarios import K_E_INIT_A  # the initial ECS K+, mM
+
+    dev = DRIVERS_DEVICE
+    out = {}
+    # -- (c) then (a): the benchmark scenario at the driver's defaults -------
+    t0 = time.perf_counter()
+    sim = RB.build_simulation(device=dev)
+    setup_s = time.perf_counter() - t0
+    if sorted(sim.geom.membranes) != list(BENCH_MEMBRANES) or len(sim.geom.subdomains) != 2:
+        raise AssertionError("benchmark: expected 2 subdomains and membranes 5, 6, 7")
+    t1 = time.perf_counter()
+    checks = {}
+    for dt in (torch.float32, torch.float64):
+        rows = check_cases(bench_kernel_cases(sim, dt), dt, time_them=False)
+        checks[str(dt).replace("torch.", "")] = [
+            {k: r.get(k) for k in ("name", "variant", "max_abs_err", "max_abs_y",
+                                   "deterministic")} for r in rows]
+    out["kernel_checks"] = dict(seconds=time.perf_counter() - t1, **checks)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t1 = time.perf_counter()
+    state, it_e, it_k, traces = RB.solve_system(sim=sim, verbose=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = {**ops.launch_counts(), FAR_ADD: TE.csr_add.launches}
+    fields = [*state.phi.values(), *state.phi_M.values(), *state.c.values()]
+    if not all(bool(torch.isfinite(v).all()) for v in fields) or not all(
+            np.isfinite(v).all() for v in traces.values()):
+        raise AssertionError("benchmark: a field or a probe trace is not finite")
+    t_arr, ke = np.asarray(traces["t"]), np.asarray(traces["K_e"])
+    # the source acts in the steps that start after t = 0.2 ms
+    after = ke[t_arr > 0.2 + sim.params.dt * 1.5]
+    if not (after.size and after.max() > K_E_INIT_A):
+        raise AssertionError(f"benchmark: the ECS K_e probe did not rise above "
+                             f"{K_E_INIT_A} mM after the source turned on: {ke.tolist()}")
+    reach = reachable_kernels(sim)
+    idle = [k for k, v in launches.items() if k.split()[0] in reach and not v]
+    if idle:
+        raise AssertionError(f"benchmark: kernels of the path did not launch: {idle}")
+    n = len(it_e)
+    out["benchmark"] = dict(
+        case="run_benchmark.solve_system, resolution 0, 5 ms, float32, default options",
+        dofs_per_step=dofs_per_step(sim), steps=n, ms_per_step=wall / n * 1e3,
+        emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        host_setup_seconds=setup_s, host_setup_parts=sim.setup_seconds,
+        host_setup_detail=sim.setup_detail,
+        phi_M_range_mV={m: [float(v.min()), float(v.max())] for m, v in state.phi_M.items()},
+        K_e_range_mM=[float(state.c[0][0].min()), float(state.c[0][0].max())],
+        K_e_probe_mM=[float(ke[0]), float(ke.max()), float(ke[-1])],
+        launches=launches, reachable=sorted(reach), seconds=time.perf_counter() - t0)
+    del sim, state
+    torch.cuda.empty_cache()
+
+    # -- (b) GPU float64 against CPU float64, over the source onset ----------
+    t0 = time.perf_counter()
+    runs = {}
+    for d in (dev, "cpu"):
+        s = build_two_cell(dtype=torch.float64, device=d)
+        st, e, k, ok = s.run(s.init_state(), BENCH_PARITY_STEPS)
+        if not ok.all():
+            raise AssertionError(f"benchmark parity: a step did not converge on {d}")
+        runs[d] = (st, e.tolist(), k.tolist())
+    (g, ge, gk), (c, ce, ck) = runs[dev], runs["cpu"]
+    if (ge, gk) != (ce, ck):
+        raise AssertionError(f"benchmark parity: iterations differ: GPU {ge} {gk}, "
+                             f"CPU {ce} {ck}")
+    dphi, dc = gpu_vs_cpu(g, c, "benchmark parity", "mV")
+    out["benchmark_parity"] = dict(steps=BENCH_PARITY_STEPS, emi_iters=ge, knp_iters=gk,
+                                   max_abs_dphi_M_mV=dphi, max_rel_dc=dc,
+                                   seconds=time.perf_counter() - t0)
+    del runs, g, c
+    torch.cuda.empty_cache()
+
+    # -- (d) the 2-D driver at resolution 1 against the golden fixture --------
+    for dt in (torch.float64, torch.float32):
+        t0 = time.perf_counter()
+        s = R2.build_simulation(1, device=dev, dtype=dt)
+        st, e, k, tr = R2.solve_system(1, Tstop=1.0e-2, save_every=5, verbose=False, sim=s)
+        torch.cuda.synchronize()
+        rec = dict(golden_2d(s, st, tr), steps=len(e), emi_iters_mean=float(e.mean()),
+                   knp_iters_mean=float(k.mean()), seconds=time.perf_counter() - t0)
+        key = str(dt).replace("torch.", "")
+        out[f"run_2d_res1_{key}"] = rec
+        if dt == torch.float64 and not rec["held"]:
+            raise AssertionError(f"run_2d float64: the golden fixture's gates missed: {rec}")
+        del s, st
+
+    # -- (e) the 3-D driver at its defaults -----------------------------------
+    t0 = time.perf_counter()
+    s = R3.build_simulation(device=dev)
+    setup_s = time.perf_counter() - t0
+    st, e, k, ms = R3.solve_system(sim=s, verbose=False)
+    if not all(bool(torch.isfinite(v).all()) for v in st.phi_M.values()):
+        raise AssertionError("run_3d: phi_M is not finite")
+    out["run_3d_res0_float32"] = dict(
+        dofs_per_step=dofs_per_step(s), steps=len(e), ms_per_step=ms,
+        emi_iters=e.tolist(), knp_iters=k.tolist(), host_setup_seconds=setup_s,
+        seconds=time.perf_counter() - t0)
+    del s, st
+    torch.cuda.empty_cache()
+
+    # -- (f) calibration: the card against the CPU, float64 -------------------
+    t0 = time.perf_counter()
+    yg = RC.run(CALIBRATION_STEPS, device=dev, verbose=False)
+    t1 = time.perf_counter()
+    yc = RC.run(CALIBRATION_STEPS, device="cpu", verbose=False)
+    t2 = time.perf_counter()
+    rel = float(np.max(np.abs(yg - yc) / np.abs(yc)))
+    if not rel <= CALIBRATION_TOL:
+        raise AssertionError(f"calibration: GPU vs CPU {rel:.3e} relative (gate "
+                             f"{CALIBRATION_TOL})")
+    out["calibration"] = dict(steps=CALIBRATION_STEPS, max_rel_gpu_vs_cpu=rel,
+                              seconds_per_step_gpu=(t1 - t0) / CALIBRATION_STEPS,
+                              seconds_per_step_cpu=(t2 - t1) / CALIBRATION_STEPS)
+
+    return out, launches
+
+
+def host_setup_record() -> dict:
+    """(g) and (h), from the flagship builds (``HOST_SETUP``)."""
+    return dict(native_sweep=HOST_SETUP.get("native_sweep"),
+                flagship_builds=HOST_SETUP["builds"],
+                fresh_vs_cached=HOST_SETUP.get("fresh_vs_cached"))
+
+
 def per_solve_ecs(sim, launches):
     """The P1 operator's cost per solve on the flagship's ECS (tag 0), for
     the package ``sim`` comes from, by its own wrappers on random inputs
@@ -2936,13 +3310,20 @@ def main(argv=None) -> int:
     emit(dict(phase=0, nvidia_smi=smi, torch=torch.__version__,
               cuda=torch.version.cuda, build_seconds=_build.build_seconds,
               ptxas=ptxas, seconds=time.perf_counter() - t0))
+    # -- the reference's other drivers, (a)-(f), first: before any profiler
+    # session, in a process that has run nothing else -----------------------------
+    t0 = time.perf_counter()
+    launches = {}
+    drv_out, launches["bench"] = drivers_phase()
+    emit(dict(phase="drivers", case="run_benchmark (a-c), run_2d (d), run_3d (e), "
+              "run_calibration (f)", **drv_out, seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
     # the launch floor, beside every kernel's bound in the kernels line
     floor = launch_floor_ms()
     _FLUSH.pop("buf", None)
     emit(dict(phase=1, case="launch floor: the flushed device time of a one-element fill",
               floor_ms=floor))
 
-    launches = {}
     for banded in (False, True):
         label = "mg_banded=True" if banded else "mg_banded=False"
         # -- phase 1: kernels against their plain versions --------------------
@@ -3051,6 +3432,10 @@ def main(argv=None) -> int:
               "Jacobi GMRES batched (K3) and per ion (K11), rtol 1e-10; host LU",
               **mms_out, launches=launches["mms"], seconds=time.perf_counter() - t0))
 
+    # -- (g), (h): the flagship builds' host set-up -----------------------------
+    emit(dict(phase="drivers", case="the native sweep (g) and the flagship builds' "
+              "host set-up (h)", **host_setup_record()))
+
     # one row per kernel.  The twelve of the batched step: all from the path
     # on which all twelve lie (the long box): launches of its 5 timed steps,
     # and error, times and bound of the kernel's first variant (tag 0;
@@ -3108,7 +3493,7 @@ def main(argv=None) -> int:
             launches_flagship_batched=launches["flagship batched"][name],
             launches_flagship_per_ion=launches["flagship per-ion"][name],
             launches_flagship_banded=launches["flagship banded"][name],
-            launches_mms=launches["mms"][name],
+            launches_mms=launches["mms"][name], launches_bench=launches["bench"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], floor_ms=floor,
             library_ms=r["library_ms"], variant=r.get("variant"),
@@ -3140,7 +3525,8 @@ def main(argv=None) -> int:
                        ("long_box", "long box"),
                        ("flagship_batched", "flagship batched"),
                        ("flagship_per_ion", "flagship per-ion"),
-                       ("flagship_banded", "flagship banded"), ("mms", "mms"))})
+                       ("flagship_banded", "flagship banded"), ("mms", "mms"),
+                       ("bench", "bench"))})
         rb = far_p["B=2 KNP"]
         if rb is not None:
             far["batch"] = {k: rb.get(k) for k in (

@@ -55,12 +55,12 @@ def register_model(model: ODEModel) -> ODEModel:
 
 
 def get_model(name: str) -> ODEModel:
-    from . import glial, hh  # noqa: F401  (populate the registry)
+    from . import calibration, glial, hh, test_ode  # noqa: F401  (populate the registry)
 
     return _REGISTRY[name]
 
 
 def available_models():
-    from . import glial, hh  # noqa: F401
+    from . import calibration, glial, hh, test_ode  # noqa: F401
 
     return sorted(_REGISTRY)

@@ -1,7 +1,7 @@
 from .stepper import Simulation, SolverOptions
 from .scenarios import (
-    ASTROCYTE_BASELINE, build_astrocyte, build_idealized, dofs_per_step,
+    ASTROCYTE_BASELINE, build_astrocyte, build_idealized, build_two_cell, dofs_per_step,
 )
 
 __all__ = ["Simulation", "SolverOptions", "build_idealized", "build_astrocyte",
-           "ASTROCYTE_BASELINE", "dofs_per_step"]
+           "build_two_cell", "ASTROCYTE_BASELINE", "dofs_per_step"]

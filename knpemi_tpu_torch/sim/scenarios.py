@@ -7,6 +7,12 @@ calibrated initial concentrations, HH membranes with the synaptic
 stimulus on x < 20 um, and the same solver tolerances (rtol EMI 1e-5,
 KNP 1e-7).
 
+``build_two_cell`` is the counterpart of ``build_simulation`` in
+``examples/benchmark/run_stim_duration.py``, the benchmark scenario: the
+ECS and one glial cell whose membrane is split into three tagged
+membranes (5, 6, 7), each with its own Kir model, and a K+ / Na- box
+source in the ECS from t > 0.2 ms, in mV / ms / cm / mM units.
+
 ``build_astrocyte`` is the counterpart of ``build_simulation`` in
 ``examples/astrocyte/run_stim_duration.py`` on the synthetic tissue
 mesh: ECS(0) + neuron(1, ``hh_mv``) + glial(2, Kir) in mV / ms / cm / mM
@@ -23,6 +29,7 @@ import torch
 from ..io.xdmf import read_mesh
 from ..mesh import (
     astrocyte_tissue_mesh, idealized_2d_mesh, idealized_3d_mesh, remark_emimesh,
+    two_cell_tissue_mesh,
 )
 from ..models import get_model, setup_membrane_model
 from ..ops.geometry import build_geometry
@@ -191,6 +198,66 @@ def build_astrocyte(config: dict, dtype=torch.float64, device=None,
     return Simulation(
         geom, ions, params, mem_models, solver_options,
         source_gate=pulsed_source_gate(config), dtype=dtype, device=device,
+    )
+
+
+# --- the benchmark scenario: ECS + one glial cell, three membranes ----------
+# the astrocyte scenario's ECS and glial K+ and Na+, with Cl- set for zero
+# net background charge
+CL_E_INIT_B = NA_E_INIT_A + K_E_INIT_A
+CL_G_INIT_B = NA_G_INIT + K_G_INIT
+# tortuosities of the ECS and the cell
+LAMBDA_E_B, LAMBDA_I_B = 0.5, 3.4
+# the ECS source box (cm) and the time after which the source is on (ms)
+SOURCE_BOX_B = ((2100e-7, 2100e-7, 2100e-7), (2900e-7, 2900e-7, 2500e-7))
+SOURCE_ON_AFTER_B = 0.2
+
+
+def build_two_cell(resolution: int = 0, f_value: float = 500.0, mesh=None,
+                   dtype=torch.float64, device=None, direct: bool = False,
+                   solver_options: SolverOptions | None = None):
+    """The benchmark scenario on the synthetic two-cell tissue mesh at
+    ``resolution`` (``mesh.two_cell_tissue_mesh``), or on ``mesh`` (a
+    ``Mesh`` with cell tags 0/1 and membrane tags 5/6/7, e.g. a remarked
+    emimesh): dt 0.1 ms, ``glial`` on each of the three membranes with
+    the six concentration parameters set to the initial values,
+    tortuosity-scaled diffusion, and the box source +``f_value`` for K+
+    and -``f_value`` for Na+ after t > 0.2 ms.  Solver defaults: rtol EMI
+    1e-5, KNP 1e-7 (``direct`` takes the host LU path);
+    ``device=None`` means CUDA."""
+    if mesh is None:
+        mesh = two_cell_tissue_mesh(resolution)
+    geom = build_geometry(mesh)
+    if sorted(geom.membranes) != [5, 6, 7]:
+        raise ValueError(f"the benchmark scenario needs membranes 5, 6 and 7, "
+                         f"got {sorted(geom.membranes)}")
+    params = PhysicalParams(
+        dt=0.1, F=96500e3, R=8.315e3, temperature=307e3, C_M=1.0,
+        n_steps_ODE=25, rho_z=-1.0, rho={0: 0.0, 1: 0.0},
+    )
+    D_sub = lambda D: {0: D / LAMBDA_E_B**2, 1: D / LAMBDA_I_B**2}
+    box_q = source_box_indicator_q(geom, 0, *SOURCE_BOX_B)
+    ions = [
+        Ion("K", 1.0, D_sub(D_K_A), {0: K_E_INIT_A, 1: K_G_INIT},
+            f_source_q={0: f_value * box_q}),
+        Ion("Cl", -1.0, D_sub(D_CL_A), {0: CL_E_INIT_B, 1: CL_G_INIT_B}),
+        Ion("Na", 1.0, D_sub(D_NA_A), {0: NA_E_INIT_A, 1: NA_G_INIT},
+            f_source_q={0: -f_value * box_q}),
+    ]
+    stim_params = {"stimulus": {"stim_amplitude": 0.0}, "stimulus_locator": None}
+    glial = get_model("glial")
+    # three membrane models of the same ODE, one per membrane tag
+    mem_models = setup_membrane_model(stim_params, params, {5: glial, 6: glial, 7: glial},
+                                      geom, ions)
+    for mm in mem_models:
+        for name, v in (("K_e", K_E_INIT_A), ("Na_e", NA_E_INIT_A), ("Cl_e", CL_E_INIT_B),
+                        ("K_i", K_G_INIT), ("Na_i", NA_G_INIT), ("Cl_i", CL_G_INIT_B)):
+            mm.params0[:, mm.param_index(name)] = v
+    return Simulation(
+        geom, ions, params, mem_models,
+        solver_options or SolverOptions(direct=direct, rtol_emi=1e-5, rtol_knp=1e-7),
+        source_gate=lambda t: (t > SOURCE_ON_AFTER_B).to(t.dtype),
+        dtype=dtype, device=device,
     )
 
 

@@ -25,6 +25,11 @@ path (``direct``, no hierarchy), the deflated Jacobi EMI preconditioner
 ``knp_post_smooth`` (the KNP hierarchies' V(1,0) cycle); the W-cycle is
 ``DeviceMG.gamma`` on a built hierarchy, as in the JAX package.
 
+The set-up reads the t = 0 EMI operator from the port's cache directory
+where an earlier build of the same scenario left it
+(``_assemble_emi_cached``, the JAX package's ``_assemble_emi_cached``
+:246), and ``setup_seconds`` / ``setup_detail`` time each part of it.
+
 The JAX package jits and scans the step; here it runs eagerly, and each
 Krylov iteration reads its stopping test back to the host.  ``run``
 advances in chunks of ``save_every`` steps as the JAX ``run`` does
@@ -42,8 +47,12 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import hashlib
+import os
 import time
 import warnings
+import zipfile
+from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -56,7 +65,7 @@ from ..ops.geometry import DiscreteGeometry
 from ..ops.p1op import membrane_operators, p1_operators
 from ..solvers import direct
 from ..solvers.api import EMISolver, KNPSolver
-from ..solvers.mg import build_hierarchy_cached, refresh_hierarchy
+from ..solvers.mg import CACHE_DIR, build_hierarchy_cached, refresh_hierarchy
 from ..solvers.precision import dot2
 from ..systems.coupling import (
     membrane_maps, set_initial_conditions, update_pde_variables,
@@ -64,6 +73,8 @@ from ..systems.coupling import (
 from ..systems.emi import EMISystem
 from ..systems.knp import KNPSystem
 from ..systems.types import Ion, PhysicalParams, SimState, resolve_device
+from ..utils import native
+from ..utils.critical import critical_section
 
 # what Simulation.run may do with a solve that did not converge
 ON_DIVERGENCE = ("raise", "warn", "ignore")
@@ -186,6 +197,11 @@ class Simulation:
         self.refresh_stats = None  # the last installed refill's (DeviceMG.refill_arrays)
         # host seconds of each part of the set-up, in the order it runs
         self.setup_seconds = {}
+        # within emi_multigrid / knp_multigrid: the t = 0 EMI assembly's
+        # seconds and whether its cache entry was read ("hit") or written
+        # ("miss"), and the native Vanek sweeps' seconds
+        self.setup_detail = {}
+        self.emi_cache_entry = None  # the t = 0 EMI operator's cache file, once read or written
         t0 = time.perf_counter()
         # one P1 operator pattern per subdomain, for both systems
         p1ops = p1_operators(geom, self.device)
@@ -232,10 +248,14 @@ class Simulation:
         # as in the JAX package)
         self._emi_hier = None
         if not opts.direct and opts.emi_precond == "mg":
+            sweep0 = native.sweep_seconds
             self._setup_emi_mg()
             t0 = self._lap("emi_multigrid", t0)
+            sweep1 = native.sweep_seconds
             self._setup_knp_mg()
             self._lap("knp_multigrid", t0)
+            self.setup_detail.update(emi_vanek_sweep=sweep1 - sweep0,
+                                     knp_vanek_sweep=native.sweep_seconds - sweep1)
 
     def _lap(self, part: str, t0: float) -> float:
         t1 = time.perf_counter()
@@ -263,18 +283,81 @@ class Simulation:
         band_dtype = torch.bfloat16 if opts.mg_band_bf16 else None
         return hier, hier.device(self.dtype, self.device, band_dtype=band_dtype)
 
-    def _setup_emi_mg(self):
-        """Lagged EMI hierarchy from the initial conductivity (host, once)."""
+    def _emi_cache_path(self, kappa: dict) -> Path:
+        """The cache entry of the t = 0 EMI operator for ``kappa``: keyed, as
+        the JAX package's, by ``emi_csr_v1``, C_phi, each subdomain's
+        cells, gradients, volumes and kappa, and each membrane's facet
+        dofs, areas and cell tag."""
+        h = hashlib.sha256()
+        h.update(b"emi_csr_v1")
+        h.update(np.float64(self.params.C_phi).tobytes())
+        for t in self.emi_sys.tags:
+            sub = self.geom.subdomains[t]
+            for arr in (sub.cells, sub.grads, sub.vols, kappa[t]):
+                a = np.ascontiguousarray(np.asarray(arr))
+                h.update(str(a.shape).encode())
+                h.update(a.tobytes())
+        for m, mem in sorted(self.geom.membranes.items()):
+            for arr in (mem.facet_idofs, mem.facet_edofs, mem.areas, np.int64(mem.cell_tag)):
+                h.update(np.ascontiguousarray(np.asarray(arr)).tobytes())
+        return Path(CACHE_DIR) / ("emi_" + h.hexdigest()[:32] + ".npz")
+
+    def _assemble_emi_cached(self, kappa: dict) -> sp.csr_matrix:
+        """The t = 0 EMI operator (``direct.assemble_emi_csr``), kept on disk
+        in the port's cache directory (``solvers/mg.py::CACHE_DIR``): the
+        operator is a function of the geometry, C_phi and kappa alone, so
+        a later build of the same scenario is spared its COO accumulation.
+        A hit reads the CSR arrays back as they were written; a corrupt
+        entry is assembled afresh and replaced; a new entry is written
+        atomically inside ``critical_section``.  The refresh path
+        (:meth:`_emi_operator`) assembles afresh."""
+        path = self.emi_cache_entry = self._emi_cache_path(kappa)
+        if path.exists():
+            try:
+                with np.load(path) as z:
+                    A0 = sp.csr_matrix((z["data"], z["indices"], z["indptr"]),
+                                       shape=tuple(z["shape"]))
+                self.setup_detail["emi_assembly_cache"] = "hit"
+                return A0
+            except (OSError, ValueError, KeyError, EOFError, zipfile.BadZipFile):
+                pass  # corrupt entry: assemble afresh below
+        A0 = direct.assemble_emi_csr(self.geom, self.params, kappa)
+        self.setup_detail["emi_assembly_cache"] = "miss"
+        # np.savez appends ".npz" unless the name ends with it
+        tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp.npz")
+        try:
+            with critical_section():
+                path.parent.mkdir(parents=True, exist_ok=True)
+                np.savez(tmp, data=A0.data, indices=A0.indices, indptr=A0.indptr,
+                         shape=np.asarray(A0.shape))
+                os.replace(tmp, path)
+        except BaseException as exc:
+            tmp.unlink(missing_ok=True)
+            # caching is best-effort, but an interruption goes on to the caller
+            if not isinstance(exc, OSError):
+                raise
+        return A0
+
+    def _emi_setup_operator(self):
+        """The t = 0 EMI operator from the initial conductivity
+        (:meth:`_assemble_emi_cached`), symmetrically equilibrated: (A_hat,
+        s, diag) with A_hat = S A S, S = diag(s), s = 1/sqrt|diag|."""
         c0 = set_initial_conditions(self.geom, self.ions, dtype=torch.float64,
                                     device="cpu")
         kappa = {t: v.numpy() for t, v in self.emi_sys.kappa(c0).items()}
-        A0 = direct.assemble_emi_csr(self.geom, self.params, kappa)
+        t0 = time.perf_counter()
+        A0 = self._assemble_emi_cached(kappa)
+        self.setup_detail["emi_assembly"] = time.perf_counter() - t0
         d = A0.diagonal()
-        self._emi_diag0 = diag0 = np.where(d != 0, d, 1.0)
+        diag0 = np.where(d != 0, d, 1.0)
         s = 1.0 / np.sqrt(np.abs(diag0))
-        A_hat = (sp.diags(s) @ A0 @ sp.diags(s)).tocsr()
+        return (sp.diags(s) @ A0 @ sp.diags(s)).tocsr(), s, diag0
+
+    def _setup_emi_mg(self):
+        """Lagged EMI hierarchy from the initial conductivity (host, once)."""
+        A_hat, s, self._emi_diag0 = self._emi_setup_operator()
         self._emi_hier, mg = self._hierarchy(A_hat, s)
-        mg.fine_diag = torch.as_tensor(diag0, dtype=self.dtype, device=self.device)
+        mg.fine_diag = torch.as_tensor(self._emi_diag0, dtype=self.dtype, device=self.device)
         self.emi_solver.mg = mg
 
     def _setup_knp_mg(self):

@@ -11,7 +11,8 @@ solve, never for CG):
 
 * **setup on the host, once** (numpy/scipy, copied from the JAX
   package so the hierarchy comes out identical): strength-of-connection
-  filtering with B-compatible lumping, Vanek root-node aggregation,
+  filtering with B-compatible lumping, Vanek root-node aggregation
+  (the native host toolkit's sweep, ``utils/native.py``),
   near-null-weighted tentative prolongators, Jacobi-smoothed P, Galerkin
   RAP and an eigenfactored coarsest inverse;
 * **apply on the device, every iteration** (PyTorch): the cycle, each
@@ -39,8 +40,9 @@ with the transfers frozen and every array's shape kept;
 :meth:`DeviceMG.refill_arrays` pairs them with the tensors the device
 cycle already holds and :meth:`DeviceMG.install` copies them in, so
 that no tensor is reallocated.  :func:`build_hierarchy_cached` keeps
-built hierarchies on disk in the port's own cache directory, bounded
-by :func:`_evict_lru`.
+built hierarchies on disk in the port's own cache directory (written
+atomically inside ``utils/critical.py::critical_section``), bounded by
+:func:`_evict_lru`.
 """
 
 from __future__ import annotations
@@ -58,6 +60,8 @@ import torch
 
 from ..ops import banded as band_ops
 from ..ops import ell as ell_ops
+from ..utils import native
+from ..utils.critical import critical_section
 
 
 # ---------------------------------------------------------------------------
@@ -94,10 +98,18 @@ def strength_filter(A: sp.csr_matrix, theta: float,
 
 
 def vanek_aggregate(Af: sp.csr_matrix):
-    """Root-node aggregation on the strength graph (Vanek phases 1-3): the
-    sequential sweep of ``knpemi_tpu/solvers/mg.py::vanek_aggregate`` and
-    of its native twin ``native/host_toolkit.cpp``, which give the same
-    aggregates."""
+    """Root-node aggregation on the strength graph (Vanek phases 1-3), by
+    the native host toolkit's sweep (``utils/native.py``, built at first
+    use; a failed build raises): the sweep of
+    ``knpemi_tpu/solvers/mg.py::vanek_aggregate`` and of its native twin,
+    which give the same aggregates."""
+    Af = Af.tocsr()
+    return native.vanek_aggregate(Af.indptr, Af.indices, Af.shape[0])
+
+
+def vanek_aggregate_plain(Af: sp.csr_matrix):
+    """The same sweep in Python, the plain twin of :func:`vanek_aggregate`
+    that tests hold it against; no build calls it."""
     Af = Af.tocsr()
     n = Af.shape[0]
     agg = np.full(n, -1, dtype=np.int64)
@@ -841,12 +853,20 @@ def build_hierarchy_cached(A0: sp.csr_matrix, B: Optional[np.ndarray] = None,
     hier = build_hierarchy(A, B=B, **kw)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
     try:
-        cache_dir.mkdir(parents=True, exist_ok=True)
-        with open(tmp, "wb") as f:
-            pickle.dump(hier, f, protocol=4)
-        os.replace(tmp, path)
-    except OSError:
-        tmp.unlink(missing_ok=True)  # caching is best-effort
+        # a watchdog alarm (signal.alarm) landing mid-dump would orphan
+        # the .tmp and lose the build: cooperating handlers defer it
+        # until the entry is on disk (utils/critical.py)
+        with critical_section():
+            cache_dir.mkdir(parents=True, exist_ok=True)
+            with open(tmp, "wb") as f:
+                pickle.dump(hier, f, protocol=4)
+            os.replace(tmp, path)
+    except BaseException as exc:
+        tmp.unlink(missing_ok=True)
+        # caching is best-effort, but an interruption (KeyboardInterrupt,
+        # a watchdog's TimeoutError) goes on to the caller
+        if not isinstance(exc, OSError):
+            raise
     _evict_lru(cache_dir, keep=path)
     return hier
 

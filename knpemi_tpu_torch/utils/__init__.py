@@ -1,0 +1,3 @@
+"""Host utilities of the port: watchdog-safe critical sections
+(``critical``), progress prints and timers (``logging``) and the native
+host toolkit (``native``, a C++ library built by ``g++`` at first use)."""

@@ -809,3 +809,39 @@ def test_cycle_options_apply_matches_the_cpu(opts, banded):
     gamma = opts.get("gamma", 1)
     assert rec["emi"] <= (1e-10 if gamma == 2 else 1e-12)
     assert rec["knp"] <= 1e-12
+
+
+def test_native_sweep_in_a_cuda_build_matches_the_plain_sweep():
+    """A CUDA build runs the native Vanek sweep (``utils/native.py``): on
+    its EMI level-0 strength graph the aggregates equal the plain
+    sweep's, and the build timed its sweeps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from knpemi_tpu_torch.sim import build_idealized
+
+    sim = build_idealized(dim=3, resolution=1, g_syn_bar=10.0, dtype=torch.float32,
+                          device="cuda")
+    rec = chip_smoke.native_sweep_check(sim)
+    assert rec["identical"] and rec["aggregates"] > 0
+    assert sim.setup_detail["emi_vanek_sweep"] > 0.0
+    assert sim.setup_detail["emi_assembly_cache"] in ("hit", "miss")
+
+
+def test_benchmark_scenario_on_the_card_matches_the_cpu():
+    """The benchmark scenario (``sim.build_two_cell``: three membranes on
+    one cell), 2 float64 steps on the card and on the CPU: equal
+    iterations, phi_M within 1e-9 mV, c within 1e-9 relative."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import chip_smoke
+    from knpemi_tpu_torch.sim import build_two_cell
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        sim = build_two_cell(dtype=torch.float64, device=dev)
+        runs[dev] = sim.run(sim.init_state(), 2)
+    (g, ge, gk, gok), (c, ce, ck, cok) = runs["cuda"], runs["cpu"]
+    assert gok.all() and cok.all()
+    assert ge.tolist() == ce.tolist() and gk.tolist() == ck.tolist()
+    chip_smoke.gpu_vs_cpu(g, c, "benchmark", "mV")

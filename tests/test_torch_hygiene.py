@@ -305,3 +305,45 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
                          capture_output=True, text=True, timeout=120, cwd=tmp_path)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def test_drivers_and_the_two_cell_scenario_need_cuda(monkeypatch):
+    """``build_two_cell`` and every driver's build (``run_benchmark``,
+    ``run_2d``, ``run_3d``; ``run_calibration.run``) with no device mean
+    CUDA, which raises without it; with ``device="cpu"`` they build there,
+    in float64; the drivers' modules import neither JAX nor the JAX
+    package (``test_no_import_of_jax_package`` reads them too)."""
+    from knpemi_tpu_torch.drivers import run_2d, run_3d, run_benchmark, run_calibration
+    from knpemi_tpu_torch.sim import build_two_cell
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    builds = (build_two_cell, run_benchmark.build_simulation, run_2d.build_simulation,
+              run_3d.build_simulation)
+    for build in builds:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_calibration.run(n_steps=1, verbose=False)
+    for build in builds[1:]:
+        sim = build(device="cpu")
+        assert sim.device == torch.device("cpu") and sim.dtype == torch.float64
+    assert build_two_cell(device="cpu").device == torch.device("cpu")
+    for mod in (run_2d, run_3d, run_benchmark, run_calibration):
+        assert Path(mod.__file__).parent == PORT / "drivers"
+
+
+def test_new_host_modules_are_in_the_port():
+    """The native toolkit's source and the utilities ship in the package;
+    the toolkit is built at first use, not at import."""
+    from knpemi_tpu_torch.utils import critical, logging, native
+
+    assert (PORT / "utils" / "csrc" / "host_toolkit.cpp").is_file()
+    assert native.BUILD_DIR == PORT / "build"
+    out = subprocess.run(
+        [sys.executable, "-c", "import knpemi_tpu_torch.sim, knpemi_tpu_torch.utils.native "
+         "as n; print(n._LIB is None)"],
+        cwd=ROOT, check=True, capture_output=True, text=True).stdout.strip()
+    assert out == "True"
+    assert callable(critical.critical_section) and callable(logging.Timer)
+    src = (PORT / "utils" / "native.py").read_text()
+    assert "except" not in src.split("def vanek_aggregate", 1)[1]  # no fallback

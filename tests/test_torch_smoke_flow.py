@@ -103,7 +103,25 @@ def test_resume_phase_flow_on_the_cpu(monkeypatch, tmp_path, h5py):
         real = importlib.util.find_spec
         monkeypatch.setattr(importlib.util, "find_spec",
                             lambda name, *a: None if name == "h5py" else real(name, *a))
+    # (h): the banded flagship build of the same options, here on the CPU,
+    # against which the gold leg's build is held
+    import torch
+
+    from knpemi_tpu_torch.sim import SolverOptions, build_astrocyte
+    from knpemi_tpu_torch.sim.stepper import _to_host
+
+    fresh = build_astrocyte({**ASTROCYTE_BASELINE, "mesh_n": 8}, dtype=torch.float64,
+                            device="cpu", solver_options=SolverOptions(
+                                mg_banded=True, knp_batched=True, **chip_smoke.TUNED))
+    monkeypatch.setitem(chip_smoke.HOST_SETUP, "builds", [])
+    monkeypatch.setitem(chip_smoke.HOST_SETUP, "fresh", dict(
+        hierarchy_sha=chip_smoke.hierarchy_sha(fresh),
+        first_step=_to_host(fresh.step(fresh.init_state()))))
     rec = chip_smoke.resume_phase(ASTROCYTE_BASELINE, tmp_path)
+    assert chip_smoke.HOST_SETUP["fresh_vs_cached"]["identical"]
+    assert "fresh" not in chip_smoke.HOST_SETUP
+    assert [b["build"] for b in chip_smoke.HOST_SETUP["builds"]] == [
+        "resume gold", "resume split first", "resume split resumed"]
     assert rec["identical"] and rec["traces_equal_before_checkpoint"]
     assert list(rec["legs"]) == ["gold", "split first", "split resumed"]
     assert [rec["legs"][k]["steps"] for k in rec["legs"]] == [16, 8, 8]
@@ -208,3 +226,66 @@ def test_mms_phase_flow_on_the_cpu(monkeypatch):
         assert all(v["max_abs_err"] <= 1e-13 * v["max_abs_y"] for v in checks.values())
         assert set(kc["systems_sha256"]) == {"emi_load", "knp_load", "knp_drift"}
     assert set(out["3-D"]["per_M"][16]["errors_direct"]) == set(chip_smoke.MMS_FIELDS)
+
+
+def test_drivers_phase_flow_on_the_cpu(monkeypatch):
+    """The ``drivers`` phase's flow on the CPU (its card calls made
+    harmless; the CPU launches no kernel, so no kernel is required): the
+    benchmark scenario's kernel checks and its 50 steps with the K_e
+    probe rising after the onset, GPU-vs-CPU parity (here the CPU twice),
+    the 2-D driver meeting the golden fixture in float64 and float32,
+    the 3-D driver and the calibration run."""
+    import torch
+
+    for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a, **k: 0)
+    monkeypatch.setattr(chip_smoke, "DRIVERS_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "reachable_kernels", lambda sim: set())
+    monkeypatch.setitem(chip_smoke.HOST_SETUP, "builds", [])
+    out, launches = chip_smoke.drivers_phase()
+    assert not any(launches.values())
+    b = out["benchmark"]
+    assert b["steps"] == 50 and b["dofs_per_step"] > 0
+    assert sorted(b["phi_M_range_mV"]) == [5, 6, 7]
+    assert b["K_e_probe_mM"][1] > b["K_e_probe_mM"][0]
+    assert b["host_setup_detail"]["emi_assembly_cache"] in ("hit", "miss")
+    names = {r["name"].split()[0] for r in out["kernel_checks"]["float64"]}
+    assert names == {"K1", "K1f", "K2", "K3", "K4", "K9", "K10"}
+    assert {r["variant"] for r in out["kernel_checks"]["float32"]
+            if r["name"].startswith("K2")} == {"membrane 5", "membrane 6", "membrane 7"}
+    p = out["benchmark_parity"]
+    assert p["max_abs_dphi_M_mV"] == 0.0 and len(p["knp_iters"]) == 4
+    for key in ("run_2d_res1_float64", "run_2d_res1_float32"):
+        assert out[key]["held"] and out[key]["steps"] == 100 and out[key]["trace_len"] == 20
+    assert out["run_3d_res0_float32"]["steps"] == 20
+    assert out["calibration"]["max_rel_gpu_vs_cpu"] == 0.0
+
+
+def test_flagship_build_records_on_the_cpu(tmp_path, monkeypatch):
+    """(g) and (h)'s pieces on a small build: the set-up record, the native
+    sweep against the plain one, and the hierarchy hashes and first steps
+    of a fresh and a cached build, equal."""
+    import torch
+
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized, stepper
+    from knpemi_tpu_torch.solvers import mg
+
+    monkeypatch.setattr(stepper, "CACHE_DIR", tmp_path)
+    monkeypatch.setattr(mg, "CACHE_DIR", tmp_path)
+    build = lambda: build_idealized(dim=3, resolution=0, device="cpu",
+                                    solver_options=SolverOptions(mg_banded=True,
+                                                                 mg_coarse_max=100))
+    fresh, cached = build(), build()
+    rec = [chip_smoke.setup_record(k, s, 1.0) for k, s in (("a", fresh), ("b", cached))]
+    assert [r["emi_assembly_cache"] for r in rec] == ["miss", "hit"]
+    assert all(r["emi_multigrid"] > 0 and "knp_vanek_sweep" in r for r in rec)
+    sweep = chip_smoke.native_sweep_check(fresh)
+    assert sweep["identical"] and sweep["rows"] == fresh.geom.emi_size
+    assert chip_smoke.hierarchy_sha(fresh) == chip_smoke.hierarchy_sha(cached)
+    a, b = fresh.step(fresh.init_state()), cached.step(cached.init_state())
+    assert not chip_smoke.differing_fields(a, b)
+    other = build_idealized(dim=3, resolution=0, device="cpu",
+                            solver_options=SolverOptions(mg_banded=True, mg_coarse_max=200))
+    assert chip_smoke.hierarchy_sha(other) != chip_smoke.hierarchy_sha(fresh)
+    assert torch.equal(a.phi[0], b.phi[0])
