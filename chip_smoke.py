@@ -50,7 +50,9 @@ and 4 come in two groups):
    hierarchies took (K7/K8 on every banded window of the EMI and first
    KNP hierarchies, by both routes of reading x; the far remainder's add
    on K5/K6b's kernel on every banded operator with a far list, its own
-   row ``K5/K6b csr_add`` in the kernels line); device times (L2
+   row ``K5/K6b csr_add`` in the kernels line); on the l = 4 box, the
+   banded flagship's K4 (EMI level-0 P) and far-add rows and K11 / K11f's
+   batched flagship rows (every other row is untimed), device times (L2
    flushed, by torch.profiler) of kernel, plain version and the PyTorch
    call that computes the same function (torch.mv / torch.sparse.mm on
    its CSR; for K1, K2 and K11 the CSR of the same P1 operator, for K3
@@ -83,12 +85,12 @@ and 4 come in two groups):
    2 refreshes installed and none skipped; and once more on the GPU with
    the refresh on its worker thread (mg_refresh_async): at least one
    installed, none skipped, no worker left, the same gates against the
-   synchronous GPU run; then the solver options, 2 float64 steps each on
-   the GPU and the CPU with the same gates: on the 3-D res-1 case in
-   both layouts Chebyshev smoothing (degree 3), two sweeps a side, the
+   synchronous GPU run; then the solver options, float64, on the GPU and
+   the CPU with the same gates: 1 step each on the 3-D res-1 case in
+   both layouts of Chebyshev smoothing (degree 3), two sweeps a side, the
    KNP V(1,0) cycle, the W-cycle (gamma 2 on every built hierarchy) and
-   compensated dots, on the 2-D res-1 case the host LU (direct=True)
-   and the deflated Jacobi CG (emi_precond='jacobi'); then one Chebyshev
+   compensated dots, 2 steps each on the 2-D res-1 case of the host LU
+   (direct=True) and the deflated Jacobi CG (emi_precond='jacobi'); then one Chebyshev
    and one W-cycle of each layout's hierarchies on the 3-D res-0 l = 1
    box, GPU against CPU, within 1e-12 of max|y| (the W-cycle's EMI
    apply 1e-10: it amplifies roundoff);
@@ -116,7 +118,9 @@ and 4 come in two groups):
    per-ion run must launch K11 and K11f and launch K3 only for the
    right-hand side's mass term, and
    phi_M of the two runs at step 22 must agree within 1e-3 relative L2;
-   last the batched flagship with mg_banded=True for 12 + 5 steps; the
+   last the batched flagship with mg_banded=True for 12 + 5 steps (the
+   per-ion and banded Simulations built from the batched build's mesh
+   and geometry); the
    timed legs keep mg_refresh_every off, and after the timed steps of
    each batched run two steps from the state reached, which must agree
    bit for bit in every tensor of the state (where they differ, the
@@ -129,9 +133,9 @@ and 4 come in two groups):
 resume. the checkpoint -> resume path at the flagship's width (mesh_n
    64, float32, the tuned options, mg_banded=True, no refresh) through
    the driver (drivers/run_stim_duration.py, traces and XDMF frames
-   every 2 steps, a checkpoint every 4): a gold run of 16 steps on one
-   build, a run stopped at step 8 on a second, continued with
-   resume=True on a third, with h5py built from the flagship mesh
+   every 2 steps, a checkpoint every 4): a gold run of 12 steps on one
+   build, a run stopped at step 6 on the same build, continued with
+   resume=True on a second, with h5py built from the flagship mesh
    written to an XDMF file and read back (geometry array-equal to the
    synthetic build's); state, traces and every XDMF dataset must be bitwise equal
    between the two, and the resumed steps must run KNP iterations (the
@@ -187,6 +191,28 @@ drivers. the reference's other drivers (``knpemi_tpu_torch/drivers``),
    removed first) and the resume phase's gold leg, a build of the same
    options from the caches, must give bitwise equal hierarchy arrays
    and first step;
+multi_device. the multi-device modes (``knpemi_tpu_torch/parallel``),
+   after the flagship runs, every rank a process of its own: (a) SPMD,
+   3-D res 1 float64, 2 steps, 4 ranks sharing the card over gloo (every
+   collective staged through the host) and rank 0 alone in a one-rank
+   NCCL group, each bitwise the single-device GPU step; (b) the sharded
+   mode with the replicated hierarchy, the same case, within 1e-8 of the
+   single-device GPU run with equal iterations; (c) the distributed
+   V-cycle, the same case, the 4 ranks on the card against the same
+   ranks on their CPUs (equal iterations, phi_M within 1e-9 V, c 1e-9
+   relative); (d) the flagship sharded over 4 ranks on the card with the
+   distributed V-cycle, rank 0's host set-up from the batched run's
+   inputs: the batched run's state at step 22 carried in, steps 23-32
+   held to its step 32 by the 1e-5 field-equivalence gate on phi_M and c,
+   steps 23-24 run again from the same state (the same bits), ms/step,
+   collectives and bytes (sent, staged) a step, the set-up's parts and
+   each rank's memory -- times of 4 processes sharing one card, not
+   scaling numbers; the launch counts of rank 0 in the 10 steps (the
+   kernels line's ``launches_sharded``; the sharded step's kernels must
+   all launch); (e) rank 0's shards' kernels (K1/K1f, K3/K11f, K4's
+   grad(phi) map, K2, K9/K10, K7/K8 on the EMI level-0 windows with their
+   halo, the far add) against their plain twins (1e-5 / 1e-13 of max|y|)
+   and bitwise across two launches;
 4. profile, per res-2 path and per flagship run: the
    step's four phases timed by host clock over 2 steps, their kernel
    counts in one step, then 1 step under
@@ -196,7 +222,8 @@ drivers. the reference's other drivers (``knpemi_tpu_torch/drivers``),
 Then the kernel table as one JSON line of fourteen entries (the twelve
 kernels of the batched step from the long box, K11 and K11f from the
 per-ion flagship run; every row also with its launches in the mms
-phase and in the benchmark scenario's run), the cost per solve of the
+phase, in the benchmark scenario's run and on rank 0 of the sharded
+flagship), the cost per solve of the
 P1 operator's fill and applies (K1, K11, and K3 with its drift fill and
 mass term), the card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -209,6 +236,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -256,7 +284,14 @@ def environment(smi: str) -> dict:
                 **found)
 
 
+# the script's clock: every phase's line carries the seconds since import
+# (``script_s``), where the time limit goes
+_T0 = time.perf_counter()
+
+
 def emit(obj):
+    if "phase" in obj:
+        obj = {**obj, "script_s": time.perf_counter() - _T0}
     print(json.dumps(obj), flush=True)
 
 
@@ -1367,14 +1402,15 @@ def p1_elsewhere(sim, dtype):
          if c["name"].split()[0] in P1_KERNELS], dtype, time_them=False)
 
 
-def check_all_operators(sim, dtype, time_them: bool):
+def check_all_operators(sim, dtype, time_them: bool, timed=None):
     """Every kernel of the batched step at every shape ``sim`` gives it:
     the cell kernels K1, K1f, K3, K4 on each subdomain, the facet kernels K2,
     K9, K10 on each membrane and, with mg_banded, the multigrid kernels
     on the layouts the EMI hierarchy and each subdomain's KNP hierarchy
     took (those layouts only; the kernels they cover must be the ones
     the step can reach) — K7/K8 on every banded window of every level of
-    the EMI hierarchy and of the first subdomain's KNP hierarchy."""
+    the EMI hierarchy and of the first subdomain's KNP hierarchy.
+    ``timed``: with ``time_them``, the cases to time (None: all)."""
     tags, mems = sorted(sim.knp_sys.sub), sorted(sim.emi_sys.mem)
     on_cells = lambda c: c["name"].split()[0] in CELL_KERNELS
     cases = []
@@ -1391,7 +1427,17 @@ def check_all_operators(sim, dtype, time_them: bool):
         missed = {k for k in reachable_kernels(sim) if k not in K11_CASES} - covered
         if missed:
             raise AssertionError(f"no phase-1 case for {sorted(missed)}")
+    if timed is not None:
+        cases = [c if timed(c) else {**c, "time": False} for c in cases]
     return check_cases(cases, dtype, time_them)
+
+
+def kernels_line_case(c) -> bool:
+    """The banded flagship's cases whose times the kernels line and the
+    kernel table read: K4 on the EMI level-0 P and the far adds."""
+    v = c.get("variant", "")
+    return (c["name"] == "K4 ellw_matvec" and v == "EMI level 0 p_ellw") or \
+        v.startswith("far add")
 
 
 def max_rel(a, b):
@@ -1409,6 +1455,32 @@ def gpu_vs_cpu(g, c, label: str, unit: str = "V"):
         raise AssertionError(f"{label}: GPU vs CPU: max|d phi_M| {dphi:.3e} {unit}, "
                              f"max rel d c {dc:.3e} (gates 1e-9)")
     return dphi, dc
+
+
+def shared_mesh(build_idealized):
+    """``build_idealized`` for the res-2 runs and phase 2: a case (dim,
+    resolution, l, g_syn_bar, dtype) is built once in full; its later
+    builds with solver options take a copy of that build's mesh, geometry
+    and membrane models (:func:`simulation_inputs`) and build the
+    Simulation anew with their options on their device -- the same
+    Simulation, bitwise, less the mesh and geometry's seconds a build."""
+    import copy
+
+    from knpemi_tpu_torch.parallel.programs import simulation_inputs, simulation_of
+
+    inputs = {}
+
+    def build(**kw):
+        key = tuple(sorted((k, v) for k, v in kw.items()
+                           if k not in ("device", "solver_options")))
+        if kw.get("solver_options") is None or key not in inputs:
+            sim = build_idealized(**kw)
+            inputs.setdefault(key, simulation_inputs(sim))
+            return sim
+        return simulation_of(copy.deepcopy(inputs[key]), kw.get("device"),
+                             kw["solver_options"])
+
+    return build
 
 
 def parity(build_idealized, SolverOptions):
@@ -1524,7 +1596,9 @@ def phase_kernels(sim, state):
 
     @contextlib.contextmanager
     def span(name):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # device events alone: the counts need no host events, whose
+        # post-processing took most of the phase
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             yield
             torch.cuda.synchronize()
         counts[name.split("/", 1)[1]] = sum(
@@ -1541,15 +1615,19 @@ PROFILED_STEPS = 1
 
 def profile_steps(sim, state, n_steps: int, ms_per_step: float):
     """n_steps under torch.profiler: device kernel time per step, its share
-    of the unprofiled step time, kernels per step, the step phases'
-    spans and the kernels with the most device time."""
+    of the unprofiled step time, kernels per step and the kernels with the
+    most device time.  Device events alone: the step phases' host times
+    are :func:`phase_ms`'s, and the host events' post-processing took
+    seconds a profiled step."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    # (the host's events only where there is no card: the CPU flow tests)
+    acts = [ProfilerActivity.CUDA if torch.cuda.is_available() else ProfilerActivity.CPU]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=acts) as prof:
         sim.run(state, n_steps)
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1558,8 +1636,6 @@ def profile_steps(sim, state, n_steps: int, ms_per_step: float):
     # the step's spans also appear on the device timeline: not kernels
     kernels = [e for e in events if e.device_type == DeviceType.CUDA
                and not e.key.startswith("step/")]
-    spans = {e.key: e.cpu_time_total / 1e3 / n_steps for e in events
-             if e.key.startswith("step/") and e.device_type == DeviceType.CPU}
     dev_ms = sum(dev_t(e) for e in kernels) / 1e3 / n_steps
     top = sorted(kernels, key=dev_t, reverse=True)[:12]
     return dict(
@@ -1567,7 +1643,6 @@ def profile_steps(sim, state, n_steps: int, ms_per_step: float):
         device_kernel_ms_per_step=dev_ms if dev_ms else "not measured",
         device_busy_share=dev_ms / ms_per_step if dev_ms else "not measured",
         kernels_per_step=sum(e.count for e in kernels) / n_steps,
-        span_ms_per_step=spans,
         top_kernels=[dict(name=e.key[:90], ms_per_step=dev_t(e) / 1e3 / n_steps,
                           calls_per_step=e.count / n_steps) for e in top],
     )
@@ -1790,8 +1865,8 @@ def flagship(build_astrocyte, baseline, SolverOptions):
     """The astrocyte tissue flagship at full width (mesh_n 64), float32,
     the tuned solver options: the ion-batched run, the per-ion run and
     the batched run with mg_banded=True.  Before each run, phase 1 on
-    that simulation's own operators, float32 (timed on the two batched
-    runs) and float64: every kernel
+    that simulation's own operators, float32 (timed on the banded run,
+    and K11 / K11f on the batched one) and float64: every kernel
     of the batched step on each of the three subdomains and two
     membranes (and, banded, on the layouts of the four hierarchies), K11
     and K11f on the three subdomains; then phases 3 and 4.  Returns the
@@ -1801,6 +1876,7 @@ def flagship(build_astrocyte, baseline, SolverOptions):
     "B=2 KNP": row or None})."""
     import torch
 
+    from knpemi_tpu_torch.parallel.programs import simulation_inputs, simulation_of
     from knpemi_tpu_torch.sim.scenarios import K_E_INIT_A  # initial ECS K+, mM
     from knpemi_tpu_torch.sim.stepper import _to_host
 
@@ -1822,9 +1898,16 @@ def flagship(build_astrocyte, baseline, SolverOptions):
             # caches, has a fresh build to be held against
             Path(HOST_SETUP["emi_entry"]).unlink(missing_ok=True)
         t0 = time.perf_counter()
-        sim = build_astrocyte(
-            config, dtype=torch.float32, device="cuda",
-            solver_options=SolverOptions(mg_banded=banded, knp_batched=batched, **TUNED))
+        opts = SolverOptions(mg_banded=banded, knp_batched=batched, **TUNED)
+        if label == "flagship batched":
+            sim = build_astrocyte(config, dtype=torch.float32, device="cuda",
+                                  solver_options=opts)
+            inputs = simulation_inputs(sim)
+        else:
+            # the batched build's mesh and geometry (the same arrays), the
+            # Simulation built anew with this run's options: one mesh and
+            # geometry build for the three runs (the script's time limit)
+            sim = simulation_of(inputs, "cuda", opts)
         setup_s = time.perf_counter() - t0
         HOST_SETUP["builds"].append(setup_record(label, sim, setup_s))
         if label == "flagship batched":
@@ -1837,7 +1920,10 @@ def flagship(build_astrocyte, baseline, SolverOptions):
             raise AssertionError(f"{label}: expected 3 subdomains and 2 membranes")
         # -- phase 1 at this run's shapes; phi in mV ---------------------------
         t1 = time.perf_counter()
-        rows = dict(float32=check_all_operators(sim, torch.float32, batched),
+        # timed on the banded run only, and there only the K4 and far-add
+        # rows that feed the kernels line
+        rows = dict(float32=check_all_operators(sim, torch.float32, banded,
+                                                timed=kernels_line_case),
                     float64=check_all_operators(sim, torch.float64, False))
         if banded:
             k4_p = next(r for r in rows["float32"] if r["name"] == "K4 ellw_matvec"
@@ -1859,6 +1945,18 @@ def flagship(build_astrocyte, baseline, SolverOptions):
         torch.cuda.empty_cache()
         rec = runs[label] = run_slice(sim, label, case, n_steps, setup_s, warm=warm,
                                       keep_at=10 if label == "flagship batched" else 0)
+        if label == "flagship batched":
+            # the multi_device phase's start (step 22) and gate (step 32)
+            from knpemi_tpu_torch.interop import state_to_numpy
+
+            import pickle
+
+            MD_CARRIED.update(kept=state_to_numpy(rec["kept"]),
+                              final=state_to_numpy(rec["state"]),
+                              iters=list(zip(rec["emi_iters"][10:], rec["knp_iters"][10:])),
+                              setup=str(Path(tempfile.mkdtemp()) / "flagship_inputs.pkl"))
+            with open(MD_CARRIED["setup"], "wb") as f:
+                pickle.dump(inputs, f, protocol=4)
         if batched:
             det = step_determinism(sim, rec["state"])
             emit(dict(phase=3, path=label, case="two steps from one saved state", **det))
@@ -1914,6 +2012,151 @@ def flagship(build_astrocyte, baseline, SolverOptions):
               k11_launches_per_step=per_ion["K11 knp_apply"] / 10,
               k11f_launches_per_step=per_ion["K11f drift_fill"] / 10))
     return k11_rows, launches, k4_p, far_p
+
+
+# -- the multi-device phase ---------------------------------------------------
+# where and how the ranks run (a CPU test of the flow sets the CPU, gloo,
+# small cases); the flagship's carried states come from flagship()
+MD_DEVICE, MD_NCCL, MD_THREADS = "cuda", True, None
+MD_SMALL = dict(dim=3, resolution=1)
+MD_FLAGSHIP = dict(mesh_n=MESH_N, keep=22, steps=10, repeat=2)
+MD_CARRIED = {}
+# the kernels the sharded step must launch on rank 0 (the distributed
+# V-cycle's windows K7 / K8; its far add only where a level has far entries)
+MD_PATH = ("K1", "K1f", "K2", "K3", "K4", "K7", "K8", "K9", "K10", "K11f")
+MD_GATES = dict(spmd="bitwise", replicated=1e-8, gpu_vs_cpu=1e-9, flagship=1e-5)
+
+
+def _fields_rel(a, b) -> dict:
+    """max|a - b| / max|b| of every phi, phi_M and c field of two
+    ``state_to_numpy`` trees (the field-equivalence gate's measure)."""
+    import numpy as np
+
+    out = {}
+    for f in ("phi", "phi_M", "c"):
+        for k in b[f]:
+            den = float(np.abs(b[f][k]).max())
+            out[f"{f}[{k}]"] = float(np.abs(a[f][k] - b[f][k]).max()) / (den or 1.0)
+    return out
+
+
+def _md_rec(r) -> dict:
+    """The timing, collective and memory part of a sharded case's result."""
+    steps = max(len(r["iters"]), 1)
+    return dict(iters=r["iters"], ms_per_step=r["seconds"] / steps * 1e3,
+                collectives_per_step=r["totals"]["calls"] / steps,
+                bytes_per_step=r["totals"]["bytes"] / steps,
+                bytes_staged_per_step=r["totals"]["staged"] / steps,
+                collectives_by_site={k: v["calls"] / steps for k, v in r["counts"].items()},
+                setup_seconds=r["setup_seconds"], memory=r["memory"])
+
+
+def multi_device_phase(build_idealized, SolverOptions):
+    """The multi-device modes (``knpemi_tpu_torch/parallel``) on the card,
+    one process per rank: (a) SPMD, 3-D res 1 float64, 2 steps, 4 ranks on
+    the card over gloo and 1 over NCCL, bitwise the single-device GPU
+    step; (b) the sharded mode with the replicated hierarchy, the same
+    case, 4 ranks, within 1e-8 of the single-device GPU run, equal
+    iterations; (c) the distributed V-cycle, the same case, 4 ranks on the
+    card against 4 on the CPU, equal iterations, phi_M within 1e-9 V, c
+    1e-9 relative; (d) the flagship (mesh_n 64, float32, tuned options)
+    sharded over 4 ranks on the card with the distributed V-cycle, from
+    the batched run's state at step 22, steps 23-32 held to that run's
+    step 32 by the 1e-5 field-equivalence gate, steps 23-24 once more
+    from the same state: the same bits; (e) rank 0's shards' kernels
+    against their plain twins.  Returns (record, rank 0's launches in
+    (d)'s steps)."""
+    import functools
+
+    import torch
+
+    from knpemi_tpu_torch.parallel import launch, programs
+
+    dev = MD_DEVICE
+    out = {}
+    b64 = functools.partial(build_idealized, **MD_SMALL, g_syn_bar=10.0, dtype=torch.float64,
+                            solver_options=SolverOptions())
+    # -- (a), (b), (c): one launch of 4 ranks sharing the card over gloo ----
+    t0 = time.perf_counter()
+    # (c)'s CPU run on the same ranks (gloo takes their CPU tensors as they are)
+    res = launch(programs.run_cases, 4, "gloo", dev, deadline=600, threads=MD_THREADS, args=([
+        ("spmd", dict(build=b64)),
+        ("sharded", dict(build=b64, distributed_mg=False, reference=True)),
+        ("sharded", dict(build=b64, distributed_mg=True)),
+        ("sharded", dict(build=b64, distributed_mg=True, device="cpu", threads=2))]
+        # (a) once more on rank 0 alone, in a one-rank NCCL group beside gloo's
+        + ([("spmd", dict(build=b64, nccl_rank0=True))] if MD_NCCL else []),))
+    a, b, c, cpu = res[0]["results"][:4]
+    a1 = res[0]["results"][4] if MD_NCCL else None
+    seconds_4 = time.perf_counter() - t0
+    if any(r["jax"] for r in res):
+        raise AssertionError("multi_device: a rank loaded JAX")
+    its = lambda states: [(int(s["emi_iters"]), int(s["knp_iters"])) for s in states]
+    out["a_spmd"] = dict(
+        transport="4 ranks on one card over gloo (staged through the host); rank 0 alone in "
+              "a one-rank NCCL group of the same launch; (c)'s CPU run on the same 4 "
+              "ranks' CPU tensors",
+        bitwise_gloo_4=a["bitwise"], bitwise_nccl_1=None if a1 is None else a1["bitwise"],
+        iters=its(a["states"]), ref_iters=its(a["ref"]),
+        collectives_per_step=a["totals"]["calls"] / 2,
+        bytes_staged_per_step=a["totals"]["staged"] / 2, seconds=seconds_4)
+    if not a["bitwise"] or (a1 is not None and not a1["bitwise"]):
+        raise AssertionError("multi_device (a): the SPMD step is not the single-device "
+                             f"step's bits: {out['a_spmd']}")
+    rel_b = [_fields_rel(g, r) for g, r in zip(b["states"], b["ref"])]
+    out["b_replicated"] = dict(**_md_rec(b), ref_iters=its(b["ref"]), max_rel=rel_b,
+                               gate=MD_GATES["replicated"])
+    if its(b["states"]) != its(b["ref"]) or max(
+            v for r in rel_b for v in r.values()) > MD_GATES["replicated"]:
+        raise AssertionError(f"multi_device (b): {out['b_replicated']}")
+    dphi = max(float(abs(g["phi_M"][m] - h["phi_M"][m]).max())
+               for g, h in zip(c["states"], cpu["states"]) for m in g["phi_M"])
+    dc = max(_fields_rel(g, h)[f"c[{t}]"] for g, h in zip(c["states"], cpu["states"])
+             for t in g["c"])
+    out["c_distributed"] = dict(**_md_rec(c), cpu_iters=cpu["iters"],
+                                max_abs_dphi_M_V=dphi, c_max_rel=dc,
+                                gate=MD_GATES["gpu_vs_cpu"], cpu_seconds=cpu["seconds"])
+    if c["iters"] != cpu["iters"] or dphi > MD_GATES["gpu_vs_cpu"] or dc > MD_GATES[
+            "gpu_vs_cpu"]:
+        raise AssertionError(f"multi_device (c): {out['c_distributed']}")
+    # -- (d), (e): the flagship, 4 ranks sharing the card --------------------
+    if not MD_CARRIED:
+        raise AssertionError("multi_device (d): no carried flagship state")
+    fl = MD_FLAGSHIP
+    # rank 0's host set-up from the batched run's own inputs (no mesh build)
+    build = functools.partial(programs.simulation_from, MD_CARRIED["setup"])
+    t0 = time.perf_counter()
+    d = launch(programs.run_cases, 4, "gloo", dev, deadline=900, threads=MD_THREADS, args=([(
+        "sharded", dict(build=build, n_steps=fl["steps"], distributed_mg=True,
+                        state=MD_CARRIED["kept"], repeat=fl["repeat"], kernels=True,
+                        keep=[fl["steps"] - 1]))],))
+    d0 = d[0]["results"][0]
+    rel_d = _fields_rel(d0["states"][-1], MD_CARRIED["final"])
+    gated = {k: v for k, v in rel_d.items() if not k.startswith("phi[")}
+    out["d_flagship"] = dict(
+        case=f"astrocyte tissue mesh_n {fl['mesh_n']} float32 tuned options, distributed "
+             f"V-cycle, 4 processes sharing one card over gloo: steps {fl['keep'] + 1}-"
+             f"{fl['keep'] + fl['steps']} from the batched run's step {fl['keep']}",
+        distributed_mg=True, **_md_rec(d0), single_device_iters=MD_CARRIED["iters"],
+        max_rel_vs_single_device=rel_d, gate=MD_GATES["flagship"],
+        repeat_steps=fl["repeat"], repeat_bitwise=d0["repeat_bitwise"],
+        memory_per_rank=[r["results"][0]["memory"] for r in d],
+        seconds=time.perf_counter() - t0,
+        label="times are of 4 processes sharing one card: not scaling numbers")
+    if max(gated.values()) > MD_GATES["flagship"] or not d0["repeat_bitwise"]:
+        raise AssertionError(f"multi_device (d): {out['d_flagship']}")
+    launches = d0["launches"]
+    missing = [k for k in MD_PATH if not any(n.split()[0] == k and v
+                                            for n, v in launches.items())]
+    if missing:
+        raise AssertionError(f"multi_device (d): kernels of the path not launched on "
+                             f"rank 0: {missing} ({launches})")
+    checks = d0["kernel_checks"]
+    out["e_kernels"] = checks
+    bad = [r for r in checks if not (r["held"] and r["deterministic"])]
+    if bad:
+        raise AssertionError(f"multi_device (e): {bad}")
+    return out, launches
 
 
 def refresh_once(sim, state):
@@ -2101,9 +2344,10 @@ def resume_in_process(sim, state, workdir: Path, n_steps: int = 4):
     return rec
 
 
-# the resume phase: a gold leg of 16 steps, a split leg stopped at step 8
-# and resumed; traces and XDMF frames every 2 steps, a checkpoint every 4
-RESUME_STEPS, RESUME_STOP = 16, 8
+# the resume phase: a gold leg of 12 steps, a split leg stopped at step 6
+# and resumed; traces and XDMF frames every 2 steps, a checkpoint every 4;
+# the resumed half spans the source onset at step 10
+RESUME_STEPS, RESUME_STOP = 12, 6
 RESUME_IO = dict(save_frequency=2, save_frequency_fields=2, checkpoint_every=4)
 STATE_FIELDS = ("c", "phi", "phi_M", "ode_states", "t", "step")
 
@@ -2170,13 +2414,16 @@ def resume_phase(baseline, workdir: Path):
     out = {k: workdir / k for k in ("gold", "split")}
     legs = {}
 
-    def leg(name, config, resume=False, geom=None):
+    def leg(name, config, resume=False, geom=None, sim=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim = drv.build_simulation(config)
-        legs[name] = dict(setup_seconds=time.perf_counter() - t0)
-        HOST_SETUP["builds"].append(setup_record(f"resume {name}", sim,
-                                                 legs[name]["setup_seconds"]))
+        if sim is None:
+            sim = drv.build_simulation(config)
+            legs[name] = dict(setup_seconds=time.perf_counter() - t0)
+            HOST_SETUP["builds"].append(setup_record(f"resume {name}", sim,
+                                                     legs[name]["setup_seconds"]))
+        else:
+            legs[name] = dict(setup_seconds=0.0, build="the gold leg's")
         fresh = HOST_SETUP.pop("fresh", None) if name == "gold" else None
         if fresh is not None:
             # (h): a build from both caches against the fresh banded flagship
@@ -2209,10 +2456,11 @@ def resume_phase(baseline, workdir: Path):
                           emi_iters=list(map(int, it_e)), knp_iters=list(map(int, it_k)))
         return sim, state, traces
 
+    # the split leg's first part runs on the gold leg's build (a Simulation
+    # keeps no state between runs; the refresh is off): one build fewer,
+    # and the resumed part still runs on a build of its own
     sim, gold, tr_gold = leg("gold", until(RESUME_STEPS))
-    del sim
-    torch.cuda.empty_cache()
-    sim, _, _ = leg("split first", until(RESUME_STOP))
+    sim, _, _ = leg("split first", until(RESUME_STOP), sim=sim)
     geom = sim.geom
     del sim
     torch.cuda.empty_cache()
@@ -2359,7 +2607,8 @@ def _async_refresh(build_idealized, SolverOptions, sync_state):
 
 
 # the multigrid and solver options on the 3-D res-1 case, per layout
-# (gamma: the cycle index, set on every built hierarchy)
+# (gamma: the cycle index, set on every built hierarchy), and its steps
+OPTION_STEPS_3D = 1
 OPTION_CASES = {
     "mg_smoother=cheby": dict(mg_smoother="cheby", mg_degree=3),
     "mg_nu=2": dict(mg_nu=2),
@@ -2421,25 +2670,26 @@ def cycle_apply_readings(build_idealized, SolverOptions, banded: bool, name: str
 
 
 def parity_options(build_idealized, SolverOptions):
-    """2 float64 steps per solver option on the GPU and on the CPU: the
-    multigrid options on the 3-D res-1 case in both layouts (Chebyshev
-    smoothing of degree 3, two sweeps a side, the KNP V(1,0) cycle, the
-    W-cycle, compensated dots), the options without a hierarchy on the 2-D
-    res-1 case (the host LU, the deflated Jacobi CG).  Gates per case:
-    equal iteration counts, phi_M within 1e-9 V, c within 1e-9 relative,
-    every step converged; the 3-D GPU runs launch what their hierarchies
-    reach.  Then one Chebyshev and one W-cycle GPU against CPU per layout
-    (:func:`cycle_apply_readings`)."""
+    """Float64 steps per solver option on the GPU and on the CPU: one step
+    of each multigrid option on the 3-D res-1 case in both layouts
+    (Chebyshev smoothing of degree 3, two sweeps a side, the KNP V(1,0)
+    cycle, the W-cycle, compensated dots), two of each option without a
+    hierarchy on the 2-D res-1 case (the host LU, the deflated Jacobi
+    CG).  Gates per case: equal iteration counts, phi_M within 1e-9 V, c within
+    1e-9 relative, every step converged; the 3-D GPU runs launch what
+    their hierarchies reach.  Then one Chebyshev and one W-cycle GPU
+    against CPU per layout (:func:`cycle_apply_readings`)."""
     import torch
 
     from knpemi_tpu_torch import ops
 
     out = {}
-    runs = [(f"3-D res 1 {path}: {name}", 3, dict(mg_banded=banded, **opts))
+    # (label, dim, steps, options)
+    runs = [(f"3-D res 1 {path}: {name}", 3, OPTION_STEPS_3D, dict(mg_banded=banded, **opts))
             for path, banded in (("ell", False), ("banded", True))
             for name, opts in OPTION_CASES.items()]
-    runs += [(f"2-D res 1: {name}", 2, opts) for name, opts in OPTION_CASES_2D.items()]
-    for label, dim, opts in runs:
+    runs += [(f"2-D res 1: {name}", 2, 2, opts) for name, opts in OPTION_CASES_2D.items()]
+    for label, dim, n_steps, opts in runs:
         opts = dict(opts)
         gamma = opts.pop("gamma", None)
         rec, states = {}, {}
@@ -2452,7 +2702,7 @@ def parity_options(build_idealized, SolverOptions):
                 for m in sim.knp_solver.mg.values():
                     m.gamma = gamma
             ops.reset_launch_counts()
-            s, it_e, it_k, ok = sim.run(sim.init_state(), 2)
+            s, it_e, it_k, ok = sim.run(sim.init_state(), n_steps)
             rec[dev] = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
                             seconds=time.perf_counter() - t0)
             if not ok.all():
@@ -3324,18 +3574,22 @@ def main(argv=None) -> int:
     emit(dict(phase=1, case="launch floor: the flushed device time of a one-element fill",
               floor_ms=floor))
 
+    build_res2 = shared_mesh(build_idealized)
     for banded in (False, True):
         label = "mg_banded=True" if banded else "mg_banded=False"
         # -- phase 1: kernels against their plain versions --------------------
         other_bytes = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
-        sim = build_idealized(dim=3, resolution=2, g_syn_bar=10.0,
+        # the banded build from the ELL build's mesh and geometry
+        sim = build_res2(dim=3, resolution=2, g_syn_bar=10.0,
                               dtype=torch.float32, device="cuda",
                               solver_options=SolverOptions(mg_banded=banded))
         setup_s = time.perf_counter() - t0
         t1 = time.perf_counter()
         check = check_mg_kernels if banded else check_kernels
-        r32 = check(sim, torch.float32, time_them=True)
+        # untimed (the script's time limit): the kernels line's times come
+        # from the l = 4 box and the flagship
+        r32 = check(sim, torch.float32, time_them=False)
         r64 = check(sim, torch.float64, time_them=False)
         if not banded:
             # the P1 operator's kernels, the fills among them, on every
@@ -3353,6 +3607,7 @@ def main(argv=None) -> int:
             other_bytes=other_bytes)["launches"]
         del sim
         torch.cuda.empty_cache()
+    del build_res2
 
     # -- phases 1 and 3 once more: the box of twice the length, where all
     # twelve kernels of the batched step are on the path; each is held
@@ -3391,6 +3646,13 @@ def main(argv=None) -> int:
                                          SolverOptions)
     launches.update(fl)
 
+    # -- the multi-device modes: (a)-(e) ---------------------------------------
+    t0 = time.perf_counter()
+    md_out, launches["sharded"] = multi_device_phase(build_idealized, SolverOptions)
+    emit(dict(phase="multi_device", **md_out, seconds=time.perf_counter() - t0))
+    shutil.rmtree(Path(MD_CARRIED["setup"]).parent, ignore_errors=True)
+    MD_CARRIED.clear()
+
     # -- the checkpoint -> resume path on the flagship --------------------------
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3404,6 +3666,7 @@ def main(argv=None) -> int:
         raise AssertionError("resume: the resumed steps ran no KNP iteration")
 
     # -- phase 2: GPU vs CPU parity, float64 ---------------------------------
+    build_idealized = shared_mesh(build_idealized)
     t0 = time.perf_counter()
     par = parity(build_idealized, SolverOptions)
     emit(dict(phase=2, case="3-D res 1 float64", **par,
@@ -3421,7 +3684,8 @@ def main(argv=None) -> int:
               **parity_astrocyte(build_astrocyte, ASTROCYTE_BASELINE, SolverOptions),
               seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
-    emit(dict(phase=2, case="solver options, 2 steps float64, GPU against CPU",
+    emit(dict(phase=2, case="solver options, 1 step (3-D) or 2 (2-D) float64, GPU "
+              "against CPU",
               **parity_options(build_idealized, SolverOptions),
               seconds=time.perf_counter() - t0))
 
@@ -3494,6 +3758,7 @@ def main(argv=None) -> int:
             launches_flagship_per_ion=launches["flagship per-ion"][name],
             launches_flagship_banded=launches["flagship banded"][name],
             launches_mms=launches["mms"][name], launches_bench=launches["bench"][name],
+            launches_sharded=launches["sharded"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], floor_ms=floor,
             library_ms=r["library_ms"], variant=r.get("variant"),
@@ -3526,7 +3791,7 @@ def main(argv=None) -> int:
                        ("flagship_batched", "flagship batched"),
                        ("flagship_per_ion", "flagship per-ion"),
                        ("flagship_banded", "flagship banded"), ("mms", "mms"),
-                       ("bench", "bench"))})
+                       ("bench", "bench"), ("sharded", "sharded"))})
         rb = far_p["B=2 KNP"]
         if rb is not None:
             far["batch"] = {k: rb.get(k) for k in (

@@ -3,7 +3,11 @@
 ``state_from_numpy`` takes a JAX ``SimState`` after ``jax.device_get``
 (any object with the same fields holding numpy arrays or scalars) and
 returns the port's :class:`~knpemi_tpu_torch.systems.types.SimState`;
-``state_to_numpy`` goes back to plain numpy.  ``hierarchy_to_numpy``
+``state_to_numpy`` goes back to plain numpy.  ``scatter_state`` cuts a
+whole-domain state (the port's, or the JAX package's, whose sharded
+mode pads every dof array to N B) into the blocks of the dof-sharded
+mode's ranks (``parallel/sharded.py``), ``gather_state`` puts them back
+together.  ``hierarchy_to_numpy``
 lays a host multigrid hierarchy of either package out as plain numpy, so
 the two builds can be compared field by field.  None imports JAX.
 """
@@ -89,3 +93,55 @@ def hierarchy_to_numpy(hier) -> dict:
         levels.append(d)
     return dict(levels=levels, coarse_V=hier.coarse_V,
                 coarse_ilam=hier.coarse_ilam, nu=hier.nu, perm=hier.perm)
+
+
+_SCALARS = ("t", "step", "emi_iters", "knp_iters", "emi_ok", "knp_ok", "emi_res", "knp_res")
+
+
+def owned_rows(n: int, n_ranks: int, rank: int):
+    """The rows [r0, r1) of an n-dof subdomain that a rank of the sharded
+    mode owns: contiguous blocks of B = ceil(n / N), the last ragged."""
+    B = -(-n // n_ranks)
+    r0 = min(rank * B, n)
+    return r0, min(r0 + B, n)
+
+
+def _host(v, dtype=None):
+    t = v.detach().cpu() if torch.is_tensor(v) else torch.as_tensor(np.asarray(v))
+    return t if dtype is None or not t.is_floating_point() else t.to(dtype)
+
+
+def scatter_state(sim, state, n_ranks: int) -> list:
+    """A whole-domain state -> one host ``SimState`` per rank of the sharded
+    mode (``n_ranks`` of them), holding that rank's rows of ``c`` and
+    ``phi`` and the whole membrane arrays, floats in ``sim.dtype``.
+    ``state``: the port's ``SimState`` on any device, or any object with
+    its fields holding numpy arrays (the JAX package's after
+    ``jax.device_get``; its padded-global dof arrays, longer than n, are
+    cut to n)."""
+    dt = sim.dtype
+    blocks = []
+    for d in range(n_ranks):
+        c, phi = {}, {}
+        for t, sub in sim.geom.subdomains.items():
+            r0, r1 = owned_rows(sub.n_dofs, n_ranks, d)
+            c[t] = _host(state.c[t], dt)[:, r0:r1].contiguous()
+            phi[t] = _host(state.phi[t], dt)[r0:r1].contiguous()
+        rep = {f: {k: _host(v, dt) for k, v in getattr(state, f).items()}
+               for f in ("phi_M", "ode_states", "ode_params")}
+        sc = {f: _host(getattr(state, f)) for f in _SCALARS}
+        sc["t"] = sc["t"].to(torch.float64)
+        sc["emi_res"], sc["knp_res"] = sc["emi_res"].to(dt), sc["knp_res"].to(dt)
+        blocks.append(SimState(c=c, phi=phi, **rep, **sc))
+    return blocks
+
+
+def gather_state(sim, blocks: list) -> SimState:
+    """The ranks' blocks (``scatter_state``'s, on any device) -> the
+    whole-domain host state."""
+    c = {t: torch.cat([_host(b.c[t]) for b in blocks], dim=1) for t in blocks[0].c}
+    phi = {t: torch.cat([_host(b.phi[t]) for b in blocks]) for t in blocks[0].phi}
+    b0 = blocks[0]
+    rep = {f: {k: _host(v) for k, v in getattr(b0, f).items()}
+           for f in ("phi_M", "ode_states", "ode_params")}
+    return SimState(c=c, phi=phi, **rep, **{f: _host(getattr(b0, f)) for f in _SCALARS})

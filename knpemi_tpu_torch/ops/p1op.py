@@ -91,22 +91,40 @@ class P1Operator:
     ``incidence_seconds`` the time the list took, and the arrays
     :meth:`assemble` and :meth:`scipy_csr` need."""
 
-    def __init__(self, cells, n: int, device):
+    def __init__(self, cells, n: int, device, rows=None):
+        """``rows`` = (lo, hi): the operator of the rows lo .. hi - 1 alone
+        (a rank's owned rows, ``parallel/``): the other rows of the n
+        have no slots and apply to 0, and ``cells`` must hold every cell
+        that touches an owned row; each owned row keeps the slots, the
+        column order and so the sums it has in the whole operator."""
         cells = np.asarray(cells)
         nc, k = cells.shape
         if k > 4 or nc >= 1 << 29:
             raise ValueError(f"{nc} cells of {k} vertices: the incidence list packs "
                              "c << 2 | i in an int32 (k <= 4, nc < 2^29)")
         self.n, self.k, self.device = int(n), int(k), torch.device(device)
+        self.lo, self.hi = (0, self.n) if rows is None else (int(rows[0]), int(rows[1]))
+        if not 0 <= self.lo <= self.hi <= self.n:
+            raise ValueError(f"rows {rows} do not lie in [0, {n}]")
         # every (v_i, v_j) pair of every cell as one int64 key, row-major
         r = np.repeat(cells, k, axis=1).reshape(-1).astype(np.int64)
         c = np.tile(cells, (1, k)).reshape(-1).astype(np.int64)
-        keys, inverse = np.unique(r * n + c, return_inverse=True)
+        key = r * n + c
+        own = None
+        if rows is not None:
+            own = (r >= self.lo) & (r < self.hi)
+            key = key[own]
+        keys, inverse = np.unique(key, return_inverse=True)
         rows, cols = keys // n, keys % n
         count = np.bincount(rows, minlength=n)
         indptr = np.zeros(n + 1, np.int64)
         np.cumsum(count, out=indptr[1:])
-        pos = inverse.reshape(-1) - indptr[r]
+        if own is None:
+            pos = inverse.reshape(-1) - indptr[r]
+        else:
+            # the pairs of rows not owned have no slot: position 0, never read
+            pos = np.zeros(r.shape[0], np.int64)
+            pos[own] = inverse.reshape(-1) - indptr[r[own]]
         if pos.size and pos.max() > 255:
             raise ValueError(f"a row has {count.max()} columns: more than a "
                              "uint8 position addresses")
@@ -125,7 +143,7 @@ class P1Operator:
         sl = self.csr_slots()
         # the diagonal slot of every row, rows ascending
         on_diag = rows == cols
-        if int(on_diag.sum()) != n:
+        if int(on_diag.sum()) != self.hi - self.lo:
             raise ValueError("a dof lies in no cell")
         self.diag_slot = sl[on_diag]
         # padding slots: column = the row, clipped to the last dof
@@ -154,7 +172,10 @@ class P1Operator:
         n, (nc, k) = self.n, self._cells.shape
         flat = self._cells.reshape(-1).astype(np.int64)  # entry c k + i
         order = np.argsort(flat, kind="stable")  # by row, then c ascending
-        deg = np.bincount(flat, minlength=n)
+        if (self.lo, self.hi) != (0, n):
+            # the owned rows' entries alone
+            order = order[(flat[order] >= self.lo) & (flat[order] < self.hi)]
+        deg = np.bincount(flat[order], minlength=n)
         NS = self._slot_ptr.shape[0] - 1
         L = np.zeros(NS * SLICE, np.int64)
         L[:n] = deg
@@ -202,7 +223,11 @@ class P1Operator:
         of the COO helpers of ``solvers/direct.py`` -- its off-diagonal
         values summed into their slots, (len(pair_vals), slots).  The
         diagonal slots hold 0, a stiffness's row sums; the caller writes
-        any other row sums at :attr:`diag_slot`."""
+        any other row sums at :attr:`diag_slot`.  Whole operators only
+        (a rank's rows take theirs from the whole one: ``parallel/``)."""
+        if (self.lo, self.hi) != (0, self.n):
+            raise ValueError("assemble needs the whole operator, not rows "
+                             f"{self.lo} .. {self.hi - 1}")
         off = ~np.eye(self.k, dtype=bool)  # the order of pair_slots_host's pairs
         slots = self.pair_slots_host(off_diagonal=True).reshape(-1)
         return np.stack([np.bincount(slots, minlength=self.slots,
@@ -251,7 +276,8 @@ class P1Operator:
         data = v[self.csr_slots()]
         diag = self._csr_cols == rows
         off_sum = np.bincount(rows[~diag], weights=data[~diag], minlength=self.n)
-        data[diag] = v[self.diag_slot] - off_sum  # one diagonal per row, rows ascending
+        # one diagonal per (owned) row, rows ascending
+        data[diag] = v[self.diag_slot] - off_sum[rows[diag]]
         return sp.csr_matrix((data, self._csr_cols, self._indptr), shape=(self.n, self.n))
 
     @property

@@ -63,18 +63,25 @@ def source_box_indicator_q(geom: DiscreteGeometry, tag: int, lo, hi,
     return value * inside.astype(np.float64)
 
 
-def pulsed_source_gate(config):
+class PulsedGate:
     """t -> {0, 1} gate of the pulsed ECS source, on tensors: on iff
     delay <= t <= end_time and (t - delay) mod period < pulse_width.  ``t``
     is the state's 0-d time tensor (or any tensor of times); the result
-    stays on its device, so the step reads nothing back to the host."""
-    delay = float(config["delay"])
-    period = float(config["period"])
-    width = float(config["pulse_width"])
-    end = float(config["end_time"])
+    stays on its device, so the step reads nothing back to the host.  A
+    class, not a closure, so that a simulation's set-up pickles (the
+    multi-device modes send it to their ranks)."""
 
-    def gate(t: torch.Tensor) -> torch.Tensor:
-        on = (t >= delay) & (t <= end) & (torch.remainder(t - delay, period) < width)
+    def __init__(self, delay: float, period: float, width: float, end: float):
+        self.delay, self.period, self.width, self.end = delay, period, width, end
+
+    def __call__(self, t: torch.Tensor) -> torch.Tensor:
+        on = ((t >= self.delay) & (t <= self.end)
+              & (torch.remainder(t - self.delay, self.period) < self.width))
         return torch.where(on, torch.ones_like(t), torch.zeros_like(t))
 
-    return gate
+
+def pulsed_source_gate(config) -> PulsedGate:
+    """The :class:`PulsedGate` of ``config``'s delay, period, pulse_width
+    and end_time."""
+    return PulsedGate(float(config["delay"]), float(config["period"]),
+                      float(config["pulse_width"]), float(config["end_time"]))

@@ -256,9 +256,20 @@ def build_two_cell(resolution: int = 0, f_value: float = 500.0, mesh=None,
     return Simulation(
         geom, ions, params, mem_models,
         solver_options or SolverOptions(direct=direct, rtol_emi=1e-5, rtol_knp=1e-7),
-        source_gate=lambda t: (t > SOURCE_ON_AFTER_B).to(t.dtype),
+        source_gate=StepGate(SOURCE_ON_AFTER_B),
         dtype=dtype, device=device,
     )
+
+
+class StepGate:
+    """t -> 1 after ``t_on``, else 0, in t's dtype (a class, so that the
+    set-up pickles)."""
+
+    def __init__(self, t_on: float):
+        self.t_on = t_on
+
+    def __call__(self, t):
+        return (t > self.t_on).to(t.dtype)
 
 
 def dofs_per_step(sim: Simulation) -> int:

@@ -160,6 +160,11 @@ class SolverOptions:
         return "jacobi" if self.mg_smoother == "auto" else self.mg_smoother
 
 
+def always_on(t) -> float:
+    """The source gate of a simulation given none: always 1."""
+    return 1.0
+
+
 def _global_rcm(A_hat, s):
     perm = np.asarray(reverse_cuthill_mckee(A_hat, symmetric_mode=True), dtype=np.int64)
     return A_hat[perm][:, perm].tocsr(), s[perm], perm
@@ -240,13 +245,14 @@ class Simulation:
             maxiter=opts.maxiter, restart=opts.restart, min_iter=opts.min_iter_knp,
             dot=dot, batched=opts.knp_batched,
         )
-        self.source_gate = source_gate or (lambda t: 1.0)
+        self.source_gate = source_gate or always_on
+        self.splitting_scheme = splitting_scheme
         self._maps = membrane_maps(geom, self.device)
         t0 = self._lap("solvers_and_maps", t0)
         # no hierarchy on the LU path, nor with the deflated Jacobi EMI
         # preconditioner (the KNP GMRES then runs unpreconditioned too,
         # as in the JAX package)
-        self._emi_hier = None
+        self._emi_hier, self._knp_hier = None, None
         if not opts.direct and opts.emi_precond == "mg":
             sweep0 = native.sweep_seconds
             self._setup_emi_mg()
@@ -364,7 +370,7 @@ class Simulation:
         """Lagged SA-AMG per subdomain for the KNP blocks, from the t=0
         operator (mass/dt + mean-D stiffness, no drift); one hierarchy per
         tag serves every solved ion."""
-        mg = {}
+        mg, self._knp_hier = {}, {}
         for t in self.knp_sys.tags:
             sub = self.geom.subdomains[t]
             Dbar = float(np.mean([ion.D[t] for ion in self.ions[:-1]]))
@@ -376,7 +382,7 @@ class Simulation:
             d = np.where(d != 0, d, 1.0)
             s = 1.0 / np.sqrt(np.abs(d))
             A_hat = (sp.diags(s) @ A0 @ sp.diags(s)).tocsr()
-            _, mg[t] = self._hierarchy(A_hat, s)
+            self._knp_hier[t], mg[t] = self._hierarchy(A_hat, s)
             mg[t].fine_diag = torch.as_tensor(d, dtype=self.dtype, device=self.device)
             # V(1,0) where asked: legal for the flexible GMRES only
             mg[t].post_smooth = self.opts.knp_post_smooth
@@ -614,7 +620,7 @@ class Simulation:
                 it_k += diag[:, 1].tolist()
                 ok += diag[:, 2].astype(bool).tolist()
                 done += n
-                self._check_health(state, ok[-n:], done - n)
+                check_health(self.opts, state, ok[-n:], done - n)
                 ckpt_due = ckpt_on and done < n_steps and done - last_ckpt >= checkpoint_every
                 host = _to_host(state) if observer is not None or ckpt_due else None
                 self._maybe_refresh(state, host, done, n_steps)
@@ -627,23 +633,24 @@ class Simulation:
             self._close_refresh()
         return state, np.array(it_e), np.array(it_k), np.array(ok)
 
-    def _check_health(self, state: SimState, ok_steps: List[bool], offset: int):
-        """A solve that did not converge in the chunk ``ok_steps`` (steps
-        ``offset + 1`` on): raise, warn or ignore, per
-        ``SolverOptions.on_divergence`` (the reference aborts:
-        ksp_error_if_not_converged)."""
-        mode = self.opts.on_divergence
-        if mode == "ignore" or all(ok_steps):
-            return
-        bad = offset + ok_steps.index(False) + 1
-        msg = (f"Krylov solve did NOT converge at step {bad}; the chunk's last step: "
-               f"emi_ok={bool(state.emi_ok)} (res {float(state.emi_res):.3e}), "
-               f"knp_ok={bool(state.knp_ok)} (res {float(state.knp_res):.3e}). "
-               "Increase maxiter, refresh the multigrid hierarchy or relax rtol.")
-        if mode == "warn":
-            warnings.warn(msg, RuntimeWarning, stacklevel=3)
-        else:
-            raise RuntimeError(msg)
+
+def check_health(opts: SolverOptions, state: SimState, ok_steps: List[bool], offset: int):
+    """A solve that did not converge in the chunk ``ok_steps`` (steps
+    ``offset + 1`` on): raise, warn or ignore, per
+    ``SolverOptions.on_divergence`` (the reference aborts:
+    ksp_error_if_not_converged)."""
+    mode = opts.on_divergence
+    if mode == "ignore" or all(ok_steps):
+        return
+    bad = offset + ok_steps.index(False) + 1
+    msg = (f"Krylov solve did NOT converge at step {bad}; the chunk's last step: "
+           f"emi_ok={bool(state.emi_ok)} (res {float(state.emi_res):.3e}), "
+           f"knp_ok={bool(state.knp_ok)} (res {float(state.knp_res):.3e}). "
+           "Increase maxiter, refresh the multigrid hierarchy or relax rtol.")
+    if mode == "warn":
+        warnings.warn(msg, RuntimeWarning, stacklevel=3)
+    else:
+        raise RuntimeError(msg)
 
 
 def _to_host(state: SimState) -> SimState:

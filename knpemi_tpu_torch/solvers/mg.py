@@ -634,6 +634,8 @@ def build_hierarchy(
     degree: int = 3,
     gamma: int = 1,
     slab_dtype=np.float64,
+    band_cap: int = BAND_CAP,
+    tband_cap: int = TBAND_CAP,
 ) -> MGHierarchy:
     """Build the SA hierarchy of ``knpemi_tpu/solvers/mg.py::build_hierarchy``.
     ``B`` is the near-null vector of A0 (1/s for an operator equilibrated
@@ -650,7 +652,9 @@ def build_hierarchy(
     With ``banded`` every level operator, transfer and A P product gets a
     block-banded layout (:func:`_csr_to_banded`, slabs in ``slab_dtype``)
     within ``BAND_CAP`` bytes per level operator and ``TBAND_CAP`` per
-    transfer or product, or else a windowed-ELL layout
+    transfer or product (``band_cap`` / ``tband_cap``: the sharded
+    mode's larger budgets, ``parallel/sharded_mg.py``), or else a
+    windowed-ELL layout
     (``ops/ell.py::build_ellw``); what takes neither keeps plain ELL."""
     A = A0.tocsr()
     if B is None:
@@ -705,24 +709,24 @@ def build_hierarchy(
         AP = (A @ P).tocsr()  # reused below for the Galerkin RAP
         if banded:
             if lv.a_cols is not None:
-                lv.a_band = _csr_to_banded(A, mem_cap=BAND_CAP, dtype=slab_dtype)
+                lv.a_band = _csr_to_banded(A, mem_cap=band_cap, dtype=slab_dtype)
                 if lv.a_band is None:
                     lv.a_ellw = ell_ops.build_ellw(A)
                 # fused post-smooth operand (see MGLevel.ap_band); only
                 # where the level smooths with its own lagged operator —
                 # with the caller's current fine operator a lagged AP
                 # would break the cycle's symmetry
-                lv.ap_band = _csr_to_banded(AP, mem_cap=TBAND_CAP, dtype=slab_dtype)
+                lv.ap_band = _csr_to_banded(AP, mem_cap=tband_cap, dtype=slab_dtype)
                 if lv.ap_band is None:
                     lv.ap_ellw = ell_ops.build_ellw(AP)
-            lv.p_band = _csr_to_banded(P, mem_cap=TBAND_CAP, dtype=slab_dtype)
+            lv.p_band = _csr_to_banded(P, mem_cap=tband_cap, dtype=slab_dtype)
             if lv.p_band is None:
                 # one windowed-ELL layout of P serves BOTH directions
                 # (gather = P, scatter = P^T)
                 lv.p_ellw = ell_ops.build_ellw(P)
                 lv.pt_ellw = lv.p_ellw
             else:
-                lv.pt_band = _csr_to_banded(P.T.tocsr(), mem_cap=TBAND_CAP,
+                lv.pt_band = _csr_to_banded(P.T.tocsr(), mem_cap=tband_cap,
                                             dtype=slab_dtype)
                 if lv.pt_band is None:
                     lv.pt_ellw = ell_ops.build_ellw(P)

@@ -43,3 +43,47 @@ def bdot2(u, v):
     p, e = _two_prod(u, v)
     return p.sum(dim=-1) + e.sum(dim=-1)
 
+
+
+# ---------------------------------------------------------------------------
+# distributed inner products (the multi-device modes, ``parallel/``)
+# ---------------------------------------------------------------------------
+def make_pdot2(comm):
+    """Distributed :func:`dot2` over ``comm``'s ranks (the JAX package's
+    ``make_pdot2``): the compensated partial sums stay local and one sum
+    over the ranks carries (value, error); float64 inputs take the plain
+    local dot and one sum."""
+
+    def pdot2(u, v):
+        if u.dtype == torch.float64:
+            return comm.all_reduce(torch.dot(u, v), "dot")
+        p, e = _two_prod(u, v)
+        s = comm.all_reduce(torch.stack([p.sum(), e.sum()]), "dot")
+        return s[0] + s[1]
+
+    return pdot2
+
+
+def make_pbdot2(comm):
+    """Distributed :func:`bdot2`: (B, n_loc) rows -> (B,), the (value,
+    error) pairs of all B rows in one sum over the ranks."""
+
+    def pbdot2(u, v):
+        if u.dtype == torch.float64:
+            return comm.all_reduce(torch.einsum("bn,bn->b", u, v), "dot")
+        p, e = _two_prod(u, v)
+        s = comm.all_reduce(torch.stack([p.sum(dim=-1), e.sum(dim=-1)]), "dot")
+        return s[0] + s[1]
+
+    return pbdot2
+
+
+def make_pdot(comm):
+    """The plain distributed dot (float64, or uncompensated float32): the
+    local dot and one sum over the ranks (the JAX package's ``pdot``)."""
+    return lambda u, v: comm.all_reduce(torch.dot(u, v), "dot")
+
+
+def make_pbdot(comm):
+    """The plain distributed batched dot: (B, n_loc) rows -> (B,)."""
+    return lambda u, v: comm.all_reduce(torch.einsum("bn,bn->b", u, v), "dot")

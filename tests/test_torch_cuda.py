@@ -845,3 +845,33 @@ def test_benchmark_scenario_on_the_card_matches_the_cpu():
     assert gok.all() and cok.all()
     assert ge.tolist() == ce.tolist() and gk.tolist() == ck.tolist()
     chip_smoke.gpu_vs_cpu(g, c, "benchmark", "mV")
+
+
+def test_parallel_modes_on_the_card():
+    """The multi-device modes on the card, 2-D res 1, float64, 2 ranks
+    sharing it over gloo: the SPMD step bitwise the single-device GPU
+    step; the distributed V-cycle's steps against the same 2 ranks on the
+    CPU (equal iterations, phi_M within 1e-9 V, c 1e-9 relative)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import functools
+
+    import numpy as np
+
+    from knpemi_tpu_torch.parallel import launch, programs
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+
+    b = functools.partial(build_idealized, dim=2, resolution=1, g_syn_bar=10.0,
+                          dtype=torch.float64, solver_options=SolverOptions(mg_coarse_max=100))
+    res = launch(programs.run_cases, 2, "gloo", "cuda", deadline=600, args=(
+        [("spmd", dict(build=b)), ("sharded", dict(build=b, distributed_mg=True))],))
+    a, c = res[0]["results"]
+    assert a["bitwise"] and c["totals"]["staged"] > 0
+    cpu = launch(programs.run_cases, 2, "gloo", "cpu", deadline=600, threads=1, args=(
+        [("sharded", dict(build=b, distributed_mg=True))],))[0]["results"][0]
+    assert c["iters"] == cpu["iters"]
+    for g, h in zip(c["states"], cpu["states"]):
+        for m in g["phi_M"]:
+            assert np.abs(g["phi_M"][m] - h["phi_M"][m]).max() <= 1e-9
+        for t in g["c"]:
+            assert np.abs(g["c"][t] - h["c"][t]).max() <= 1e-9 * np.abs(h["c"][t]).max()

@@ -347,3 +347,83 @@ def test_new_host_modules_are_in_the_port():
     assert callable(critical.critical_section) and callable(logging.Timer)
     src = (PORT / "utils" / "native.py").read_text()
     assert "except" not in src.split("def vanek_aggregate", 1)[1]  # no fallback
+
+
+@pytest.mark.parametrize("module", ["comm", "spmd", "sharded", "sharded_mg", "programs"])
+def test_parallel_modules_never_fall_back(module):
+    """The multi-device modes raise where they cannot run (a hierarchy
+    level without a banded layout, an option not ported to them, NCCL
+    with fewer cards than ranks): no module of ``parallel/`` has a try
+    around a launch or a build.  ``comm.py``'s only try blocks supervise
+    the rank processes: a rank reports any exception to ``launch``, which
+    raises it; ``launch`` polls its queue."""
+    tree = ast.parse((PORT / "parallel" / f"{module}.py").read_text())
+    for fn in ast.walk(tree):
+        if not isinstance(fn, ast.FunctionDef):
+            continue
+        for node in ast.walk(fn):
+            if not isinstance(node, ast.Try) or not node.handlers:
+                continue
+            assert module == "comm", f"{module}.{fn.name}: try"
+            caught = {ast.unparse(h.type) for h in node.handlers}
+            assert (fn.name, caught) in (("_rank_main", {"BaseException"}),
+                                         ("launch", {"queue.Empty"})), (fn.name, caught)
+        for node in ast.walk(fn):
+            if isinstance(node, ast.Call) and ast.unparse(node.func).endswith("warn"):
+                raise AssertionError(f"{module}.{fn.name}: warns")
+
+
+def test_parallel_launch_and_comm_need_cuda_without_device(monkeypatch):
+    """The multi-device modes follow the device rule: ``launch`` and
+    ``Comm`` with no device mean CUDA, which raises without it."""
+    from knpemi_tpu_torch.parallel import Comm, launch, programs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch(programs.wait, 2, "gloo", None, args=(0,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        launch(programs.wait, 2, "gloo", "cuda", args=(0,))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Comm(0, 1, "gloo", None)
+    # a Comm belongs to a rank of a process group, even one rank alone
+    for world in (1, 2):
+        with pytest.raises(ValueError, match="process group"):
+            Comm(0, world, "gloo", "cpu")
+    assert launch(_rank_device, 1, "gloo", "cpu", threads=1, deadline=120) == ["cpu"]
+
+
+def _rank_device(comm):
+    return str(comm.device)
+
+
+def test_parallel_simulations_take_the_rank_device():
+    """``SpmdSimulation`` and ``ShardedSimulation`` run on the rank's device
+    (``comm.device``): a simulation built elsewhere, or none on rank 0,
+    raises.  Checked on one gloo rank on the CPU."""
+    from knpemi_tpu_torch.parallel import launch
+
+    assert launch(_simulations_on_the_rank_device, 1, "gloo", "cpu", threads=1,
+                  deadline=300) == [True]
+
+
+def _simulations_on_the_rank_device(comm):
+    """The checks of ``test_parallel_simulations_take_the_rank_device``, on
+    a launched rank (a failed check fails the launch, naming the rank)."""
+    from knpemi_tpu_torch.parallel import ShardedSimulation, SpmdSimulation
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+
+    with pytest.raises(ValueError, match="rank 0 must pass"):
+        ShardedSimulation(comm, None)
+    with pytest.raises(ValueError, match="multigrid"):
+        SpmdSimulation(comm, build_idealized(dim=2, resolution=1, device="cpu",
+                                             solver_options=SolverOptions(direct=True)))
+    sim = build_idealized(dim=2, resolution=1, device="cpu")
+    assert SpmdSimulation(comm, sim).sim.device == comm.device
+    other = build_idealized(dim=2, resolution=1, device="cpu")
+    other.device = torch.device("meta")  # stands for a simulation on another device
+    with pytest.raises(ValueError, match="the simulation is on meta"):
+        SpmdSimulation(comm, other)
+    ssim = ShardedSimulation(comm, sim, distributed_mg=False)
+    s = ssim.step(ssim.init_state())
+    assert all(v.device == comm.device for v in s.c.values())
+    return True

@@ -90,10 +90,12 @@ def _on_the_cpu(monkeypatch, mesh_n=8):
 
 @pytest.mark.parametrize("h5py", [True, False], ids=["h5py", "no h5py"])
 def test_resume_phase_flow_on_the_cpu(monkeypatch, tmp_path, h5py):
-    """The resume phase's flow at mesh_n 8 on the CPU: three builds, the
-    gold and split legs bitwise equal in state and traces and, with
-    h5py, in every XDMF dataset, the geometry read from the mesh file
-    equal to the synthetic one; without h5py the line says so."""
+    """The resume phase's flow at mesh_n 8 on the CPU: two builds (the
+    split leg's first part runs on the gold leg's, its resumed part on a
+    build of its own), the gold and split legs bitwise equal in state and
+    traces and, with h5py, in every XDMF dataset, the geometry read from
+    the mesh file equal to the synthetic one; without h5py the line says
+    so."""
     import importlib.util
 
     from knpemi_tpu_torch.sim import ASTROCYTE_BASELINE
@@ -121,17 +123,19 @@ def test_resume_phase_flow_on_the_cpu(monkeypatch, tmp_path, h5py):
     assert chip_smoke.HOST_SETUP["fresh_vs_cached"]["identical"]
     assert "fresh" not in chip_smoke.HOST_SETUP
     assert [b["build"] for b in chip_smoke.HOST_SETUP["builds"]] == [
-        "resume gold", "resume split first", "resume split resumed"]
+        "resume gold", "resume split resumed"]
+    assert rec["legs"]["split first"]["build"] == "the gold leg's"
     assert rec["identical"] and rec["traces_equal_before_checkpoint"]
     assert list(rec["legs"]) == ["gold", "split first", "split resumed"]
-    assert [rec["legs"][k]["steps"] for k in rec["legs"]] == [16, 8, 8]
+    n, stop = chip_smoke.RESUME_STEPS, chip_smoke.RESUME_STOP
+    assert [rec["legs"][k]["steps"] for k in rec["legs"]] == [n, stop, n - stop]
     assert sum(rec["legs"]["split resumed"]["knp_iters"]) > 0
     if h5py:
         assert rec["mesh_file"]["geometry_equal"] and rec["xdmf"]["datasets"] > 0
     else:
         assert rec["xdmf"] == "h5py not installed"
         assert rec["mesh_file"].startswith("h5py not installed")
-    assert rec["checkpoint_bytes"] > 0 and rec["step"] == 16
+    assert rec["checkpoint_bytes"] > 0 and rec["step"] == n
 
 
 def test_in_process_resume_flow_on_the_cpu(monkeypatch, tmp_path):
@@ -289,3 +293,80 @@ def test_flagship_build_records_on_the_cpu(tmp_path, monkeypatch):
                             solver_options=SolverOptions(mg_banded=True, mg_coarse_max=200))
     assert chip_smoke.hierarchy_sha(other) != chip_smoke.hierarchy_sha(fresh)
     assert torch.equal(a.phi[0], b.phi[0])
+
+
+def test_multi_device_phase_flow_on_the_cpu(monkeypatch, tmp_path):
+    """The ``multi_device`` phase's flow on the CPU at a small size: (a)-(c)
+    on the 2-D res-1 case (4 gloo ranks; no NCCL here), (d) and (e) on the
+    tissue at ``mesh_n`` 10 from a carried float32 state, every gate held
+    (SPMD bitwise, 1e-8, CPU against CPU, the 1e-5 field-equivalence gate
+    and the repeated steps' bits), the kernels' rows all held (here the
+    plain versions against themselves) and the rank's launch counts
+    returned.  One intra-op thread a rank."""
+    import torch
+
+    import pickle
+
+    from knpemi_tpu_torch.interop import state_to_numpy
+    from knpemi_tpu_torch.parallel.programs import simulation_inputs
+    from knpemi_tpu_torch.sim import (ASTROCYTE_BASELINE, SolverOptions, build_astrocyte,
+                                      build_idealized)
+
+    fl = dict(mesh_n=10, keep=13, steps=2, repeat=1)
+    monkeypatch.setattr(chip_smoke, "MD_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "MD_NCCL", False)
+    monkeypatch.setattr(chip_smoke, "MD_THREADS", 1)
+    monkeypatch.setattr(chip_smoke, "MD_SMALL", dict(dim=2, resolution=1))
+    monkeypatch.setattr(chip_smoke, "MD_FLAGSHIP", fl)
+    monkeypatch.setattr(chip_smoke, "MD_PATH", ())
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        sim = build_astrocyte({**ASTROCYTE_BASELINE, "mesh_n": 10}, dtype=torch.float32,
+                              device="cpu",
+                              solver_options=SolverOptions(knp_batched=True, **chip_smoke.TUNED))
+        s = sim.init_state()
+        for _ in range(fl["keep"]):
+            s = sim.step(s)
+        kept, e, k = state_to_numpy(s), [], []
+        for _ in range(fl["steps"]):
+            s = sim.step(s)
+            e.append(int(s.emi_iters))
+            k.append(int(s.knp_iters))
+        setup = tmp_path / "inputs.pkl"
+        setup.write_bytes(pickle.dumps(simulation_inputs(sim)))
+        monkeypatch.setattr(chip_smoke, "MD_CARRIED", dict(
+            kept=kept, final=state_to_numpy(s), iters=list(zip(e, k)), setup=str(setup)))
+        out, launches = chip_smoke.multi_device_phase(build_idealized, SolverOptions)
+    finally:
+        torch.set_num_threads(n)
+    assert out["a_spmd"]["bitwise_gloo_4"] and out["a_spmd"]["bitwise_nccl_1"] is None
+    assert out["c_distributed"]["iters"] == out["c_distributed"]["cpu_iters"]
+    d = out["d_flagship"]
+    assert d["repeat_bitwise"] and len(d["iters"]) == fl["steps"]
+    assert len(d["memory_per_rank"]) == 4 and d["collectives_per_step"] > 0
+    assert all(m["host_hwm"] or m["ru_maxrss"] for m in d["memory_per_rank"])
+    assert set(d["setup_seconds"]) >= {"partition", "hierarchies", "scatter"}
+    names = {r["name"].split()[0] for r in out["e_kernels"]}
+    assert names >= {"K1", "K1f", "K2", "K3", "K4", "K7", "K8", "K9", "K10", "K11f"}
+    assert all(r["held"] and r["deterministic"] for r in out["e_kernels"])
+    assert not any(launches.values())  # the CPU launches no kernel
+
+
+def test_shared_mesh_builds_step_as_builds_from_scratch():
+    """Phase 2's builder: a case's later builds, from a copy of the first
+    build's mesh, geometry and membrane models, step as a build from
+    scratch with the same options does, bitwise."""
+    import torch
+
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+
+    build = chip_smoke.shared_mesh(build_idealized)
+    kw = dict(dim=2, resolution=1, g_syn_bar=10.0, dtype=torch.float64, device="cpu")
+    first = build(**kw, solver_options=SolverOptions())
+    for opts in (SolverOptions(mg_banded=True), SolverOptions(mg_smoother="cheby", mg_degree=3)):
+        shared, fresh = build(**kw, solver_options=opts), build_idealized(**kw, solver_options=opts)
+        assert shared.geom is not first.geom and shared.opts == opts
+        a, b = shared.run(shared.init_state(), 2)[0], fresh.run(fresh.init_state(), 2)[0]
+        for f in ("phi", "phi_M", "c"):
+            assert all(torch.equal(getattr(a, f)[k], getattr(b, f)[k]) for k in getattr(b, f))
