@@ -14,10 +14,14 @@ without CUDA and without that request they raise.
 
 __version__ = "0.1.0"
 
-from .systems.types import Ion, PhysicalParams, SimState  # noqa: E402
+from .systems import (  # noqa: E402
+    Ion, PhysicalParams, SimState, SubdomainDef, create_functions_emi,
+    create_functions_knp, emi_system, interpolate_to_membrane, knp_system,
+    set_initial_conditions, update_pde_variables,
+)
 from .mesh.core import Mesh  # noqa: E402
 from .ops.geometry import build_geometry, DiscreteGeometry  # noqa: E402
-from .systems.coupling import set_initial_conditions, update_pde_variables  # noqa: E402
+from .solvers import create_solver_emi, create_solver_knp  # noqa: E402
 from .models.engine import (  # noqa: E402
     MembraneModel, setup_membrane_model, update_ode_variables,
 )
@@ -28,11 +32,19 @@ from .sim import (  # noqa: E402
 __all__ = [
     "Ion",
     "PhysicalParams",
+    "SubdomainDef",
     "SimState",
     "Mesh",
     "DiscreteGeometry",
     "build_geometry",
+    "emi_system",
+    "knp_system",
+    "create_functions_emi",
+    "create_functions_knp",
+    "create_solver_emi",
+    "create_solver_knp",
     "set_initial_conditions",
+    "interpolate_to_membrane",
     "update_pde_variables",
     "MembraneModel",
     "setup_membrane_model",

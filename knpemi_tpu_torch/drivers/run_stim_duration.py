@@ -50,11 +50,12 @@ CONFIG_DIR = Path(__file__).resolve().parents[2] / "examples" / "astrocyte" / "c
 TRACE_KEYS = ("t", "phi_M_neuron", "phi_M_glial", "K_e_max", "K_e_min")
 
 
-def build_simulation(config: dict, device=None):
-    """The scenario of ``config`` on ``device`` (None: CUDA): float32 on
-    the card, float64 on the CPU."""
+def build_simulation(config: dict, device=None, dtype=None):
+    """The scenario of ``config`` on ``device`` (None: CUDA) in ``dtype``
+    (None: float32 on the card, float64 on the CPU)."""
     device = resolve_device(device)
-    dtype = torch.float32 if device.type == "cuda" else torch.float64
+    if dtype is None:
+        dtype = torch.float32 if device.type == "cuda" else torch.float64
     return build_astrocyte(config, dtype=dtype, device=device)
 
 
@@ -62,10 +63,13 @@ def solve_system(config: dict, verbose: bool = True, outdir: Optional[str] = Non
                  resume: bool = False, device=None, sim=None):
     """Run the scenario to ``config['Tstop']`` (ms) or, with ``resume``,
     continue it from ``<outdir>/<fname>/ckpt.npz``.  ``sim``: a simulation
-    of ``config`` built by the caller (:func:`build_simulation`), else one
-    is built on ``device``.  Returns (state, traces, emi_iters[],
+    of ``config`` built by the caller, else one is built on ``device`` by
+    :func:`build_simulation`'s rule (``sim=build_simulation(config, device,
+    torch.float64)`` runs the scenario in float64 on the card).  Returns
+    (state, traces, emi_iters[],
     knp_iters[]) of the steps this call ran (a resumed finished run:
     none)."""
+    t0 = time.perf_counter()
     if sim is None:
         sim = build_simulation(config, device)
     dt = sim.params.dt
@@ -144,6 +148,8 @@ def solve_system(config: dict, verbose: bool = True, outdir: Optional[str] = Non
                   f"-> {ckpt_path}")
 
     t1 = time.perf_counter()
+    if verbose:
+        print(f"set-up {t1 - t0:.1f}s ({sim.dtype}, {sim.device})")
     state, it_emi, it_knp, _ = sim.run(
         state, n_steps, save_every=save_every, observer=observer, verbose=verbose,
         checkpoint_every=ckpt_every, checkpoint_cb=write_ckpt)
@@ -151,6 +157,9 @@ def solve_system(config: dict, verbose: bool = True, outdir: Optional[str] = Non
     if verbose:
         print(f"{n_steps} steps in {wall:.1f}s ({wall / n_steps * 1e3:.1f} ms/step); "
               f"avg it emi {it_emi.mean():.1f} knp {it_knp.mean():.1f}")
+        print(f"refreshes {sim.refresh_counts}")
+        if sim.device.type == "cuda":
+            print(f"peak device memory {torch.cuda.max_memory_allocated(sim.device) / 2**30:.3f} GiB")
     if out is not None:
         write_ckpt(state)  # a finished run's checkpoint resumes to a no-op
     for w in writers.values():

@@ -47,8 +47,29 @@ class MembraneModel:
     def param_index(self, name: str) -> int:
         return self._pidx[name]
 
+    # name-indexed setters and getters; a setter returns a new array (a
+    # clone), as the JAX package's ``.at[].set`` does
+    def set_state(self, states, name, values):
+        out = states.clone()
+        out[:, self._sidx[name]] = values
+        return out
+
+    def get_state(self, states, name):
+        return states[:, self._sidx[name]]
+
+    def set_param(self, params, name, values):
+        out = params.clone()
+        out[:, self._pidx[name]] = values
+        return out
+
+    def get_param(self, params, name):
+        return params[:, self._pidx[name]]
+
+    def set_membrane_potential(self, states, phi_M):
+        return self.set_state(states, "V", phi_M)
+
     def get_membrane_potential(self, states):
-        return states[:, self._sidx["V"]]
+        return self.get_state(states, "V")
 
     def init_states(self) -> np.ndarray:
         return np.tile(self.ode.init_states(), (self.n_dofs, 1))

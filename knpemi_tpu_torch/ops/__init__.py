@@ -2,6 +2,29 @@
 kernels, and the hand-written CUDA kernels with their wrappers
 (``assembly``, ``p1op``, ``ell``, ``banded``; sources in ``csrc/``)."""
 
+from .geometry import (
+    DiscreteGeometry,
+    SubdomainSpace,
+    MembraneSpace,
+    BoundarySpace,
+    build_geometry,
+)
+from . import quadrature
+from . import kernels
+
+__all__ = [
+    "DiscreteGeometry",
+    "SubdomainSpace",
+    "MembraneSpace",
+    "BoundarySpace",
+    "build_geometry",
+    "quadrature",
+    "kernels",
+    "kernel_table",
+    "reset_launch_counts",
+    "launch_counts",
+]
+
 
 def kernel_table():
     """{name: (wrapper, plain version)} of every hand-written kernel."""

@@ -4,7 +4,9 @@ Counterpart of ``knpemi_tpu/systems/coupling.py``: for broken P1 spaces
 the two-sided membrane trace is an exact vertex gather through the maps
 ``mem_to_ecs`` / ``mem_to_ics``; the eliminated ion follows from bulk
 electroneutrality, c_elim = -(1/z_N)(sum_k z_k c_k + z_rho rho); and
-phi_M = tr_i(phi_i) - tr_e(phi_e).
+phi_M = tr_i(phi_i) - tr_e(phi_e) (``interpolate_to_membrane``,
+``membrane_potential_from_phi``; the step itself gathers through
+:func:`membrane_maps`' device tensors).
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Dict, List, Tuple
 import numpy as np
 import torch
 
-from ..ops.geometry import DiscreteGeometry
+from ..ops.geometry import DiscreteGeometry, MembraneSpace
 from .types import Ion, PhysicalParams, resolve_device
 
 
@@ -41,6 +43,25 @@ def membrane_maps(geom: DiscreteGeometry, device) -> Dict[int, Tuple[torch.Tenso
             torch.as_tensor(mem.mem_to_ics, dtype=torch.int64, device=device))
         for m, mem in geom.membranes.items()
     }
+
+
+def interpolate_to_membrane(u_e, u_i, membrane: MembraneSpace | dict):
+    """Two-sided membrane traces (tr_e, tr_i) of subdomain fields on the
+    membrane dof numbering: a gather through ``mem_to_ecs`` /
+    ``mem_to_ics`` over the last axis (tensors on their own device, or
+    numpy arrays)."""
+    get = membrane.get if isinstance(membrane, dict) else lambda k: getattr(membrane, k)
+    m2e, m2i = get("mem_to_ecs"), get("mem_to_ics")
+    if torch.is_tensor(u_e):
+        m2e = torch.as_tensor(m2e, dtype=torch.int64, device=u_e.device)
+        m2i = torch.as_tensor(m2i, dtype=torch.int64, device=u_i.device)
+    return u_e[..., m2e], u_i[..., m2i]
+
+
+def membrane_potential_from_phi(phi_e, phi_i, membrane):
+    """phi_M = tr_i(phi_i) - tr_e(phi_e) on ``membrane``."""
+    tr_e, tr_i = interpolate_to_membrane(phi_e, phi_i, membrane)
+    return tr_i - tr_e
 
 
 def eliminated_concentration(c_solved, zs, z_elim: float, rho_z: float, rho):

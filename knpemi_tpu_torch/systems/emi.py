@@ -286,6 +286,17 @@ class EMISystem:
         return b
 
 
+def create_functions_emi(geom: DiscreteGeometry, dtype=torch.float64, device=None):
+    """Potential arrays {tag: zeros(n_dofs)} and membrane potential arrays
+    {membrane tag: zeros(n_mem)} on ``device`` (None: CUDA)."""
+    device = resolve_device(device)
+    phi = {t: torch.zeros(s.n_dofs, dtype=dtype, device=device)
+           for t, s in geom.subdomains.items()}
+    phi_M = {m: torch.zeros(sp.n_dofs, dtype=dtype, device=device)
+             for m, sp in geom.membranes.items()}
+    return phi, phi_M
+
+
 def emi_system(geom: DiscreteGeometry, ions: List[Ion], params: PhysicalParams,
                splitting_scheme: bool = True, mms: Optional[EMIMMSData] = None,
                dtype=torch.float64, device=None, p1ops=None, memops=None) -> EMISystem:

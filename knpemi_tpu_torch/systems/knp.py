@@ -381,6 +381,15 @@ class KNPSystem:
         return r
 
 
+def create_functions_knp(geom: DiscreteGeometry, ions: List[Ion], dtype=torch.float64,
+                         device=None):
+    """Concentration state {tag: zeros(N_ions, n_dofs)} on ``device``
+    (None: CUDA); the eliminated ion is the last row."""
+    device = resolve_device(device)
+    return {t: torch.zeros(len(ions), s.n_dofs, dtype=dtype, device=device)
+            for t, s in geom.subdomains.items()}
+
+
 def knp_system(geom: DiscreteGeometry, ions: List[Ion], params: PhysicalParams,
                splitting_scheme: bool = True, mms: Optional[KNPMMSData] = None,
                dtype=torch.float64, device=None, p1ops=None, memops=None, kst=None,

@@ -7,6 +7,8 @@ Counterpart of ``knpemi_tpu/systems/types.py``:
   electroneutrality and never solved for.
 * ``PhysicalParams`` — dt, F, psi = F/(R*T), C_phi = C_M/dt, C_M, R,
   temperature, immobile background charge rho (with valence rho_z).
+* ``SubdomainDef`` — a declarative subdomain description: tag, name,
+  membrane tags and ODE models per membrane.
 * ``SimState`` — the complete per-step state as a dataclass of tensors:
   concentrations (all ions, eliminated included), bulk potentials,
   membrane potentials, membrane ODE states/parameters, time and the
@@ -18,7 +20,7 @@ Counterpart of ``knpemi_tpu/systems/types.py``:
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -35,6 +37,16 @@ class Ion:
     # optional source term: {tag: (n_cells, n_q)} values at the cell
     # quadrature points; its time gate is the simulation's ``source_gate``
     f_source_q: Optional[Dict[int, np.ndarray]] = None
+
+
+@dataclasses.dataclass
+class SubdomainDef:
+    """Declarative subdomain description."""
+
+    tag: int
+    name: str
+    membrane_tags: List[int] = dataclasses.field(default_factory=list)
+    ode_models: Dict[int, Any] = dataclasses.field(default_factory=dict)
 
 
 def resolve_device(device) -> torch.device:

@@ -153,6 +153,37 @@ def test_in_process_resume_flow_on_the_cpu(monkeypatch, tmp_path):
     assert chip_smoke.step_determinism(sim, state)["identical"]
 
 
+def test_campaign_phase_flow_on_the_cpu(monkeypatch, tmp_path):
+    """The ``campaign`` phase's flow at mesh_n 8 on the CPU (the CPU
+    launches no kernel, so no kernel is required): the driver's two
+    float32 legs joined at the resume seam in the log, the summary's
+    gates, the float64 accuracy leg resumed at 1 ms, its final fields
+    float64, and compared under the envelope gates, and the DCP round
+    trip."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "CAMPAIGN_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "CAMPAIGN", {**chip_smoke.CAMPAIGN, "mesh_n": 8})
+    monkeypatch.setattr(chip_smoke, "reachable_kernels", lambda sim: set())
+    rec, launches = chip_smoke.campaign_phase(tmp_path)
+    assert not any(launches.values())
+    assert [leg["steps"] for leg in rec["legs"]] == [10, 10]
+    assert rec["chunk_ends"] == [5, 10, 15, 20]
+    assert rec["summary"]["n_saves"] == 4 and rec["summary"]["stimulated_phase"]["chunks"] == 4
+    log = (tmp_path / "campaign.log").read_text()
+    assert "resumed from" in log and log.count("set-up") == 2
+    env = rec["envelope"]
+    assert env["t_final_ms"] == rec["summary"]["t_final_ms"]
+    assert set(env["final_rel_l2"]) == {"phi_M_1", "phi_M_2", "phi_0", "c_K_0", "c_Na_0",
+                                        "c_K_1"}
+    # float32 against float64: a difference, inside the gates
+    assert all(0 < env[k] <= lim for k, lim in rec["gates"].items())
+    assert min(env["final_rel_l2"].values()) > 0 and rec["twin_final_dtypes"] == ["float64"]
+    assert rec["dcp"]["identical"] and rec["dcp"]["bytes"] > 0
+    assert sum(rec["legs"][1]["knp_iters"]) > 0
+
+
 def test_far_add_cases_cover_every_far_remainder_on_the_cpu():
     """``far_cases`` on the 3-D res-1 banded scenario on the CPU: a case for
     every banded operator of the EMI and KNP hierarchies that has a far
