@@ -140,7 +140,8 @@ resume. the checkpoint -> resume path at the flagship's width (mesh_n
    synthetic build's); state, traces and every XDMF dataset must be bitwise equal
    between the two, and the resumed steps must run KNP iterations (the
    source turns on at step 10); without h5py the driver writes no XDMF
-   series and the third build is synthetic, and the line says so.
+   series and the third build is the gold build's mesh and geometry
+   with a Simulation of its own, and the line says so.
    Setup seconds a build, ms/step and iterations a leg, the bytes of a
    checkpoint and of a set of frames, a checkpoint's write and read
    seconds and 1 profiled step from the resumed state;
@@ -172,7 +173,14 @@ mms. the manufactured-solution study on the card in float64
    and bitwise across two launches, their launches not counted (the
    masked EMI operator, K1 and K2; K3 and K11 on the exact drift stream
    against the plain quadrature drift, and on the KNP system's streams);
-   every M prints the sha256 of its host data by field; the
+   every M prints the sha256 of its host data by field; then the
+   reference-scale ladder's first rungs (``tools/run_mms_ladder.py``'s
+   ``ladder_rung``): 2-D M = 100 and 200 on the SA-AMG-preconditioned
+   CG and batched GMRES at rtol 1e-10, the host LU and the CPU at M =
+   100; gates: the rate 100 -> 200 above 1.9 for every field, the
+   iterative errors within 1e-6 + 1e-3 e of the direct ones, GPU against
+   CPU equal iterations and every field within 1e-9 of its max|u|; the
+   iterations printed beside the JAX package's recorded ones; the
    launch counts, set to 0 before the phase, must show K1, K1f, K2, K3,
    K4 and K11;
 drivers. the reference's other drivers (``knpemi_tpu_torch/drivers``),
@@ -183,7 +191,7 @@ drivers. the reference's other drivers (``knpemi_tpu_torch/drivers``),
    (5, 6, 7), float32 and float64, against their plain versions and
    bitwise across two launches where phase 1 asks it; (a)
    ``run_benchmark.solve_system`` at the driver's defaults (resolution
-   0, 5 ms = 50 steps, float32), the launch counts set to 0 just before
+   0, float32) to 2 ms = 20 steps, the launch counts set to 0 just before
    and read just after (every kernel the path can reach must launch;
    the kernels line's ``launches_bench``): every field and probe trace
    finite, the ECS K_e probe above its initial 3.0930 mM once the source
@@ -215,7 +223,7 @@ multi_device. the multi-device modes (``knpemi_tpu_torch/parallel``),
    distributed V-cycle, rank 0's host set-up from the batched run's
    inputs: the batched run's state at step 17 carried in, steps 18-22
    held to its step 22 by the 1e-5 field-equivalence gate on phi_M and c,
-   steps 18-19 run again from the same state (the same bits), ms/step,
+   step 18 run again from the same state (the same bits), ms/step,
    collectives and bytes (sent, staged) a step, the set-up's parts and
    each rank's memory -- times of 4 processes sharing one card, not
    scaling numbers; the launch counts of rank 0 in the 5 steps (the
@@ -225,10 +233,18 @@ multi_device. the multi-device modes (``knpemi_tpu_torch/parallel``),
    halo, the far add) against their plain twins (1e-5 / 1e-13 of max|y|)
    and bitwise across two launches;
 4. profile, per flagship run: the
-   step's four phases timed by host clock over 2 steps, their kernel
-   counts in one step, then 1 step under
-   torch.profiler — device kernel time and busy share, kernels per
-   step, the top kernels.
+   step's four phases timed by host clock over 2 steps, then 1 step
+   with each phase under a torch.profiler session of its own — device
+   kernel time and busy share, kernels per step and per phase, the top
+   kernels.
+
+Host set-ups that do not need the card are built ahead on the CPU, in
+processes of their own, so that the builds on the card read their
+multigrid hierarchies and t = 0 EMI operators from the caches: phases 1
+and 3's idealized builds while the drivers run, the sharded flagship's
+distributed hierarchies while the flagship's per-ion and banded runs
+go on (each line that uses them says how long the warming took and how
+long the run waited for it).
 
 Then the kernel table as one JSON line of fourteen entries (the twelve
 kernels of the batched step from the long box, K11 and K11f from the
@@ -379,14 +395,15 @@ def _device_events(fn, reps: int):
     """[(profiler key, start us, duration us)] of the device events of reps
     calls of fn(), each after an L2 flush.  The card is kept busy for ~5 ms
     first (flushes, queued before the profiler starts), so that its clocks
-    have risen from idle."""
+    have risen from idle.  Device events alone: the host's events, which
+    no reading here uses, took most of a session's post-processing."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(30):
         _flush_l2()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             _flush_l2()
             fn()
@@ -1494,6 +1511,93 @@ def shared_mesh(build_idealized):
     return build
 
 
+# -- host set-ups built ahead, on the CPU, in processes of their own ----------
+# the idealized builds of phases 1 and 3 (res 2 in both layouts, then the
+# l = 4 box), float32 as the card's runs build them
+WARM_BOXES = {
+    "res2": [dict(dim=3, resolution=2, g_syn_bar=10.0, banded=b) for b in (False, True)],
+    "box": [dict(dim=3, resolution=2, l=4, g_syn_bar=10.0, banded=True)],
+}
+WARM_THREADS = 2  # intra-op and BLAS threads of a warming process
+_WARMERS = []
+
+
+def warm_caches(what: str) -> None:
+    """Build host set-ups on the CPU so that the multigrid hierarchy cache
+    and the t = 0 EMI assembly cache hold their entries when the card's
+    run builds the same set-ups: a host set-up does not depend on the
+    device, and both caches are keyed by the operators.  ``what``: a key
+    of WARM_BOXES, or the path of a flagship's pickled simulation inputs,
+    whose distributed hierarchies over 4 ranks ``multi_device`` (d)
+    builds.  Run by :func:`start_warming` in a process of its own."""
+    import torch
+
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized
+
+    torch.set_num_threads(WARM_THREADS)
+    if what not in WARM_BOXES:
+        from knpemi_tpu_torch.parallel.programs import simulation_from
+        from knpemi_tpu_torch.parallel.sharded import warm_distributed_hierarchies
+        from knpemi_tpu_torch.sim import stepper
+
+        # the flagship's t = 0 EMI operator assembled in a directory of this
+        # process's own: the banded flagship build, running meanwhile,
+        # removes the shared entry to assemble afresh
+        with tempfile.TemporaryDirectory() as tmp:
+            stepper.CACHE_DIR = Path(tmp)
+            warm_distributed_hierarchies(simulation_from(what, "cpu"), 4)
+        return
+    build = shared_mesh(build_idealized)
+    for kw in WARM_BOXES[what]:
+        kw = dict(kw)
+        opts = SolverOptions(mg_banded=kw.pop("banded"))
+        build(**kw, dtype=torch.float32, device="cpu", solver_options=opts)
+
+
+def start_warming(what: str) -> dict:
+    """:func:`warm_caches` of ``what`` in a new Python process, its output
+    to a temporary file; :func:`finish_warming` waits for it."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    log = tempfile.NamedTemporaryFile(prefix="chip_smoke_warm_", suffix=".log", delete=False)
+    threads = str(WARM_THREADS)
+    env = {**os.environ, "OMP_NUM_THREADS": threads, "OPENBLAS_NUM_THREADS": threads,
+           "MKL_NUM_THREADS": threads}
+    code = f"import sys; sys.path.insert(0, {str(root)!r}); import chip_smoke; " \
+           f"chip_smoke.warm_caches({what!r})"
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
+                            stdout=log, stderr=subprocess.STDOUT)
+    w = dict(what=what, proc=proc, log=log.name, t0=time.perf_counter())
+    _WARMERS.append(w)
+    return w
+
+
+def finish_warming(w: dict, timeout: float = 900.0) -> dict:
+    """Wait for a warming process; a failed one fails the run with its
+    output.  Returns its seconds from start to end and the seconds waited
+    here."""
+    t0 = time.perf_counter()
+    rc = w["proc"].wait(timeout=timeout)
+    waited = time.perf_counter() - t0
+    text = Path(w["log"]).read_text(errors="replace")
+    Path(w["log"]).unlink(missing_ok=True)
+    _WARMERS.remove(w)
+    if rc != 0:
+        raise AssertionError(f"warming {w['what']!r} failed (exit {rc}):\n{text[-4000:]}")
+    return dict(seconds=time.perf_counter() - w["t0"], waited_seconds=waited)
+
+
+def stop_warming() -> None:
+    """End every warming process still running (the run failed)."""
+    while _WARMERS:
+        w = _WARMERS.pop()
+        if w["proc"].poll() is None:
+            w["proc"].kill()
+        w["proc"].wait()
+        Path(w["log"]).unlink(missing_ok=True)
+
+
 def parity(build_idealized, SolverOptions):
     """2 float64 steps of the 3-D res-1 scenario on the GPU and the CPU:
     ion-batched with ELL and with banded multigrid, and per-ion with
@@ -1593,69 +1697,58 @@ def phase_ms(sim, state, n_steps: int):
     return acc
 
 
-def phase_kernels(sim, state):
-    """Device kernels (memory copies and sets included) that each of the
-    step's four phases launches in one step, each phase under a profiler
-    of its own."""
-    import contextlib
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    counts = {}
-
-    @contextlib.contextmanager
-    def span(name):
-        # device events alone: the counts need no host events, whose
-        # post-processing took most of the phase
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            yield
-            torch.cuda.synchronize()
-        counts[name.split("/", 1)[1]] = sum(
-            e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
-
-    sim.step(state, span=span)
-    return counts
-
-
 # steps under torch.profiler in phase 4: one, since the profiler's
 # post-processing takes seconds a step and the script has 20 minutes
 PROFILED_STEPS = 1
 
 
 def profile_steps(sim, state, n_steps: int, ms_per_step: float):
-    """n_steps under torch.profiler: device kernel time per step, its share
-    of the unprofiled step time, kernels per step and the kernels with the
-    most device time.  Device events alone: the step phases' host times
-    are :func:`phase_ms`'s, and the host events' post-processing took
-    seconds a profiled step."""
+    """n_steps profiled, each of the step's four phases under a
+    torch.profiler session of its own: device kernel time per step, its
+    share of the unprofiled step time, device events (memory copies and
+    sets included) per step and per phase, and the kernels with the most
+    device time, from the same steps.  Device events alone: the step
+    phases' host times are :func:`phase_ms`'s, and the host events'
+    post-processing took seconds a profiled step."""
+    import contextlib
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # (the host's events only where there is no card: the CPU flow tests)
     acts = [ProfilerActivity.CUDA if torch.cuda.is_available() else ProfilerActivity.CPU]
+    per_phase, by_key = {}, {}  # events a phase; [calls, device us] a kernel
+
+    @contextlib.contextmanager
+    def span(name):
+        with profile(activities=acts) as prof:
+            yield
+            torch.cuda.synchronize()
+        phase = name.split("/", 1)[1]
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            per_phase[phase] = per_phase.get(phase, 0) + e.count / n_steps
+            acc = by_key.setdefault(e.key, [0, 0.0])
+            acc[0] += e.count
+            acc[1] += getattr(e, "self_device_time_total", 0) or 0
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with profile(activities=acts) as prof:
-        sim.run(state, n_steps)
-        torch.cuda.synchronize()
+    for _ in range(n_steps):
+        state = sim.step(state, span=span)
     wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    dev_t = lambda e: getattr(e, "self_device_time_total", 0) or 0
-    # the step's spans also appear on the device timeline: not kernels
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("step/")]
-    dev_ms = sum(dev_t(e) for e in kernels) / 1e3 / n_steps
-    top = sorted(kernels, key=dev_t, reverse=True)[:12]
+    dev_ms = sum(us for _, us in by_key.values()) / 1e3 / n_steps
+    top = sorted(by_key.items(), key=lambda kv: kv[1][1], reverse=True)[:12]
     return dict(
         steps=n_steps, profiled_ms_per_step=wall / n_steps * 1e3,
         device_kernel_ms_per_step=dev_ms if dev_ms else "not measured",
         device_busy_share=dev_ms / ms_per_step if dev_ms else "not measured",
-        kernels_per_step=sum(e.count for e in kernels) / n_steps,
-        top_kernels=[dict(name=e.key[:90], ms_per_step=dev_t(e) / 1e3 / n_steps,
-                          calls_per_step=e.count / n_steps) for e in top],
+        kernels_per_step=sum(n for n, _ in by_key.values()) / n_steps,
+        phase_kernels_per_step=per_phase,
+        top_kernels=[dict(name=k[:90], ms_per_step=us / 1e3 / n_steps,
+                          calls_per_step=n / n_steps) for k, (n, us) in top],
     )
 
 
@@ -1815,11 +1908,9 @@ def run_slice(sim, label: str, case: str, n_steps: int, setup_s: float,
     # -- phase 4: where the step's time goes ---------------------------------
     t0 = time.perf_counter()
     phases = phase_ms(sim, state, 2)
-    phase_k = phase_kernels(sim, state)
     prof = profile_steps(sim, state, PROFILED_STEPS, wall / n_steps * 1e3)
     emit(dict(phase=4, path=label, case=case + f", {PROFILED_STEPS} profiled step",
-              phase_ms_per_step=phases, phase_kernels_per_step=phase_k,
-              **prof, seconds=time.perf_counter() - t0))
+              phase_ms_per_step=phases, **prof, seconds=time.perf_counter() - t0))
     return rec
 
 
@@ -1968,6 +2059,8 @@ def flagship(build_astrocyte, baseline, SolverOptions):
                               setup=str(Path(tempfile.mkdtemp()) / "flagship_inputs.pkl"))
             with open(MD_CARRIED["setup"], "wb") as f:
                 pickle.dump(inputs, f, protocol=4)
+            # (d)'s distributed hierarchies, on the CPU beside the runs below
+            MD_CARRIED["warm"] = start_warming(MD_CARRIED["setup"])
         if batched:
             det = step_determinism(sim, rec["state"])
             emit(dict(phase=3, path=label, case="two steps from one saved state", **det))
@@ -2030,7 +2123,7 @@ def flagship(build_astrocyte, baseline, SolverOptions):
 # small cases); the flagship's carried states come from flagship()
 MD_DEVICE, MD_NCCL, MD_THREADS = "cuda", True, None
 MD_SMALL = dict(dim=3, resolution=1)
-MD_FLAGSHIP = dict(mesh_n=MESH_N, keep=17, steps=5, repeat=2)
+MD_FLAGSHIP = dict(mesh_n=MESH_N, keep=17, steps=5, repeat=1)
 MD_CARRIED = {}
 # the kernels the sharded step must launch on rank 0 (the distributed
 # V-cycle's windows K7 / K8; its far add only where a level has far entries)
@@ -2073,7 +2166,7 @@ def multi_device_phase(build_idealized, SolverOptions):
     1e-9 relative; (d) the flagship (mesh_n 64, float32, tuned options)
     sharded over 4 ranks on the card with the distributed V-cycle, from
     the batched run's state at step 17, steps 18-22 held to that run's
-    step 22 by the 1e-5 field-equivalence gate, steps 18-19 once more
+    step 22 by the 1e-5 field-equivalence gate, step 18 once more
     from the same state: the same bits; (e) rank 0's shards' kernels
     against their plain twins.  Returns (record, rank 0's launches in
     (d)'s steps)."""
@@ -2089,6 +2182,8 @@ def multi_device_phase(build_idealized, SolverOptions):
                             solver_options=SolverOptions())
     if not MD_CARRIED:
         raise AssertionError("multi_device (d): no carried flagship state")
+    if "warm" in MD_CARRIED:
+        out["d_warmed"] = finish_warming(MD_CARRIED.pop("warm"))
     fl = MD_FLAGSHIP
     # rank 0's host set-up of (d) from the batched run's own inputs (no mesh build)
     build = functools.partial(programs.simulation_from, MD_CARRIED["setup"])
@@ -2399,13 +2494,15 @@ def resume_phase(baseline, workdir: Path):
     build reads the flagship mesh written by ``io.write_mesh``
     (``build_astrocyte``'s ``mesh_file``; its geometry must be
     array-equal to the synthetic build's) and every dataset of every
-    XDMF series is compared; without it the driver writes no series and
-    the line says so.  State, traces and the series must be bitwise
+    XDMF series is compared; without it the driver writes no series, the
+    third build is the gold build's mesh and geometry with a Simulation of
+    its own, and the line says so.  State, traces and the series must be bitwise
     equal between the legs (``identical``).  Reported: each build's
     setup seconds, each leg's ms/step (checkpoints and frames included)
     and iterations, the bytes of one checkpoint and one set of frames,
     the seconds to write and read a checkpoint, and 1 profiled step
     from the resumed state (device kernel time)."""
+    import copy
     import importlib.util
     import warnings
 
@@ -2414,6 +2511,7 @@ def resume_phase(baseline, workdir: Path):
 
     from knpemi_tpu_torch.drivers import run_stim_duration as drv
     from knpemi_tpu_torch.io import load_checkpoint, save_checkpoint
+    from knpemi_tpu_torch.parallel.programs import simulation_inputs, simulation_of
 
     h5 = importlib.util.find_spec("h5py") is not None
     dt = float(baseline.get("dt", 0.1))
@@ -2423,11 +2521,12 @@ def resume_phase(baseline, workdir: Path):
     out = {k: workdir / k for k in ("gold", "split")}
     legs = {}
 
-    def leg(name, config, resume=False, geom=None, sim=None):
+    def leg(name, config, resume=False, geom=None, sim=None, inputs=None):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         if sim is None:
-            sim = drv.build_simulation(config)
+            sim = (drv.build_simulation(config) if inputs is None
+                   else simulation_of(copy.deepcopy(inputs[0]), inputs[1]))
             legs[name] = dict(setup_seconds=time.perf_counter() - t0)
             HOST_SETUP["builds"].append(setup_record(f"resume {name}", sim,
                                                      legs[name]["setup_seconds"]))
@@ -2470,7 +2569,7 @@ def resume_phase(baseline, workdir: Path):
     # and the resumed part still runs on a build of its own
     sim, gold, tr_gold = leg("gold", until(RESUME_STEPS))
     sim, _, _ = leg("split first", until(RESUME_STOP), sim=sim)
-    geom = sim.geom
+    geom, inputs, device = sim.geom, simulation_inputs(sim), sim.device
     del sim
     torch.cuda.empty_cache()
     resumed_cfg = until(RESUME_STEPS)
@@ -2486,8 +2585,12 @@ def resume_phase(baseline, workdir: Path):
                     bytes=mesh_path.stat().st_size
                     + mesh_path.with_suffix(".h5").stat().st_size)
         resumed_cfg["mesh_file"] = str(mesh_path)
+    # without h5py the third build is the gold build's mesh and geometry
+    # with a Simulation of its own (as the per-ion and banded flagship runs
+    # are built): the same arrays, less the mesh's seconds
     sim, split, tr_split = leg("split resumed", resumed_cfg, resume=True,
-                               geom=geom if h5 else None)
+                               geom=geom if h5 else None,
+                               inputs=None if h5 else (inputs, device))
     if h5:
         series = sorted(p.name for p in gdir.glob("results_sub_*.h5"))
         dsets = {f: (_h5_datasets(gdir / f), _h5_datasets(sdir / f)) for f in series}
@@ -3144,22 +3247,75 @@ def mms_study(dim: int):
     return dict(M=list(Ms), per_M=rows, rates=rates, rate_gate=MMS_GATE[dim])
 
 
+# the reference-scale ladder's first rungs (knpemi_tpu_torch/tools/
+# run_mms_ladder.py): 2-D, SA-AMG CG and batched GMRES at rtol 1e-10
+LADDER_MS = (100, 200)
+LADDER_RATE = 1.9  # the rate 100 -> 200, every field
+LADDER_CPU_TOL = 1e-9  # GPU against CPU at LADDER_MS[0], x max|u|
+# the JAX package's iterative ladder (CPU float64, RESULTS.md:749): EMI /
+# KNP iterations at M = 200, recorded, not measured in this run
+LADDER_JAX_ITERS = {200: (18, 22)}
+
+
+def mms_ladder():
+    """The ladder's rungs at LADDER_MS on MMS_DEVICE through the tool's
+    ``ladder_rung`` (float64, the SA-AMG hierarchies of its recipe), then
+    the host LU rung and the CPU rung at LADDER_MS[0].  Gates: every rate
+    above LADDER_RATE; the iterative errors within 1e-6 + 1e-3 e of the
+    direct ones; GPU against CPU equal EMI and KNP iterations and every
+    field within LADDER_CPU_TOL of its max|u|.  The iterations are printed
+    beside the JAX package's."""
+    from knpemi_tpu_torch.tools import run_mms_ladder as L
+
+    first = LADDER_MS[0]
+    rungs = [L.ladder_rung(M, True, MMS_DEVICE, return_fields=M == first)
+             for M in LADDER_MS]
+    fields = rungs[0].pop("fields")
+    rates = L.rates(rungs)
+    low = [f for f in MMS_FIELDS if not rates[f][-1] > LADDER_RATE]
+    if low:
+        raise AssertionError(f"MMS ladder: rate {LADDER_MS} at most {LADDER_RATE} for "
+                             f"{low}: {rates}")
+    direct = L.ladder_rung(first, False, MMS_DEVICE)
+    if not _close(rungs[0]["errors"], direct["errors"]):
+        raise AssertionError(f"MMS ladder M={first}: iterative {rungs[0]['errors']} against "
+                             f"direct {direct['errors']}")
+    cpu = L.ladder_rung(first, True, "cpu", return_fields=True)
+    cpu_fields = cpu.pop("fields")
+    d = max(_norm_rel(fields[k][t], cpu_fields[k][t]) for k in ("phi", "c")
+            for t in cpu_fields[k])
+    if cpu["iters"] != rungs[0]["iters"] or not d <= LADDER_CPU_TOL:
+        raise AssertionError(f"MMS ladder M={first}: GPU {rungs[0]['iters']} vs CPU "
+                             f"{cpu['iters']}, max rel difference {d:.3e} "
+                             f"(gate {LADDER_CPU_TOL:.0e})")
+    for r in rungs:
+        r["jax_cpu_iters"] = LADDER_JAX_ITERS.get(r["M"])
+    return dict(rungs=rungs, rates=rates, rate_gate=LADDER_RATE,
+                direct=dict(M=first, errors=direct["errors"], seconds=direct["seconds"]),
+                cpu=dict(M=first, iters=cpu["iters"], seconds=cpu["seconds"],
+                         gpu_vs_cpu_max_rel=d),
+                jax_iters_source="recorded, not measured in this run: the JAX package's "
+                                 "iterative ladder, CPU float64 (RESULTS.md:749)")
+
+
 # what the MMS path launches on the card: K1 (the EMI operator, the
 # right-hand side and its lift), K1f and K4 (the per-solve fill), K2 (the
 # membrane coupling), K3 (the batched KNP operator and its mass term),
-# K11 (the per-ion KNP operator), all on the host-assembled exact drift
+# K11 (the per-ion KNP operator), all on the host-assembled exact drift;
+# the ladder's rungs launch all but K11
 MMS_PATH = ("K1", "K1f", "K2", "K3", "K4", "K11")
 
 
 def mms_phase():
-    """The 3-D study (M = 8, 16, 32), then the 2-D one (M = 8, 16, 32), with
-    the launch counts set to 0 just before and read just after: every
-    kernel of MMS_PATH must have launched."""
+    """The 3-D study (M = 8, 16, 32), the 2-D one (M = 8, 16, 32), then the
+    reference-scale ladder's rungs (:func:`mms_ladder`), with the launch
+    counts set to 0 just before and read just after: every kernel of
+    MMS_PATH must have launched."""
     from knpemi_tpu_torch import ops
     from knpemi_tpu_torch.ops import ell as TE
 
     ops.reset_launch_counts()
-    out = {"3-D": mms_study(3), "2-D": mms_study(2)}
+    out = {"3-D": mms_study(3), "2-D": mms_study(2), "ladder": mms_ladder()}
     counts = {**ops.launch_counts(), FAR_ADD: TE.csr_add.launches}
     missing = [k for k in MMS_PATH if not any(n.split()[0] == k and v
                                              for n, v in counts.items())]
@@ -3171,6 +3327,7 @@ def mms_phase():
 # -- the drivers phase -------------------------------------------------------
 BENCH_MEMBRANES = (5, 6, 7)
 BENCH_PARITY_STEPS = 4  # across the source onset: the gate reads t > 0.2 at step 4
+BENCH_TSTOP = 2.0  # ms: 20 steps of run_benchmark, the source on from step 3
 GOLDEN_2D = Path(__file__).resolve().parent / "tests" / "data" / "golden_2d_res1.npz"
 # tests/test_golden_traces.py's gates: the probe trace and the final phi_M
 # (V), the final concentrations (relative)
@@ -3339,7 +3496,7 @@ def drivers_phase():
     (c) the benchmark scenario's kernels at its shapes (float32 and
     float64, against their plain versions, bitwise across two launches
     where phase 1 asks it), then (a) ``run_benchmark.solve_system`` at the
-    driver's defaults (resolution 0, 5 ms = 50 steps, float32), the
+    driver's defaults (resolution 0, float32) to BENCH_TSTOP (20 steps), the
     launch counts set to 0 just before and read just after; (b) that
     scenario GPU float64 against CPU float64 over the source onset; (d)
     ``run_2d`` at resolution 1 for 100 steps against the golden fixture
@@ -3379,7 +3536,7 @@ def drivers_phase():
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t1 = time.perf_counter()
-    state, it_e, it_k, traces = RB.solve_system(sim=sim, verbose=False)
+    state, it_e, it_k, traces = RB.solve_system(sim=sim, Tstop=BENCH_TSTOP, verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t1
     launches = {**ops.launch_counts(), FAR_ADD: TE.csr_add.launches}
@@ -3399,7 +3556,8 @@ def drivers_phase():
         raise AssertionError(f"benchmark: kernels of the path did not launch: {idle}")
     n = len(it_e)
     out["benchmark"] = dict(
-        case="run_benchmark.solve_system, resolution 0, 5 ms, float32, default options",
+        case=f"run_benchmark.solve_system, resolution 0, {BENCH_TSTOP} ms, float32, "
+             "default options",
         dofs_per_step=dofs_per_step(sim), steps=n, ms_per_step=wall / n * 1e3,
         emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
         peak_device_bytes=torch.cuda.max_memory_allocated(),
@@ -3659,6 +3817,10 @@ def main(argv=None) -> int:
         print(smi, flush=True)
         return 0
     kind = torch.cuda.get_device_name(0)
+    # the host set-ups of phases 1 and 3's idealized builds, on the CPU in
+    # processes of their own while the drivers run: those builds then read
+    # their hierarchies and EMI operators from the caches
+    warming = {what: start_warming(what) for what in WARM_BOXES}
     emit(environment(smi))
     # -- phase 0: device and build ------------------------------------------
     t0 = time.perf_counter()
@@ -3683,6 +3845,7 @@ def main(argv=None) -> int:
     emit(dict(phase=1, case="launch floor: the flushed device time of a one-element fill",
               floor_ms=floor))
 
+    warmed = {"res2": finish_warming(warming["res2"])}
     build_res2 = shared_mesh(build_idealized)
     for banded in (False, True):
         label = "mg_banded=True" if banded else "mg_banded=False"
@@ -3708,7 +3871,7 @@ def main(argv=None) -> int:
             r64 += p1_elsewhere(sim, torch.float64) + check_k11(
                 sim, torch.float64, False, phi_scale=1e-3)
         emit(dict(phase=1, path=label, setup_seconds_res2=setup_s, float32=r32,
-                  float64=r64, seconds=time.perf_counter() - t1))
+                  float64=r64, warmed=warmed["res2"], seconds=time.perf_counter() - t1))
         # -- phase 3: the slice at res 2, float32 --------------------------------
         torch.cuda.empty_cache()
         # no phase 4 here: the flagship runs are profiled (the time limit)
@@ -3724,6 +3887,7 @@ def main(argv=None) -> int:
     # against its plain version at THIS path's shapes before the path is
     # driven, the P1 operator's kernels (K1, K1f, K11, K11f) on every
     # subdomain -----------------------------------------------------------------
+    warmed["box"] = finish_warming(warming["box"])
     t0 = time.perf_counter()
     sim = build_idealized(dim=3, resolution=2, l=4, g_syn_bar=10.0,
                           dtype=torch.float32, device="cuda",
@@ -3743,7 +3907,8 @@ def main(argv=None) -> int:
            + check_cases(k3_cases(sim, torch.float64, 1e-3), torch.float64,
                          time_them=False))
     emit(dict(phase=1, path="mg_banded=True l=4", setup_seconds=setup_s,
-              float32=rows32, float64=r64, seconds=time.perf_counter() - t1))
+              float32=rows32, float64=r64, warmed=warmed["box"],
+              seconds=time.perf_counter() - t1))
     torch.cuda.empty_cache()
     launches["long box"] = run_slice(
         sim, "mg_banded=True l=4", "3-D res 2 l=4 float32 g_syn_bar 10", 5,
@@ -3812,7 +3977,8 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     mms_out, launches["mms"] = mms_phase()
     emit(dict(phase="mms", case="manufactured solutions, float64: deflated-Jacobi CG, "
-              "Jacobi GMRES batched (K3) and per ion (K11), rtol 1e-10; host LU",
+              "Jacobi GMRES batched (K3) and per ion (K11), rtol 1e-10; host LU; the "
+              f"ladder's 2-D M = {LADDER_MS} on SA-AMG CG and batched GMRES",
               **mms_out, launches=launches["mms"], seconds=time.perf_counter() - t0))
 
     # -- (g), (h): the flagship builds' host set-up -----------------------------
@@ -3928,4 +4094,7 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(main())
+    finally:
+        stop_warming()

@@ -579,6 +579,40 @@ def _np(v):
     return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
 
 
+def distributed_operators(sim, n_dev: int):
+    """The operators of the distributed hierarchies over ``n_dev`` ranks, in
+    the order the sharded mode builds them: (key, A0, {tag: Blocks},
+    tags) for the t = 0 EMI operator (key ``"emi"``, every subdomain) and
+    each subdomain's KNP setup operator (mass/dt + mean-D stiffness; key
+    its tag)."""
+    from ..solvers import direct
+    from ..systems.coupling import set_initial_conditions
+
+    tags, subs = sim.geom.sub_tags, sim.geom.subdomains
+    parts = {t: subdomain_blocks(np.asarray(subs[t].cells), subs[t].n_dofs, n_dev)
+             for t in tags}
+    c0 = set_initial_conditions(sim.geom, sim.ions, dtype=torch.float64, device="cpu")
+    kappa = {t: v.numpy() for t, v in sim.emi_sys.kappa(c0).items()}
+    yield "emi", sim._assemble_emi_cached(kappa), parts, tags
+    for t in tags:
+        sub = subs[t]
+        Dbar = float(np.mean([ion.D[t] for ion in sim.ions[:-1]]))
+        r1, c1, v1 = direct._mass_coo(sub.cells, sub.vols, 1.0 / sim.params.dt)
+        r2, c2, v2 = direct._stiffness_coo(sub.cells, sub.grads, sub.vols, coef_cell=Dbar)
+        yield t, direct._coo_accumulate([r1, r2], [c1, c2], [v1, v2], sub.n_dofs), \
+            {t: parts[t]}, [t]
+
+
+def warm_distributed_hierarchies(sim, n_dev: int) -> None:
+    """Build the distributed hierarchies of ``sim`` over ``n_dev`` ranks into
+    the hierarchy cache (no process group needed), so that a sharded
+    simulation's set-up later finds them there."""
+    slab_dtype = np.float32 if sim.dtype == torch.float32 else np.float64
+    for _, A0, sub_parts, sub_tags in distributed_operators(sim, n_dev):
+        gids, L256, _ = smg.local_layout_gids(sub_parts, sub_tags, n_dev)
+        smg.build_local(A0, gids, L256, n_dev, sim.opts, slab_dtype)
+
+
 def ode_rows(n_mem: int, n_dev: int, d: int):
     """Rank d's rows of a membrane's ODE states: contiguous blocks of
     ceil(n / N)."""
@@ -686,25 +720,19 @@ class ShardedSimulation:
         """The EMI and KNP hierarchies of the operators permuted into the
         sharded layout (``sharded_mg.build_local``), each rank's share
         packed on the host (JAX ``_build_distributed_mg``)."""
-        from ..solvers import direct
-        from ..systems.coupling import set_initial_conditions
-
-        N, tags, opts = self.comm.world, sim.geom.sub_tags, sim.opts
+        N = self.comm.world
         slab_dtype = np.float32 if sim.dtype == torch.float32 else np.float64
-        subs = sim.geom.subdomains
-        parts = {t: subdomain_blocks(np.asarray(subs[t].cells), subs[t].n_dofs, N)
-                 for t in tags}
-        self.blocks = parts
         self.hier_meta = {}
         out = [dict(kind="distributed", knp={}) for _ in range(N)]
-
-        def share(A0, sub_parts, sub_tags, key):
+        for key, A0, sub_parts, sub_tags in distributed_operators(sim, N):
+            if key == "emi":  # every subdomain's blocks
+                self.blocks = sub_parts
             gids, L256, L = smg.local_layout_gids(sub_parts, sub_tags, N)
-            data, meta, dg, perm, hier = smg.build_local(A0, gids, L256, N, opts, slab_dtype)
+            data, meta, dg, perm, hier = smg.build_local(A0, gids, L256, N, sim.opts,
+                                                         slab_dtype)
             self.hier_meta[key] = (meta, hier)
             lperm = perm.reshape(N, L256) - (np.arange(N) * L256)[:, None]
             iperm = np.argsort(lperm, axis=1)
-            shares = []
             for d in range(N):
                 # the rank's owned rows of each tag within its MG block
                 pos, at = [], 0
@@ -712,24 +740,12 @@ class ShardedSimulation:
                     pos.append(at + np.arange(self.infos[t][d].own))
                     at += sub_parts[t].B
                 pos = np.concatenate(pos)
-                shares.append(dict(
-                    shard=smg.rank_hierarchy(data, meta, d, sim.dtype),
-                    sel=iperm[d][pos], fine_diag=dg.reshape(N, L256)[d][pos]))
-            return shares
-
-        c0 = set_initial_conditions(sim.geom, sim.ions, dtype=torch.float64, device="cpu")
-        kappa = {t: v.numpy() for t, v in sim.emi_sys.kappa(c0).items()}
-        A0 = sim._assemble_emi_cached(kappa)
-        for d, s in enumerate(share(A0, parts, tags, "emi")):
-            out[d]["emi"] = s
-        for t in tags:
-            sub = sim.geom.subdomains[t]
-            Dbar = float(np.mean([ion.D[t] for ion in sim.ions[:-1]]))
-            r1, c1, v1 = direct._mass_coo(sub.cells, sub.vols, 1.0 / sim.params.dt)
-            r2, c2, v2 = direct._stiffness_coo(sub.cells, sub.grads, sub.vols, coef_cell=Dbar)
-            A0 = direct._coo_accumulate([r1, r2], [c1, c2], [v1, v2], sub.n_dofs)
-            for d, s in enumerate(share(A0, {t: parts[t]}, [t], t)):
-                out[d]["knp"][t] = s
+                share = dict(shard=smg.rank_hierarchy(data, meta, d, sim.dtype),
+                             sel=iperm[d][pos], fine_diag=dg.reshape(N, L256)[d][pos])
+                if key == "emi":
+                    out[d]["emi"] = share
+                else:
+                    out[d]["knp"][key] = share
         return out
 
     # -- device objects (every rank) ----------------------------------------

@@ -9,7 +9,7 @@
   device raise when CUDA is absent, as do the MMS systems
   (``systems/mms.py``, ``emi_system`` / ``knp_system`` with ``mms``) and
   simulations built with the direct, deflated-Jacobi or multigrid
-  options;
+  options, and the MMS ladder tool (``tools/run_mms_ladder.py``);
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA.
 """
 
@@ -145,6 +145,12 @@ def test_mms_and_solver_entry_points_need_cuda(monkeypatch):
                  dict(mg_smoother="cheby", mg_nu=2, knp_post_smooth=False)):
         with pytest.raises(RuntimeError, match="CUDA"):
             build_idealized(dim=2, resolution=1, solver_options=SolverOptions(**opts))
+    # the MMS ladder tool runs on the card unless asked for the CPU
+    from knpemi_tpu_torch.tools import run_mms_ladder
+
+    for iterative in (True, False):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            run_mms_ladder.ladder_rung(4, iterative)
 
 
 def test_kernel_sources_present():

@@ -219,17 +219,20 @@ def test_far_add_cases_cover_every_far_remainder_on_the_cpu():
 
 def test_mms_phase_flow_on_the_cpu(monkeypatch):
     """The ``mms`` phase's flow on the CPU with the 3-D study at M = 4, 8,
-    16 (the card runs 8, 16, 32): every gate passes (rates, per ion
-    against batched, iterative against direct at M = 16, the second
-    device's run at M = 8, here the CPU twice), and the record has each
-    M's errors, iterations and seconds.  One intra-op thread: the Krylov
-    solves are thousands of small ops, which threads of several test
-    processes on one host slow down ~30x."""
+    16 (the card runs 8, 16, 32) and the ladder's rungs at M = 32, 64 (the
+    card runs 100, 200): every gate passes (rates, per ion against
+    batched, iterative against direct at M = 16, the second device's run
+    at M = 8, here the CPU twice; the ladder's rate, iterative against
+    direct and device against CPU), and the record has each M's errors,
+    iterations and seconds.  One intra-op thread: the Krylov solves are
+    thousands of small ops, which threads of several test processes on
+    one host slow down ~30x."""
     import torch
 
     monkeypatch.setattr(chip_smoke, "MMS_DEVICE", "cpu")
     monkeypatch.setattr(chip_smoke, "MMS_PATH", ())
     monkeypatch.setattr(chip_smoke, "MMS_MS", {3: (4, 8, 16), 2: (8, 16, 32)})
+    monkeypatch.setattr(chip_smoke, "LADDER_MS", (32, 64))
     n = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -237,7 +240,8 @@ def test_mms_phase_flow_on_the_cpu(monkeypatch):
     finally:
         torch.set_num_threads(n)
     assert not any(counts.values())  # the CPU launches no kernel
-    for dim, rec in out.items():
+    studies = {dim: out[dim] for dim in ("3-D", "2-D")}
+    for dim, rec in studies.items():
         assert list(rec["per_M"]) == list(chip_smoke.MMS_MS[int(dim[0])])
         for f in chip_smoke.MMS_FIELDS:
             assert rec["rates"][f][-1] > rec["rate_gate"]
@@ -248,7 +252,7 @@ def test_mms_phase_flow_on_the_cpu(monkeypatch):
     row8 = out["3-D"]["per_M"][8]
     assert row8["cpu_iters"] == row8["iters"] and row8["gpu_vs_cpu_max_rel"] == 0.0
     assert row8["repeat_bitwise"] and row8["repeat_iters"] == row8["iters"]
-    for dim, rec in out.items():
+    for dim, rec in studies.items():
         rows = list(rec["per_M"].values())
         assert all(len(r["data_sha256"]["all"]) == 16 for r in rows)
         assert len({r["data_sha256"]["all"] for r in rows}) == len(rows)
@@ -261,12 +265,20 @@ def test_mms_phase_flow_on_the_cpu(monkeypatch):
         assert all(v["max_abs_err"] <= 1e-13 * v["max_abs_y"] for v in checks.values())
         assert set(kc["systems_sha256"]) == {"emi_load", "knp_load", "knp_drift"}
     assert set(out["3-D"]["per_M"][16]["errors_direct"]) == set(chip_smoke.MMS_FIELDS)
+    lad = out["ladder"]
+    assert [r["M"] for r in lad["rungs"]] == [32, 64]
+    assert all(lad["rates"][f][-1] > chip_smoke.LADDER_RATE for f in chip_smoke.MMS_FIELDS)
+    assert all(r["converged"] == dict(emi=True, knp=True) and "fields" not in r
+               for r in lad["rungs"])
+    assert lad["cpu"]["iters"] == lad["rungs"][0]["iters"]
+    assert lad["cpu"]["gpu_vs_cpu_max_rel"] == 0.0
+    assert set(lad["direct"]["errors"]) == set(chip_smoke.MMS_FIELDS)
 
 
 def test_drivers_phase_flow_on_the_cpu(monkeypatch):
     """The ``drivers`` phase's flow on the CPU (its card calls made
     harmless; the CPU launches no kernel, so no kernel is required): the
-    benchmark scenario's kernel checks and its 50 steps with the K_e
+    benchmark scenario's kernel checks and its 20 steps with the K_e
     probe rising after the onset, GPU-vs-CPU parity (here the CPU twice),
     the 2-D driver meeting the golden fixture in float64 and float32,
     the 3-D driver and the calibration run."""
@@ -281,7 +293,7 @@ def test_drivers_phase_flow_on_the_cpu(monkeypatch):
     out, launches = chip_smoke.drivers_phase()
     assert not any(launches.values())
     b = out["benchmark"]
-    assert b["steps"] == 50 and b["dofs_per_step"] > 0
+    assert b["steps"] == 20 and b["dofs_per_step"] > 0
     assert sorted(b["phi_M_range_mV"]) == [5, 6, 7]
     assert b["K_e_probe_mM"][1] > b["K_e_probe_mM"][0]
     assert b["host_setup_detail"]["emi_assembly_cache"] in ("hit", "miss")
@@ -382,6 +394,44 @@ def test_multi_device_phase_flow_on_the_cpu(monkeypatch, tmp_path):
     assert names >= {"K1", "K1f", "K2", "K3", "K4", "K7", "K8", "K9", "K10", "K11f"}
     assert all(r["held"] and r["deterministic"] for r in out["e_kernels"])
     assert not any(launches.values())  # the CPU launches no kernel
+
+
+def test_warming_fills_the_cache_the_sharded_build_reads(tmp_path, monkeypatch):
+    """``multi_device`` (d)'s warming on a small build: the distributed
+    hierarchies over 4 ranks (the EMI one and one a subdomain) land in the
+    cache, and the sharded mode's builds of the same operators then find
+    each there (no hierarchy is built).  The warming process's flow:
+    :func:`chip_smoke.finish_warming` fails the run with the output of a
+    failed process."""
+    import numpy as np
+    import torch
+
+    from knpemi_tpu_torch.parallel import sharded
+    from knpemi_tpu_torch.parallel import sharded_mg as smg
+    from knpemi_tpu_torch.sim import SolverOptions, build_idealized, stepper
+    from knpemi_tpu_torch.solvers import mg
+
+    monkeypatch.setattr(stepper, "CACHE_DIR", tmp_path)
+    monkeypatch.setattr(mg, "CACHE_DIR", tmp_path)
+    sim = build_idealized(dim=2, resolution=1, device="cpu", solver_options=SolverOptions())
+    before = set(tmp_path.glob("*.pkl"))
+    sharded.warm_distributed_hierarchies(sim, 4)
+    assert len(set(tmp_path.glob("*.pkl")) - before) == 1 + len(sim.geom.sub_tags)
+
+    def refuse(*a, **kw):
+        raise AssertionError("a hierarchy was built, not read from the cache")
+
+    monkeypatch.setattr(mg, "build_hierarchy", refuse)
+    ops = list(sharded.distributed_operators(sim, 4))
+    assert [k for k, *_ in ops] == ["emi", *sim.geom.sub_tags]
+    for _, A0, parts, tags in ops:
+        gids, L256, _ = smg.local_layout_gids(parts, tags, 4)
+        smg.build_local(A0, gids, L256, 4, sim.opts, np.float32 if sim.dtype ==
+                        torch.float32 else np.float64)
+    w = chip_smoke.start_warming(str(tmp_path / "no-such-inputs.pkl"))
+    with pytest.raises(AssertionError, match="no-such-inputs"):
+        chip_smoke.finish_warming(w, timeout=120)
+    assert not chip_smoke._WARMERS
 
 
 def test_shared_mesh_builds_step_as_builds_from_scratch():
