@@ -6,6 +6,8 @@
                                                 # flagship's step, for the
                                                 # package under ROOT
     python3 chip_smoke.py --step-diff FILE      # the A/B of such lines
+    python3 chip_smoke.py --phase-seconds FILE...  # seconds by phase of
+                                                   # smoke runs' output
 
 The second form compares two trees in one call when run for each in
 turns (parent, change, change, parent): ``step_profile``'s device ms per
@@ -93,7 +95,12 @@ and 4 come in two groups):
    (direct=True) and the deflated Jacobi CG (emi_precond='jacobi'); then one Chebyshev
    and one W-cycle of each layout's hierarchies on the 3-D res-0 l = 1
    box, GPU against CPU, within 1e-12 of max|y| (the W-cycle's EMI
-   apply 1e-10: it amplifies roundoff);
+   apply 1e-10: it amplifies roundoff).  The CPU legs of these cases run
+   in a process of their own (``start_phase2_cpu``, WARM_THREADS
+   threads) from the l = 4 box on, beside the card's runs, each writing
+   its record and final state to a file (``interop.state_to_numpy``);
+   phase 2 runs the card's legs and holds them against those files (a
+   failed CPU leg fails the run with the process's output);
 3. slice: the 3-D res-2 scenario (float32, g_syn_bar 10), 2 warm-up and
    10 timed steps, once per multigrid path (mg_banded=False, then
    mg_banded=True with the layout build_hierarchy chose per level);
@@ -130,6 +137,20 @@ and 4 come in two groups):
    the run fails), then one refresh of the
    EMI hierarchy, its host payload and its install timed, with one
    step's EMI iterations before and after;
+tools. inside the flagship, after the batched run's timed steps
+   (``tools_phase``): ``tools/compare_solver_opts``'s ``compare`` from
+   the state reached (step 22), 10 steps of the reference-parity options
+   (KNP min_iter 5, restart 30, rtol 1e-7, EMI 1e-6) against 10 of TUNED,
+   gated by the tool's 1e-5 relative field difference and by the tuned
+   leg's first step being bitwise the simulation's own step from that
+   state; ``tools/stress_mg_refresh``'s two legs on a Simulation built
+   from the batched build's inputs (no mesh build; the ECS source times
+   4, always on): 30 steps in chunks of 10, stale against refreshed
+   every 10 steps (synchronously), both converged and finite, 2
+   refreshes installed and none skipped, the ECS K+ maximum at least 1
+   mM above its initial value, the per-chunk iterations printed; the
+   launch counts of both (the kernels line's ``launches_tools``), every
+   kernel the two reach launched;
 resume. the checkpoint -> resume path at the flagship's width (mesh_n
    64, float32, the tuned options, mg_banded=True, no refresh) through
    the driver (drivers/run_stim_duration.py, traces and XDMF frames
@@ -250,7 +271,7 @@ Then the kernel table as one JSON line of fourteen entries (the twelve
 kernels of the batched step from the long box, K11 and K11f from the
 per-ion flagship run; every row also with its launches in the mms
 phase, in the benchmark scenario's run, on rank 0 of the sharded
-flagship and in the campaign phase), the cost per solve of the
+flagship, in the campaign phase and in the tools phase), the cost per solve of the
 P1 operator's fill and applies (K1, K11, and K3 with its drift fill and
 mass term), the card's name and power limit, and the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
@@ -1554,9 +1575,11 @@ def warm_caches(what: str) -> None:
         build(**kw, dtype=torch.float32, device="cpu", solver_options=opts)
 
 
-def start_warming(what: str) -> dict:
-    """:func:`warm_caches` of ``what`` in a new Python process, its output
-    to a temporary file; :func:`finish_warming` waits for it."""
+def start_warming(what: str, call: str | None = None) -> dict:
+    """:func:`warm_caches` of ``what`` (or ``call``, a call of a function of
+    this module written out, e.g. ``"phase2_cpu(...)"``) in a new Python
+    process with WARM_THREADS threads, its output to a temporary file;
+    :func:`finish_warming` waits for it."""
     import os
 
     root = Path(__file__).resolve().parent
@@ -1565,7 +1588,7 @@ def start_warming(what: str) -> dict:
     env = {**os.environ, "OMP_NUM_THREADS": threads, "OPENBLAS_NUM_THREADS": threads,
            "MKL_NUM_THREADS": threads}
     code = f"import sys; sys.path.insert(0, {str(root)!r}); import chip_smoke; " \
-           f"chip_smoke.warm_caches({what!r})"
+           f"chip_smoke.{call or f'warm_caches({what!r})'}"
     proc = subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
                             stdout=log, stderr=subprocess.STDOUT)
     w = dict(what=what, proc=proc, log=log.name, t0=time.perf_counter())
@@ -1596,44 +1619,70 @@ def stop_warming() -> None:
             w["proc"].kill()
         w["proc"].wait()
         Path(w["log"]).unlink(missing_ok=True)
+        if "dir" in w:
+            shutil.rmtree(w["dir"], ignore_errors=True)
 
 
-def parity(build_idealized, SolverOptions):
-    """2 float64 steps of the 3-D res-1 scenario on the GPU and the CPU:
-    ion-batched with ELL and with banded multigrid, and per-ion with
-    banded multigrid (the KNP V-cycles then run on single vectors: the
-    GPU run must launch K7 and K11, and neither K6a, K6b nor K8)."""
+# -- phase 2: GPU against CPU, float64 ----------------------------------------
+# Each case runs a leg on the card and one on the CPU.  The CPU legs run in
+# a process of their own (:func:`start_phase2_cpu`), beside the card's
+# runs, each writing its record and final state to a file; phase 2 runs the
+# card's legs and holds them against those files.
+PHASE2_DEVICE = "cuda"  # where the legs held against the CPU's run
+# the 3-D case of parity, parity_refresh and the multigrid option cases
+PARITY_CASE = dict(dim=3, resolution=1, g_syn_bar=10.0)
+PARITY_PATHS = {"ell": dict(mg_banded=False), "banded": dict(mg_banded=True),
+                "banded_per_ion": dict(mg_banded=True, knp_batched=False)}
+REFRESH_PATHS = {"ell": False, "banded": True}
+PARITY_ASTRO_MESH_N = 20  # the astrocyte config's own resolution 0
+# the constants of this module the CPU process is handed (a CPU test of the
+# flow cuts them)
+PHASE2_KNOBS = ("PARITY_CASE", "PARITY_ASTRO_MESH_N", "OPTION_CASES", "OPTION_CASES_2D",
+                "CYCLE_APPLY_CASES")
+
+
+def _parity_leg(build_idealized, SolverOptions, path: str, dev: str):
+    """2 float64 steps of PARITY_CASE on ``dev`` with the options of
+    PARITY_PATHS[path]; on the card the launches must match the kernels
+    the hierarchies reach (the per-ion banded path must reach K7 and
+    K11).  Returns (record, state)."""
     import torch
 
     from knpemi_tpu_torch import ops
 
+    opts = PARITY_PATHS[path]
+    t0 = time.perf_counter()
+    sim = build_idealized(**PARITY_CASE, dtype=torch.float64, device=dev,
+                          solver_options=SolverOptions(**opts))
+    ops.reset_launch_counts()
+    s, it_e, it_k, ok = sim.run(sim.init_state(), 2)
+    rec = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
+               seconds=time.perf_counter() - t0)
+    if opts["mg_banded"]:
+        rec["emi_layout"] = sim.emi_solver.mg.layout()
+    if dev == "cuda":
+        rec["launches"] = counts = ops.launch_counts()
+        reach = reachable_kernels(sim)
+        wrong = [k for k, v in counts.items() if bool(v) != (k.split()[0] in reach)]
+        if wrong or (path == "banded_per_ion" and not {"K7", "K11"} <= reach):
+            raise AssertionError(f"{path}_{dev}: launches {counts} do not match the "
+                                 f"reachable kernels {sorted(reach)}")
+    return rec, s
+
+
+def parity(build_idealized, SolverOptions, cpu: dict):
+    """2 float64 steps of the 3-D res-1 scenario on the GPU and the CPU:
+    ion-batched with ELL and with banded multigrid, and per-ion with
+    banded multigrid (the KNP V-cycles then run on single vectors: the
+    GPU run must launch K7 and K11, and neither K6a, K6b nor K8).
+    ``cpu``: the CPU legs by key (:func:`load_cpu_legs`)."""
     out = {}
     states = {}
-    paths = {"ell": dict(mg_banded=False), "banded": dict(mg_banded=True),
-             "banded_per_ion": dict(mg_banded=True, knp_batched=False)}
-    for path, opts in paths.items():
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            sim = build_idealized(dim=3, resolution=1, g_syn_bar=10.0,
-                                  dtype=torch.float64, device=dev,
-                                  solver_options=SolverOptions(**opts))
-            s = sim.init_state()
-            ops.reset_launch_counts()
-            s, it_e, it_k, ok = sim.run(s, 2)
-            key = f"{path}_{dev}"
-            out[key] = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
-                            seconds=time.perf_counter() - t0)
-            if opts["mg_banded"]:
-                out[key]["emi_layout"] = sim.emi_solver.mg.layout()
-            if dev == "cuda":
-                out[key]["launches"] = counts = ops.launch_counts()
-                reach = reachable_kernels(sim)
-                wrong = [k for k, v in counts.items() if bool(v) != (k.split()[0] in reach)]
-                if wrong or (path == "banded_per_ion" and not {"K7", "K11"} <= reach):
-                    raise AssertionError(f"{key}: launches {counts} do not match the "
-                                         f"reachable kernels {sorted(reach)}")
-            states[key] = s
-    for path in paths:
+    for path in PARITY_PATHS:
+        out[f"{path}_cuda"], states[f"{path}_cuda"] = _parity_leg(
+            build_idealized, SolverOptions, path, PHASE2_DEVICE)
+        out[f"{path}_cpu"], states[f"{path}_cpu"] = cpu[f"parity {path}"]
+    for path in PARITY_PATHS:
         # the per-ion solve stops each ion on its own: held to its own CPU run
         ref = out["banded_per_ion_cpu" if path == "banded_per_ion" else "ell_cpu"]
         for dev in ("cuda", "cpu"):
@@ -1645,31 +1694,34 @@ def parity(build_idealized, SolverOptions):
     return out
 
 
-def parity_astrocyte(build_astrocyte, baseline, SolverOptions):
+def _astrocyte_leg(build_astrocyte, baseline, SolverOptions, name: str, dev: str):
+    """2 float64 steps of the astrocyte tissue at PARITY_ASTRO_MESH_N on
+    ``dev``, ion-batched (``name`` "batched") or per-ion."""
+    import torch
+
+    t0 = time.perf_counter()
+    sim = build_astrocyte(
+        {**baseline, "mesh_n": PARITY_ASTRO_MESH_N}, dtype=torch.float64, device=dev,
+        solver_options=SolverOptions(rtol_emi=1e-6, rtol_knp=1e-7,
+                                     knp_batched=name == "batched"))
+    s, it_e, it_k, ok = sim.run(sim.init_state(), 2)
+    return dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
+                seconds=time.perf_counter() - t0), s
+
+
+def parity_astrocyte(build_astrocyte, baseline, SolverOptions, cpu: dict):
     """2 float64 steps of the astrocyte tissue scenario at mesh_n 20 (the
     config's own resolution 0) on the GPU and the CPU, ion-batched and
     per-ion.  Units: phi_M in mV, concentrations in mM."""
-    import torch
-
     out = {}
-    for batched in (True, False):
-        states = {}
-        name = "batched" if batched else "per_ion"
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            sim = build_astrocyte(
-                {**baseline, "mesh_n": 20}, dtype=torch.float64, device=dev,
-                solver_options=SolverOptions(rtol_emi=1e-6, rtol_knp=1e-7,
-                                             knp_batched=batched))
-            s, it_e, it_k, ok = sim.run(sim.init_state(), 2)
-            out[f"{name}_{dev}"] = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
-                                        seconds=time.perf_counter() - t0)
-            states[dev] = s
-        g, c = out[f"{name}_cuda"], out[f"{name}_cpu"]
+    for name in ("batched", "per_ion"):
+        g, gs = _astrocyte_leg(build_astrocyte, baseline, SolverOptions, name, PHASE2_DEVICE)
+        c, cs = cpu[f"astrocyte {name}"]
+        out[f"{name}_cuda"], out[f"{name}_cpu"] = g, c
         if g["emi_iters"] != c["emi_iters"] or g["knp_iters"] != c["knp_iters"]:
             raise AssertionError(f"{name}: iteration counts differ GPU vs CPU: {out}")
         out[f"{name}_max_abs_dphi_M_mV"], out[f"{name}_max_rel_dc"] = gpu_vs_cpu(
-            states["cuda"], states["cpu"], name, "mV")
+            gs, cs, name, "mV")
     return out
 
 
@@ -1963,6 +2015,89 @@ MESH_N, FLAGSHIP_DOFS = 64, 840_015  # the flagship's width, dofs per step
 TUNED = dict(min_iter_knp=2, restart=8, rtol_knp=3e-6, rtol_emi=1e-5)
 
 
+# the verification tools on the batched flagship (tools_phase): compare's
+# legs from the timed run's last state, the parity leg with the astrocyte
+# driver's rtols; stress at f-scale 4, always on, refreshed synchronously
+TOOLS_COMPARE = dict(steps=10, chunk=10)
+TOOLS_PARITY = dict(min_iter_knp=5, restart=30, rtol_knp=1e-7, rtol_emi=1e-6,
+                    knp_post_smooth=True)
+TOOLS_STRESS = dict(f_scale=4.0, duty=1.0, steps=30, chunk=10, refresh_every=10)
+TOOLS_PATH = ("K1", "K1f", "K2", "K3", "K4", "K9", "K10", "K11f")
+
+
+def tools_phase(sim, inputs: dict, state, config: dict):
+    """``tools/compare_solver_opts`` and ``tools/stress_mg_refresh`` at the
+    flagship's width, short depth, on the card's builds: (a) ``compare`` on
+    ``sim`` (the batched flagship, built with TUNED) from ``state``, two
+    legs of TOOLS_COMPARE's steps without warm-up, TOOLS_PARITY against
+    TUNED: the tool's 1e-5 field gate, and the tuned leg's first step
+    bitwise ``sim``'s own step from ``state`` after the comparison (the
+    legs set their options and put back the built ones); (b) ``stress_legs``
+    on a Simulation built from ``inputs`` (``simulation_inputs`` of
+    ``sim``'s build of ``config``, no mesh build: the ions' ECS sources
+    times f-scale, the gate always on; ``mg_refresh_async`` off): both legs
+    converged and finite, the fresh one installs 2 refreshes and skips
+    none, the ECS K+ maximum at least 1 mM above its initial value; the
+    per-chunk iterations printed, not gated.  The launch counts are set to
+    0 before (a) and read after (b); every kernel the two simulations
+    reach (at least TOOLS_PATH) must have launched.  Returns the record,
+    the launch counts under ``launches``."""
+    import dataclasses
+
+    import torch
+
+    from knpemi_tpu_torch import ops
+    from knpemi_tpu_torch.ops import ell as TE
+    from knpemi_tpu_torch.parallel.programs import simulation_of
+    from knpemi_tpu_torch.sim.scenarios import K_E_INIT_A
+    from knpemi_tpu_torch.sim.stepper import _to_host
+    from knpemi_tpu_torch.tools import compare_solver_opts as cso
+    from knpemi_tpu_torch.tools import stress_mg_refresh as smr
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    cmp, states = cso.compare(sim, TOOLS_COMPARE["steps"], TOOLS_COMPARE["chunk"], TUNED,
+                              state=state, warmup=False, parity=TOOLS_PARITY,
+                              keep_first=True)
+    differ = differing_fields(states["tuned_first"], _to_host(sim.step(state)))
+    cmp.update(tuned_first_step_is_own_step=not differ, seconds=time.perf_counter() - t0)
+    del states
+    if differ:
+        raise AssertionError(f"tools compare: the tuned leg's first step differs from the "
+                             f"simulation's own step in {differ}")
+    if not cmp["passed"]:
+        raise AssertionError(f"tools compare: max rel field difference "
+                             f"{cmp['max_rel_diff']:.3e} above {cmp['tol']:.0e}: {cmp['diffs']}")
+    st = dict(TOOLS_STRESS)
+    t0 = time.perf_counter()
+    stressed = simulation_of(
+        smr.stressed_inputs(inputs, config, st.pop("f_scale"), st.pop("duty")), sim.device,
+        dataclasses.replace(inputs["opts"], mg_refresh_async=False))
+    setup_s = time.perf_counter() - t0
+    reach = reachable_kernels(sim) | reachable_kernels(stressed)
+    stress = smr.stress_legs(stressed, **st)
+    del stressed
+    stress.update(setup_seconds=setup_s, seconds=time.perf_counter() - t0,
+                  k_e_init=K_E_INIT_A, options=dict(TOOLS_STRESS))
+    launches = {**ops.launch_counts(), FAR_ADD: TE.csr_add.launches}
+    torch.cuda.empty_cache()
+    if not (all(stress["converged"].values()) and all(stress["finite"].values())):
+        raise AssertionError(f"tools stress: a leg did not converge or is not finite: "
+                             f"{stress['converged']} {stress['finite']}")
+    if stress["refresh_counts"] != {"installed": 2, "skipped": 0}:
+        raise AssertionError(f"tools stress: refreshes {stress['refresh_counts']}, "
+                             "expected 2 installed and none skipped")
+    k_max = max(max(c["k_e_max_stale"], c["k_e_max_fresh"]) for c in stress["chunks"])
+    if not k_max >= K_E_INIT_A + 1.0:
+        raise AssertionError(f"tools stress: ECS K+ max {k_max} mM, not 1 mM above "
+                             f"{K_E_INIT_A}")
+    idle = [k for k, v in launches.items() if k.split()[0] in reach and not v]
+    if idle or not set(TOOLS_PATH) <= reach:
+        raise AssertionError(f"tools: kernels of the path did not launch: {idle} "
+                             f"(reachable {sorted(reach)}, launches {launches})")
+    return dict(compare=cmp, stress=stress, launches=launches)
+
+
 def flagship(build_astrocyte, baseline, SolverOptions):
     """The astrocyte tissue flagship at full width (mesh_n 64), float32,
     the tuned solver options: the ion-batched run, the per-ion run and
@@ -2067,6 +2202,14 @@ def flagship(build_astrocyte, baseline, SolverOptions):
             if not det["identical"]:
                 raise AssertionError(f"{label}: two steps from one saved state differ: "
                                      f"{det['differing_fields']}")
+            if label == "flagship batched":
+                t0 = time.perf_counter()
+                tl = tools_phase(sim, inputs, rec["state"], config)
+                runs_tools = tl["launches"]
+                emit(dict(phase="tools", case=f"astrocyte tissue mesh_n {MESH_N} float32: "
+                          f"compare_solver_opts from step {int(rec['state'].step)}, "
+                          "stress_mg_refresh on the build's inputs", **tl,
+                          seconds=time.perf_counter() - t0))
             if banded:
                 with tempfile.TemporaryDirectory() as tmp:
                     emit(dict(phase=3, path=label, case="in-process resume: steps continued "
@@ -2088,6 +2231,7 @@ def flagship(build_astrocyte, baseline, SolverOptions):
         del sim
         torch.cuda.empty_cache()
     launches = {k: r["launches"] for k, r in runs.items()}
+    launches["tools"] = runs_tools
     per_ion = launches["flagship per-ion"]
     if per_ion["K3 knp_apply_batch"] != 3 * 5:
         raise AssertionError("flagship per-ion: K3 must launch once per subdomain and "
@@ -2752,37 +2896,43 @@ def launch_floor_ms():
     raise RuntimeError("the profiler reported no device time for the launch floor")
 
 
-def parity_refresh(build_idealized, SolverOptions):
+def _refresh_leg(build_idealized, SolverOptions, path: str, dev: str):
+    """6 float64 steps of PARITY_CASE on ``dev`` in chunks of 2, the EMI
+    hierarchy refreshed every 2 steps (synchronously), multigrid layout
+    REFRESH_PATHS[path]: two refreshes installed, none skipped, every step
+    converged.  Returns (record, state)."""
+    import torch
+
+    t0 = time.perf_counter()
+    sim = build_idealized(**PARITY_CASE, dtype=torch.float64, device=dev,
+                          solver_options=SolverOptions(
+                              mg_banded=REFRESH_PATHS[path], mg_refresh_every=2,
+                              mg_refresh_async=False))
+    s, it_e, it_k, ok = sim.run(sim.init_state(), 6, save_every=2)
+    rec = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
+               refresh_counts=dict(sim.refresh_counts), seconds=time.perf_counter() - t0)
+    if sim.refresh_counts != {"installed": 2, "skipped": 0} or not ok.all():
+        raise AssertionError(f"refresh {path}_{dev}: {rec}")
+    return rec, s
+
+
+def parity_refresh(build_idealized, SolverOptions, cpu: dict):
     """6 float64 steps of the 3-D res-1 scenario in chunks of 2 with the EMI
     hierarchy refreshed every 2 steps (synchronously), on the GPU and the
     CPU, per multigrid layout: equal iteration counts, phi_M within 1e-9
     V, c within 1e-9 relative, two refreshes installed and none skipped
     on each."""
-    import torch
-
     out = {}
-    for path, banded in (("ell", False), ("banded", True)):
-        states = {}
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            sim = build_idealized(dim=3, resolution=1, g_syn_bar=10.0, dtype=torch.float64,
-                                  device=dev, solver_options=SolverOptions(
-                                      mg_banded=banded, mg_refresh_every=2,
-                                      mg_refresh_async=False))
-            s, it_e, it_k, ok = sim.run(sim.init_state(), 6, save_every=2)
-            out[f"{path}_{dev}"] = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
-                                        refresh_counts=dict(sim.refresh_counts),
-                                        seconds=time.perf_counter() - t0)
-            states[dev] = s
-            if (path, dev) == ("ell", "cuda"):
-                sync_state = s
-            if sim.refresh_counts != {"installed": 2, "skipped": 0} or not ok.all():
-                raise AssertionError(f"refresh {path}_{dev}: {out[f'{path}_{dev}']}")
-        g, c = out[f"{path}_cuda"], out[f"{path}_cpu"]
+    for path in REFRESH_PATHS:
+        g, gs = _refresh_leg(build_idealized, SolverOptions, path, PHASE2_DEVICE)
+        c, cs = cpu[f"refresh {path}"]
+        out[f"{path}_cuda"], out[f"{path}_cpu"] = g, c
+        if path == "ell":
+            sync_state = gs
         if g["emi_iters"] != c["emi_iters"] or g["knp_iters"] != c["knp_iters"]:
             raise AssertionError(f"refresh {path}: iteration counts differ: {out}")
         out[f"{path}_max_abs_dphi_M_V"], out[f"{path}_max_rel_dc"] = gpu_vs_cpu(
-            states["cuda"], states["cpu"], f"refresh {path}")
+            gs, cs, f"refresh {path}")
     out["ell_cuda_async"] = _async_refresh(build_idealized, SolverOptions, sync_state)
     return out
 
@@ -2800,9 +2950,9 @@ def _async_refresh(build_idealized, SolverOptions, sync_state):
     import torch
 
     t0 = time.perf_counter()
-    sim = build_idealized(dim=3, resolution=1, g_syn_bar=10.0, dtype=torch.float64,
-                          device="cuda", solver_options=SolverOptions(
-                              mg_refresh_every=2, mg_refresh_async=True))
+    sim = build_idealized(**PARITY_CASE, dtype=torch.float64, device=PHASE2_DEVICE,
+                          solver_options=SolverOptions(mg_refresh_every=2,
+                                                       mg_refresh_async=True))
     s, it_e, it_k, ok = sim.run(sim.init_state(), 6, save_every=2)
     workers = [t.name for t in threading.enumerate() if t.name.startswith("mg-refresh")]
     counts = dict(sim.refresh_counts)
@@ -2842,46 +2992,100 @@ OPTION_CASES_2D = {
 # max|y| on the CPU at 3-D res 0, the V-cycle's by 6.5e-16)
 CYCLE_APPLY_TOL = {"emi": 1e-12, "knp": 1e-12, "emi W": 1e-10}
 CYCLE_APPLY_CASES = {"cheby": dict(mg_smoother="cheby", mg_degree=3), "W-cycle": dict(gamma=2)}
+CYCLE_PATHS = {"ell": False, "banded": True}
 
 
-def cycle_apply_readings(build_idealized, SolverOptions, banded: bool, name: str):
+def _cycle_leg(build_idealized, SolverOptions, path: str, name: str, dev: str):
     """One EMI ``DeviceMG.apply`` (one vector) and one apply_batch of the
-    first KNP hierarchy (B = 2), option case ``name`` of CYCLE_APPLY_CASES
-    (the cycle index set on both built hierarchies), on the 3-D res-0
-    l = 1 box (coarse_max 100: three levels), float64, in one multigrid
-    layout, on the GPU and the CPU from the same seeded host inputs:
-    max|GPU - CPU| / max|CPU| of each; gates CYCLE_APPLY_TOL.  Level 0
+    first KNP hierarchy (B = 2) on ``dev``, option case ``name`` of
+    CYCLE_APPLY_CASES (the cycle index set on both built hierarchies), on
+    the 3-D res-0 l = 1 box (coarse_max 100: three levels), float64,
+    multigrid layout CYCLE_PATHS[path], from seeded host inputs.  Level 0
     smooths with its own operator where it stores one (the identity
-    stands for the fine operator)."""
+    stands for the fine operator).  Returns ({}, (emi output, KNP output))
+    on the host."""
     import torch
 
     opts = dict(CYCLE_APPLY_CASES[name])
     gamma = opts.pop("gamma", 1)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        sim = build_idealized(dim=3, resolution=0, l=1, g_syn_bar=10.0, dtype=torch.float64,
-                              device=dev, solver_options=SolverOptions(
-                                  mg_banded=banded, mg_coarse_max=100, **opts))
-        emi, knp = sim.emi_solver.mg, next(iter(sim.knp_solver.mg.values()))
-        assert emi.levels
-        emi.gamma = knp.gamma = gamma
-        gen = torch.Generator()
-        r = torch.randn(sim.emi_sys.n, generator=gen.manual_seed(0), dtype=torch.float64)
-        R = torch.randn(2, knp.fine_diag.shape[0], generator=gen.manual_seed(1),
-                        dtype=torch.float64)
-        outs[dev] = (emi.apply(lambda v: v, r.to(dev)).cpu(),
-                     knp.apply_batch(lambda V: V, R.to(dev)).cpu())
+    sim = build_idealized(dim=3, resolution=0, l=1, g_syn_bar=10.0, dtype=torch.float64,
+                          device=dev, solver_options=SolverOptions(
+                              mg_banded=CYCLE_PATHS[path], mg_coarse_max=100, **opts))
+    emi, knp = sim.emi_solver.mg, next(iter(sim.knp_solver.mg.values()))
+    assert emi.levels
+    emi.gamma = knp.gamma = gamma
+    gen = torch.Generator()
+    r = torch.randn(sim.emi_sys.n, generator=gen.manual_seed(0), dtype=torch.float64)
+    R = torch.randn(2, knp.fine_diag.shape[0], generator=gen.manual_seed(1),
+                    dtype=torch.float64)
+    return {}, (emi.apply(lambda v: v, r.to(dev)).cpu(),
+                knp.apply_batch(lambda V: V, R.to(dev)).cpu())
+
+
+def cycle_apply_readings(build_idealized, SolverOptions, path: str, name: str, cpu: dict):
+    """:func:`_cycle_leg` on the GPU against the CPU's: max|GPU - CPU| /
+    max|CPU| of each apply; gates CYCLE_APPLY_TOL."""
+    _, gpu = _cycle_leg(build_idealized, SolverOptions, path, name, PHASE2_DEVICE)
+    _, ref = cpu[f"cycle {path}: {name}"]
     rec = {}
-    for key, g, c in zip(("emi", "knp"), outs["cuda"], outs["cpu"]):
+    for key, g, c in zip(("emi", "knp"), gpu, ref):
         rec[key] = float((g - c).abs().max() / c.abs().max())
-        tol = CYCLE_APPLY_TOL["emi W" if key == "emi" and gamma == 2 else key]
+        tol = CYCLE_APPLY_TOL["emi W" if key == "emi" and
+                              CYCLE_APPLY_CASES[name].get("gamma") == 2 else key]
         if not rec[key] <= tol:
-            raise AssertionError(f"{name} {'banded' if banded else 'ell'} {key} apply: GPU vs "
+            raise AssertionError(f"{name} {path} {key} apply: GPU vs "
                                  f"CPU {rec[key]:.3e} of max|y| (gate {tol:.0e})")
     return rec
 
 
-def parity_options(build_idealized, SolverOptions):
+def option_runs() -> dict:
+    """{label: (case, steps, options)} of :func:`parity_options`: each
+    multigrid option on PARITY_CASE in both layouts, each option without a
+    hierarchy on the 2-D res-1 case."""
+    runs = {f"{PARITY_CASE['dim']}-D res {PARITY_CASE['resolution']} {path}: {name}":
+            (PARITY_CASE, OPTION_STEPS_3D, dict(mg_banded=banded, **opts))
+            for path, banded in (("ell", False), ("banded", True))
+            for name, opts in OPTION_CASES.items()}
+    runs.update({f"2-D res 1: {name}": (dict(dim=2, resolution=1, g_syn_bar=10.0), 2, opts)
+                 for name, opts in OPTION_CASES_2D.items()})
+    return runs
+
+
+def _option_leg(build_idealized, SolverOptions, label: str, dev: str):
+    """:func:`option_runs`' case ``label`` on ``dev``, float64: every step
+    converged; on the card a run with a hierarchy launches what its
+    hierarchies reach.  Returns (record, state)."""
+    import torch
+
+    from knpemi_tpu_torch import ops
+
+    case, n_steps, opts = option_runs()[label]
+    opts = dict(opts)
+    gamma = opts.pop("gamma", None)
+    t0 = time.perf_counter()
+    sim = build_idealized(**case, dtype=torch.float64, device=dev,
+                          solver_options=SolverOptions(**opts))
+    if gamma:
+        sim.emi_solver.mg.gamma = gamma
+        for m in sim.knp_solver.mg.values():
+            m.gamma = gamma
+    ops.reset_launch_counts()
+    s, it_e, it_k, ok = sim.run(sim.init_state(), n_steps)
+    rec = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
+               seconds=time.perf_counter() - t0)
+    if not ok.all():
+        raise AssertionError(f"{label} {dev}: a solve did not converge: {rec}")
+    if dev == "cuda" and sim.emi_solver.mg is not None:
+        counts = ops.launch_counts()
+        reach = reachable_kernels(sim)
+        wrong = [k for k, v in counts.items() if bool(v) != (k.split()[0] in reach)]
+        if wrong:
+            raise AssertionError(f"{label}: launches {counts} do not match the "
+                                 f"reachable kernels {sorted(reach)}")
+    return rec, s
+
+
+def parity_options(build_idealized, SolverOptions, cpu: dict):
     """Float64 steps per solver option on the GPU and on the CPU: one step
     of each multigrid option on the 3-D res-1 case in both layouts
     (Chebyshev smoothing of degree 3, two sweeps a side, the KNP V(1,0)
@@ -2891,52 +3095,136 @@ def parity_options(build_idealized, SolverOptions):
     1e-9 relative, every step converged; the 3-D GPU runs launch what
     their hierarchies reach.  Then one Chebyshev and one W-cycle GPU
     against CPU per layout (:func:`cycle_apply_readings`)."""
-    import torch
-
-    from knpemi_tpu_torch import ops
-
     out = {}
-    # (label, dim, steps, options)
-    runs = [(f"3-D res 1 {path}: {name}", 3, OPTION_STEPS_3D, dict(mg_banded=banded, **opts))
-            for path, banded in (("ell", False), ("banded", True))
-            for name, opts in OPTION_CASES.items()]
-    runs += [(f"2-D res 1: {name}", 2, 2, opts) for name, opts in OPTION_CASES_2D.items()]
-    for label, dim, n_steps, opts in runs:
-        opts = dict(opts)
-        gamma = opts.pop("gamma", None)
-        rec, states = {}, {}
-        for dev in ("cuda", "cpu"):
-            t0 = time.perf_counter()
-            sim = build_idealized(dim=dim, resolution=1, g_syn_bar=10.0, dtype=torch.float64,
-                                  device=dev, solver_options=SolverOptions(**opts))
-            if gamma:
-                sim.emi_solver.mg.gamma = gamma
-                for m in sim.knp_solver.mg.values():
-                    m.gamma = gamma
-            ops.reset_launch_counts()
-            s, it_e, it_k, ok = sim.run(sim.init_state(), n_steps)
-            rec[dev] = dict(emi_iters=it_e.tolist(), knp_iters=it_k.tolist(),
-                            seconds=time.perf_counter() - t0)
-            if not ok.all():
-                raise AssertionError(f"{label} {dev}: a solve did not converge: {rec}")
-            if dev == "cuda" and sim.emi_solver.mg is not None:
-                counts = ops.launch_counts()
-                reach = reachable_kernels(sim)
-                wrong = [k for k, v in counts.items() if bool(v) != (k.split()[0] in reach)]
-                if wrong:
-                    raise AssertionError(f"{label}: launches {counts} do not match the "
-                                         f"reachable kernels {sorted(reach)}")
-            states[dev] = s
-        if rec["cuda"]["emi_iters"] != rec["cpu"]["emi_iters"] or \
-                rec["cuda"]["knp_iters"] != rec["cpu"]["knp_iters"]:
+    for label in option_runs():
+        g, gs = _option_leg(build_idealized, SolverOptions, label, PHASE2_DEVICE)
+        c, cs = cpu[f"options {label}"]
+        rec = {"cuda": g, "cpu": c}
+        if g["emi_iters"] != c["emi_iters"] or g["knp_iters"] != c["knp_iters"]:
             raise AssertionError(f"{label}: iteration counts differ: {rec}")
-        rec["max_abs_dphi_M_V"], rec["max_rel_dc"] = gpu_vs_cpu(states["cuda"], states["cpu"],
-                                                                label)
+        rec["max_abs_dphi_M_V"], rec["max_rel_dc"] = gpu_vs_cpu(gs, cs, label)
         out[label] = rec
     out["one cycle GPU vs CPU, 3-D res 0 l=1"] = {
-        f"{path}: {name}": cycle_apply_readings(build_idealized, SolverOptions, banded, name)
-        for path, banded in (("ell", False), ("banded", True)) for name in CYCLE_APPLY_CASES}
+        f"{path}: {name}": cycle_apply_readings(build_idealized, SolverOptions, path, name, cpu)
+        for path in CYCLE_PATHS for name in CYCLE_APPLY_CASES}
     return out
+
+
+def phase2_legs(build_idealized, build_astrocyte, baseline, SolverOptions) -> dict:
+    """Every leg of phase 2 that is held against a CPU run, by key: a
+    function of the device returning (record, state or outputs)."""
+    import functools
+
+    P = functools.partial
+    legs = {f"parity {p}": P(_parity_leg, build_idealized, SolverOptions, p)
+            for p in PARITY_PATHS}
+    legs.update({f"refresh {p}": P(_refresh_leg, build_idealized, SolverOptions, p)
+                 for p in REFRESH_PATHS})
+    legs.update({f"astrocyte {n}": P(_astrocyte_leg, build_astrocyte, baseline,
+                                     SolverOptions, n) for n in ("batched", "per_ion")})
+    legs.update({f"options {label}": P(_option_leg, build_idealized, SolverOptions, label)
+                 for label in option_runs()})
+    legs.update({f"cycle {p}: {n}": P(_cycle_leg, build_idealized, SolverOptions, p, n)
+                 for p in CYCLE_PATHS for n in CYCLE_APPLY_CASES})
+    return legs
+
+
+def phase2_cpu(out_dir: str, knobs: str) -> None:
+    """Every leg of :func:`phase2_legs` on the CPU, in order, each written to
+    ``out_dir`` as it ends (:func:`_save_leg`); ``knobs``: the JSON of
+    PHASE2_KNOBS' values in the process that started this one.  Run by
+    :func:`start_phase2_cpu` in a process of its own."""
+    import torch
+
+    from knpemi_tpu_torch.sim import (ASTROCYTE_BASELINE, SolverOptions, build_astrocyte,
+                                      build_idealized)
+
+    globals().update(json.loads(knobs))
+    torch.set_num_threads(WARM_THREADS)
+    legs = phase2_legs(shared_mesh(build_idealized), build_astrocyte, ASTROCYTE_BASELINE,
+                       SolverOptions)
+    for i, (key, leg) in enumerate(legs.items()):
+        _save_leg(Path(out_dir) / f"leg_{i:02d}.npz", key, *leg("cpu"))
+
+
+def _save_leg(path: Path, key: str, rec: dict, payload) -> None:
+    """A leg's key, record (JSON) and final state (``interop.state_to_numpy``,
+    per-tag fields as ``field__tag``) or outputs (``out__i``) as one npz."""
+    import numpy as np
+
+    from knpemi_tpu_torch.interop import state_to_numpy
+
+    if isinstance(payload, tuple):
+        arrays = {f"out__{i}": t.numpy() for i, t in enumerate(payload)}
+    else:
+        arrays = {}
+        for f, v in state_to_numpy(payload).items():
+            if isinstance(v, dict):
+                arrays.update({f"{f}__{k}": a for k, a in v.items()})
+            else:
+                arrays[f] = v
+    np.savez(path, key=key, rec=json.dumps(rec), **arrays)
+
+
+def load_cpu_legs(out_dir) -> dict:
+    """{key: (record, state on the CPU in float64, or the outputs as a
+    tuple)} of every leg :func:`phase2_cpu` wrote to ``out_dir``."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from knpemi_tpu_torch.interop import state_from_numpy
+
+    legs = {}
+    for path in sorted(Path(out_dir).glob("leg_*.npz")):
+        with np.load(path) as f:
+            tree = {}
+            for name in f.files:
+                if name in ("key", "rec"):
+                    continue
+                field, _, tag = name.partition("__")
+                if tag:
+                    tree.setdefault(field, {})[int(tag)] = f[name]
+                else:
+                    tree[field] = f[name]
+            if "out" in tree:
+                payload = tuple(torch.from_numpy(tree["out"][i]) for i in sorted(tree["out"]))
+            else:
+                payload = state_from_numpy(types.SimpleNamespace(**tree), "cpu", torch.float64)
+            legs[str(f["key"])] = (json.loads(str(f["rec"])), payload)
+    return legs
+
+
+def start_phase2_cpu() -> dict:
+    """:func:`phase2_cpu` in a new Python process (its threads capped like a
+    warming process's), writing to a new temporary directory ``w["dir"]``;
+    :func:`finish_phase2_cpu` waits for it."""
+    out = tempfile.mkdtemp(prefix="chip_smoke_phase2_")
+    knobs = json.dumps({k: globals()[k] for k in PHASE2_KNOBS})
+    w = start_warming("phase 2 CPU legs", call=f"phase2_cpu({out!r}, {knobs!r})")
+    w["dir"] = out
+    return w
+
+
+def finish_phase2_cpu(w: dict, timeout: float = 900.0):
+    """Wait for the CPU legs' process (a failed one fails the run with its
+    output, :func:`finish_warming`) and read what it wrote.  Returns
+    (the legs by key, its seconds and the seconds waited here)."""
+    try:
+        timing = finish_warming(w, timeout)
+        legs = load_cpu_legs(w["dir"])
+    finally:
+        shutil.rmtree(w["dir"], ignore_errors=True)
+    missing = set(phase2_keys()) - set(legs)
+    if missing:
+        raise AssertionError(f"the CPU legs' process wrote no record of {sorted(missing)}")
+    return legs, timing
+
+
+def phase2_keys() -> list:
+    """The keys of :func:`phase2_legs`, in order, without building anything."""
+    return list(phase2_legs(None, None, None, None))
 
 
 # the manufactured-solution study: fields, Krylov settings (the JAX
@@ -3774,6 +4062,53 @@ def step_diff(path, top: int = 12):
             top=[dict(name=k[:100], ms=d, parent=a, change=b) for d, k, a, b in moves[:top]]))
 
 
+PHASE_GROUPS = ("environment + kernel build", "drivers (a)-(f)", "launch floor",
+                "res 2, both layouts", "l = 4 box", "flagship, 3 runs", "multi_device",
+                "resume", "campaign", "phase 2", "mms", "drivers (g), (h) and the table")
+
+
+def _phase_group(rec: dict) -> str:
+    ph, path = rec["phase"], str(rec.get("path", ""))
+    if ph == 0:
+        return PHASE_GROUPS[0]
+    if ph == "drivers":
+        return PHASE_GROUPS[1] if "(a" in rec.get("case", "") else PHASE_GROUPS[-1]
+    if ph == 1 and "launch floor" in rec.get("case", ""):
+        return PHASE_GROUPS[2]
+    if ph == 1 and "per solve" in rec.get("case", ""):
+        return PHASE_GROUPS[-1]
+    if path.startswith("flagship") or ph == "tools":
+        return PHASE_GROUPS[5]
+    if ph in (1, 3, 4):
+        return PHASE_GROUPS[4] if path.endswith("l=4") else PHASE_GROUPS[3]
+    return {"multi_device": PHASE_GROUPS[6], "resume": PHASE_GROUPS[7],
+            "campaign": PHASE_GROUPS[8], 2: PHASE_GROUPS[9], "mms": PHASE_GROUPS[10]}[ph]
+
+
+def phase_seconds(path) -> dict:
+    """The seconds of each PHASE_GROUPS group of a smoke run's output file:
+    between the ``script_s`` of its last line and that of the group before
+    it (the first from the script's start); the ``tools`` phase's own
+    seconds beside them, and the script's."""
+    out, last = {}, 0.0
+    for ln in open(path):
+        if not ln.startswith("{"):
+            continue
+        rec = json.loads(ln)
+        if "script_s" not in rec:
+            continue
+        g = _phase_group(rec)
+        if g not in out:
+            out[g] = rec["script_s"] - last
+        else:
+            out[g] += rec["script_s"] - last
+        last = rec["script_s"]
+        if rec["phase"] == "tools":
+            out["of which tools"] = rec["seconds"]
+    out["script (to its last phase line)"] = last
+    return out
+
+
 def main(argv=None) -> int:
     """No arguments: the smoke run.  ``--step-profile ROOT``: only
     :func:`step_profile` for the package under ROOT (a checkout of this
@@ -3783,6 +4118,10 @@ def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--step-diff"] and len(argv) == 2:
         step_diff(argv[1])
+        return 0
+    if argv[:1] == ["--phase-seconds"] and len(argv) >= 2:
+        for path in argv[1:]:
+            print(json.dumps(dict(file=path, **phase_seconds(path))))
         return 0
     try:
         import torch
@@ -3888,6 +4227,8 @@ def main(argv=None) -> int:
     # driven, the P1 operator's kernels (K1, K1f, K11, K11f) on every
     # subdomain -----------------------------------------------------------------
     warmed["box"] = finish_warming(warming["box"])
+    # phase 2's CPU legs, beside the card's runs from here on
+    phase2_side = start_phase2_cpu()
     t0 = time.perf_counter()
     sim = build_idealized(dim=3, resolution=2, l=4, g_syn_bar=10.0,
                           dtype=torch.float32, device="cuda",
@@ -3949,15 +4290,16 @@ def main(argv=None) -> int:
               "float64 accuracy leg + compare; DCP checkpoint", **res,
               seconds=time.perf_counter() - t0))
 
-    # -- phase 2: GPU vs CPU parity, float64 ---------------------------------
+    # -- phase 2: GPU vs CPU parity, float64; the CPU legs ran beside the card
     build_idealized = shared_mesh(build_idealized)
     t0 = time.perf_counter()
-    par = parity(build_idealized, SolverOptions)
-    emit(dict(phase=2, case="3-D res 1 float64", **par,
+    cpu, cpu_timing = finish_phase2_cpu(phase2_side)
+    par = parity(build_idealized, SolverOptions, cpu)
+    emit(dict(phase=2, case="3-D res 1 float64", **par, cpu_legs=cpu_timing,
               seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     emit(dict(phase=2, case="3-D res 1 float64, EMI hierarchy refreshed every 2 steps",
-              **parity_refresh(build_idealized, SolverOptions),
+              **parity_refresh(build_idealized, SolverOptions, cpu),
               seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     emit(dict(phase=2, case="3-D res 1 float32 mg_banded=True, fine slab dtype",
@@ -3965,13 +4307,14 @@ def main(argv=None) -> int:
               seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     emit(dict(phase=2, case="astrocyte tissue mesh_n 20 float64",
-              **parity_astrocyte(build_astrocyte, ASTROCYTE_BASELINE, SolverOptions),
+              **parity_astrocyte(build_astrocyte, ASTROCYTE_BASELINE, SolverOptions, cpu),
               seconds=time.perf_counter() - t0))
     t0 = time.perf_counter()
     emit(dict(phase=2, case="solver options, 1 step (3-D) or 2 (2-D) float64, GPU "
               "against CPU",
-              **parity_options(build_idealized, SolverOptions),
+              **parity_options(build_idealized, SolverOptions, cpu),
               seconds=time.perf_counter() - t0))
+    del cpu
 
     # -- the manufactured-solution study on the card, float64 -----------------
     t0 = time.perf_counter()
@@ -4045,6 +4388,7 @@ def main(argv=None) -> int:
             launches_mms=launches["mms"][name], launches_bench=launches["bench"][name],
             launches_sharded=launches["sharded"][name],
             launches_campaign=launches["campaign"][name],
+            launches_tools=launches["tools"][name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"], floor_ms=floor,
             library_ms=r["library_ms"], variant=r.get("variant"),
@@ -4078,7 +4422,7 @@ def main(argv=None) -> int:
                        ("flagship_per_ion", "flagship per-ion"),
                        ("flagship_banded", "flagship banded"), ("mms", "mms"),
                        ("bench", "bench"), ("sharded", "sharded"),
-                       ("campaign", "campaign"))})
+                       ("campaign", "campaign"), ("tools", "tools"))})
         rb = far_p["B=2 KNP"]
         if rb is not None:
             far["batch"] = {k: rb.get(k) for k in (

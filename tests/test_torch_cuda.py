@@ -805,7 +805,11 @@ def test_cycle_options_apply_matches_the_cpu(opts, banded):
 
     name = "W-cycle" if "gamma" in opts else "cheby"
     assert chip_smoke.CYCLE_APPLY_CASES[name] == opts
-    rec = chip_smoke.cycle_apply_readings(build_idealized, SolverOptions, banded, name)
+    path = "banded" if banded else "ell"
+    # the CPU's leg in this process (the smoke run reads it from its CPU process)
+    cpu = {f"cycle {path}: {name}": chip_smoke._cycle_leg(build_idealized, SolverOptions,
+                                                          path, name, "cpu")}
+    rec = chip_smoke.cycle_apply_readings(build_idealized, SolverOptions, path, name, cpu)
     gamma = opts.get("gamma", 1)
     assert rec["emi"] <= (1e-10 if gamma == 2 else 1e-12)
     assert rec["knp"] <= 1e-12

@@ -9,7 +9,9 @@
   device raise when CUDA is absent, as do the MMS systems
   (``systems/mms.py``, ``emi_system`` / ``knp_system`` with ``mms``) and
   simulations built with the direct, deflated-Jacobi or multigrid
-  options, and the MMS ladder tool (``tools/run_mms_ladder.py``);
+  options, the MMS ladder tool (``tools/run_mms_ladder.py``) and the
+  verification tools (``tools/compare_solver_opts.py``,
+  ``tools/stress_mg_refresh.py``);
 * ``chip_smoke.py`` exits non-zero, printing no result, without CUDA.
 """
 
@@ -151,6 +153,26 @@ def test_mms_and_solver_entry_points_need_cuda(monkeypatch):
     for iterative in (True, False):
         with pytest.raises(RuntimeError, match="CUDA"):
             run_mms_ladder.ladder_rung(4, iterative)
+
+
+def test_verification_tools_need_cuda(monkeypatch):
+    """``compare_solver_opts`` and ``stress_mg_refresh`` build on the card
+    unless asked for the CPU: their builds and their ``main`` without
+    ``--device`` raise where CUDA is absent."""
+    from knpemi_tpu_torch.drivers.run_stim_duration import CONFIG_DIR
+    from knpemi_tpu_torch.sim.config import load_config
+    from knpemi_tpu_torch.tools import compare_solver_opts, stress_mg_refresh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = {**load_config(CONFIG_DIR / "baseline.yml"), "mesh_n": 8}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compare_solver_opts.build(8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        stress_mg_refresh.stress(cfg, 2, 1, 1)
+    for tool in (compare_solver_opts, stress_mg_refresh):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            tool.main(["--mesh-n", "8", "--steps", "2", "--chunk", "1"])
+    assert compare_solver_opts.build(8, device="cpu").device == torch.device("cpu")
 
 
 def test_kernel_sources_present():

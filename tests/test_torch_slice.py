@@ -13,7 +13,9 @@ sign, inherits that error amplified by the cancellation (~10x in the
 ICS, where c_Na ~ 13 against c_K ~ 124 and c_Cl ~ 137): its gate is
 1e-7 of the subdomain's largest concentration.  The port against the
 JAX XLA path, which has no such error, is held to 1e-12 in
-test_torch_slice_xla.py.
+test_torch_slice_xla.py; here the same XLA run beside the Pallas one
+shows that the port's distance to the Pallas path is that path's own
+distance to XLA (``test_pallas_distance_is_the_reference_own``).
 
 Also: a JAX state carried into the port (``interop.state_from_numpy``)
 and stepped once agrees with JAX's own next step.
@@ -108,6 +110,37 @@ def test_step_f64_matches_jax_pallas(runs, step):
     _, statesJ, statesT = runs
     assert_step_close(statesJ[step], statesT[step], phi_atol=1e-8, c_rtol=1e-7,
                       elim_rtol=1e-7, emi_slack=1)
+
+
+@pytest.fixture(scope="module")
+def xla_states():
+    """The JAX XLA path (``use_pallas=False``) of the same scenario."""
+    return run_jax(jax_simulation(jnp.float64, use_pallas=False), N_STEPS)
+
+
+FIELDS = ("c", "phi", "phi_M", "ode_states")
+
+
+def test_pallas_distance_is_the_reference_own(runs, xla_states):
+    """Every field at every step: the port within 1e-12 of the XLA run (of
+    the field's largest value); the port's distance to the Pallas run no
+    larger, element by element, than XLA's distance to it (+ 1e-12 of the
+    field's largest value); and the eliminated ion in the ICS, where the
+    Pallas gate is 1e-7, more than 1e-7 of its largest value apart between
+    the reference's two paths: the distance is the reference's own."""
+    _, pallas, port = runs
+    for step, (sP, sX, sT) in enumerate(zip(pallas, xla_states, port)):
+        for f in FIELDS:
+            for k, vX in getattr(sX, f).items():
+                x, p = np.asarray(vX), np.asarray(getattr(sP, f)[k])
+                t = getattr(sT, f)[k].numpy()
+                scale = np.abs(x).max()
+                assert np.abs(t - x).max() <= 1e-12 * scale, (step, f, k)
+                assert (np.abs(t - p) <= np.abs(x - p) + 1e-12 * scale).all(), (step, f, k)
+        for k, c in sX.c.items():
+            if k != 0:
+                x, p = np.asarray(c)[-1], np.asarray(sP.c[k])[-1]
+                assert np.abs(x - p).max() > 1e-7 * np.abs(x).max(), (step, k)
 
 
 def test_carry_over_from_jax_state(runs):

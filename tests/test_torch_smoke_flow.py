@@ -7,11 +7,26 @@ to run without CUDA.
 """
 
 import inspect
+from pathlib import Path
 import sys
 
 import pytest
 
 import chip_smoke
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """One intra-op thread a test: the flows are thousands of small ops,
+    which the threads of several test processes on one host slow down
+    (the drivers flow: 37 s alone with one thread, 875 s with the default
+    threads among six test processes on one host)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_flagship_is_fixed_at_full_width():
@@ -451,3 +466,167 @@ def test_shared_mesh_builds_step_as_builds_from_scratch():
         a, b = shared.run(shared.init_state(), 2)[0], fresh.run(fresh.init_state(), 2)[0]
         for f in ("phi", "phi_M", "c"):
             assert all(torch.equal(getattr(a, f)[k], getattr(b, f)[k]) for k in getattr(b, f))
+
+
+def _phase2_cut(monkeypatch):
+    """Phase 2 on the CPU at a small size: the card's legs on the CPU, the
+    3-D res-1 case cut to 2-D res 1, the tissue to mesh_n 8, one option of
+    each table and one cycle case (the CPU legs' process is handed the same
+    constants)."""
+    monkeypatch.setattr(chip_smoke, "PHASE2_DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "PARITY_CASE", dict(dim=2, resolution=1, g_syn_bar=10.0))
+    monkeypatch.setattr(chip_smoke, "PARITY_ASTRO_MESH_N", 8)
+    monkeypatch.setattr(chip_smoke, "OPTION_CASES", {"W-cycle": dict(gamma=2)})
+    monkeypatch.setattr(chip_smoke, "OPTION_CASES_2D", {
+        "emi_precond=jacobi": dict(emi_precond="jacobi", maxiter=4000)})
+    monkeypatch.setattr(chip_smoke, "CYCLE_APPLY_CASES", {"W-cycle": dict(gamma=2)})
+
+
+def test_phase2_flow_reads_the_cpu_legs_process_files(monkeypatch):
+    """Phase 2's CPU legs in their own process, the card's legs (here on
+    the CPU) held against what it wrote: every case passes, each CPU record
+    in the phase's lines is the one read from the process's file, and an
+    iteration count changed in what was read fails the comparison."""
+    from knpemi_tpu_torch.sim import (ASTROCYTE_BASELINE, SolverOptions, build_astrocyte,
+                                      build_idealized)
+
+    _phase2_cut(monkeypatch)
+    read = {}
+    load = chip_smoke.load_cpu_legs
+
+    def recording_load(out_dir):
+        legs = load(out_dir)
+        read.update(files=sorted(p.name for p in Path(out_dir).glob("leg_*.npz")), legs=legs)
+        return legs
+
+    monkeypatch.setattr(chip_smoke, "load_cpu_legs", recording_load)
+    w = chip_smoke.start_phase2_cpu()
+    cpu, timing = chip_smoke.finish_phase2_cpu(w)
+    assert not Path(w["dir"]).exists() and not chip_smoke._WARMERS
+    assert cpu is read["legs"] and list(cpu) == chip_smoke.phase2_keys()
+    assert read["files"] == [f"leg_{i:02d}.npz" for i in range(len(cpu))]
+    assert timing["seconds"] > 0
+    build = chip_smoke.shared_mesh(build_idealized)
+    par = chip_smoke.parity(build, SolverOptions, cpu)
+    for path in chip_smoke.PARITY_PATHS:
+        assert par[f"{path}_cpu"] is cpu[f"parity {path}"][0]
+        assert par[f"{path}_cpu"]["seconds"] != par[f"{path}_cuda"]["seconds"]
+    ref = chip_smoke.parity_refresh(build, SolverOptions, cpu)
+    assert ref["ell_cpu"]["refresh_counts"] == {"installed": 2, "skipped": 0}
+    ast = chip_smoke.parity_astrocyte(build_astrocyte, ASTROCYTE_BASELINE, SolverOptions, cpu)
+    assert ast["per_ion_cpu"] is cpu["astrocyte per_ion"][0]
+    opt = chip_smoke.parity_options(build, SolverOptions, cpu)
+    assert all(opt[label]["cpu"] is cpu[f"options {label}"][0]
+               for label in chip_smoke.option_runs())
+    rec, state = cpu["parity ell"]
+    cpu["parity ell"] = ({**rec, "knp_iters": [k + 1 for k in rec["knp_iters"]]}, state)
+    with pytest.raises(AssertionError, match="iteration counts differ"):
+        chip_smoke.parity(build, SolverOptions, cpu)
+
+
+def test_a_failing_cpu_legs_process_fails_the_run(monkeypatch):
+    """A CPU leg that raises fails the run with the process's output."""
+    _phase2_cut(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "PARITY_CASE", dict(dim=2, resolution=1, g_syn_bar=10.0,
+                                                        no_such_argument=1))
+    w = chip_smoke.start_phase2_cpu()
+    with pytest.raises(AssertionError, match="no_such_argument"):
+        chip_smoke.finish_phase2_cpu(w, timeout=300)
+    assert not Path(w["dir"]).exists() and not chip_smoke._WARMERS
+
+
+def test_phase2_cases_and_gates_are_unchanged():
+    """The CPU legs cover every case phase 2 held GPU against CPU before
+    they moved to their own process, at the same sizes, steps and gates."""
+    assert chip_smoke.PHASE2_DEVICE == "cuda"
+    assert chip_smoke.PARITY_CASE == dict(dim=3, resolution=1, g_syn_bar=10.0)
+    assert chip_smoke.PARITY_ASTRO_MESH_N == 20
+    options = ["mg_smoother=cheby", "mg_nu=2", "knp_post_smooth=False", "W-cycle",
+               "compensated_dots=True"]
+    assert list(chip_smoke.OPTION_CASES) == options and chip_smoke.OPTION_STEPS_3D == 1
+    assert list(chip_smoke.OPTION_CASES_2D) == ["direct=True", "emi_precond=jacobi"]
+    assert chip_smoke.CYCLE_APPLY_TOL == {"emi": 1e-12, "knp": 1e-12, "emi W": 1e-10}
+    assert chip_smoke.phase2_keys() == [
+        "parity ell", "parity banded", "parity banded_per_ion", "refresh ell",
+        "refresh banded", "astrocyte batched", "astrocyte per_ion",
+        *(f"options 3-D res 1 {p}: {n}" for p in ("ell", "banded") for n in options),
+        "options 2-D res 1: direct=True", "options 2-D res 1: emi_precond=jacobi",
+        *(f"cycle {p}: {n}" for p in ("ell", "banded") for n in ("cheby", "W-cycle"))]
+    runs = chip_smoke.option_runs()
+    assert {steps for _, steps, _ in runs.values()} == {1, 2}
+    assert [steps for label, (_, steps, _) in runs.items() if label.startswith("2-D")] == [2, 2]
+    # the phase-2 gates: 1e-9 in phi_M and relative in c
+    import types
+
+    import torch
+
+    one = lambda v: types.SimpleNamespace(phi_M={1: torch.tensor([v])},
+                                          c={0: torch.tensor([[1.0]])})
+    chip_smoke.gpu_vs_cpu(one(1e-9), one(0.0), "gate")
+    with pytest.raises(AssertionError, match="gates 1e-9"):
+        chip_smoke.gpu_vs_cpu(one(2e-9), one(0.0), "gate")
+
+
+def test_tools_phase_flow_on_the_cpu(monkeypatch):
+    """The ``tools`` phase's flow at mesh_n 8 on the CPU (the CPU launches no
+    kernel, so none is required): compare from the batched run's last
+    state under the 1e-5 gate with the tuned leg's first step the
+    simulation's own, and the stress legs on a build from the batched
+    build's inputs: 2 refreshes installed, ECS K+ up by more than 1 mM.
+    Float64: at this size float32 rounding alone moves phi_e by more than
+    the gate between any two option sets whose iteration counts differ
+    (the card's float32 run is at mesh_n 64)."""
+    import torch
+
+    from knpemi_tpu_torch.parallel.programs import simulation_inputs
+    from knpemi_tpu_torch.sim import ASTROCYTE_BASELINE, SolverOptions, build_astrocyte
+    from knpemi_tpu_torch.sim.scenarios import K_E_INIT_A
+
+    monkeypatch.setattr(chip_smoke, "reachable_kernels", lambda sim: set())
+    monkeypatch.setattr(chip_smoke, "TOOLS_PATH", ())
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda *a, **k: None)
+    config = {**ASTROCYTE_BASELINE, "mesh_n": 8}
+    sim = build_astrocyte(config, dtype=torch.float64, device="cpu",
+                          solver_options=SolverOptions(knp_batched=True, **chip_smoke.TUNED))
+    state = sim.run(sim.init_state(), 22)[0]
+    rec = chip_smoke.tools_phase(sim, simulation_inputs(sim), state, config)
+    assert not any(rec["launches"].values())
+    cmp, st = rec["compare"], rec["stress"]
+    assert cmp["passed"] and cmp["tuned_first_step_is_own_step"] and cmp["from_step"] == 22
+    assert cmp["options"]["tuned"]["min_iter_knp"] == 2
+    assert cmp["options"]["parity"]["rtol_knp"] == 1e-7
+    assert [len(cmp["emi_iters"][leg]) for leg in ("parity", "tuned")] == [10, 10]
+    assert st["refresh_counts"] == {"installed": 2, "skipped": 0} and not st["mg_refresh_async"]
+    assert len(st["chunks"]) == 3 and st["chunks"][-1]["k_e_max_stale"] > K_E_INIT_A + 1.0
+    # the simulation keeps its own options
+    assert (sim.knp_solver.min_iter, sim.knp_solver.rtol, sim.emi_solver.rtol) == (2, 3e-6, 1e-5)
+
+
+def test_phase_seconds_groups_a_smoke_runs_lines(tmp_path, capsys):
+    """``--phase-seconds``: each group's seconds from the ``script_s`` of its
+    last line less the group before's; the tools phase is the flagship's,
+    its own seconds beside; lines without ``script_s`` are skipped."""
+    import json
+
+    lines = [dict(phase=0, case="environment", script_s=1.0), dict(phase=0, script_s=3.0),
+             dict(phase="drivers", case="run_benchmark (a-c)", script_s=10.0),
+             dict(phase=1, case="launch floor", script_s=11.0),
+             dict(phase=1, path="mg_banded=False", script_s=15.0),
+             dict(phase=3, path="mg_banded=True", script_s=20.0),
+             dict(phase=1, path="mg_banded=True l=4", script_s=30.0),
+             dict(phase=1, path="flagship batched", script_s=40.0),
+             dict(phase="tools", seconds=6.5, script_s=50.0),
+             dict(phase=3, path="flagship banded", script_s=60.0),
+             dict(phase="multi_device", script_s=70.0), dict(phase="resume", script_s=75.0),
+             dict(phase="campaign", script_s=77.0), dict(phase=2, script_s=80.0),
+             dict(phase=2, script_s=90.0), dict(phase="mms", script_s=95.0),
+             dict(phase="drivers", case="the native sweep (g)", script_s=95.5),
+             dict(phase=1, case="P1 operator per solve", script_s=96.0)]
+    path = tmp_path / "smoke.txt"
+    path.write_text("NVIDIA H100\n" + "\n".join(map(json.dumps, lines))
+                    + '\n{"kernels": []}\n')
+    assert chip_smoke.main(["--phase-seconds", str(path)]) == 0
+    rec = json.loads(capsys.readouterr().out)
+    want = [3.0, 7.0, 1.0, 9.0, 10.0, 30.0, 10.0, 5.0, 2.0, 13.0, 5.0, 1.0]
+    assert [rec[g] for g in chip_smoke.PHASE_GROUPS] == want
+    assert rec["of which tools"] == 6.5 and rec["script (to its last phase line)"] == 96.0
